@@ -1,0 +1,113 @@
+"""Federated dataset containers (port of ``fedml_tpu/data/base.py``).
+
+Non-IID client shards are ragged; each round the sampled clients are padded
+to a bucketed common step count and carry a float mask, so every loss is a
+mask-weighted mean and padding never changes the math. The shape contract
+(:func:`size_class`, :func:`bucket_steps`) is the reference's, line for
+line: the same cohort gives the same [C, S, B] shapes in both packages."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence
+
+import numpy as np
+
+
+def _ceil_to(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << (x - 1).bit_length() if x > 1 else 1
+
+
+def size_class(n: int) -> int:
+    """Power of two up to 16, multiples of 8 above — the size-class policy
+    for local-step counts."""
+    return _next_pow2(n) if n <= 16 else _ceil_to(n, 8)
+
+
+def bucket_steps(ns: Sequence[int], batch_size: int, pad_bucket: int):
+    """Per-client sample counts → (steps, bs, cap) of the stacked batch.
+    ``batch_size == -1`` = full batch (one step of every sample); otherwise
+    the step count is size-class bucketed."""
+    max_n = max(ns)
+    bs = max_n if batch_size == -1 else batch_size
+    steps = _ceil_to(_ceil_to(max_n, bs) // bs, pad_bucket)
+    if batch_size != -1:
+        steps = size_class(steps)
+    return steps, bs, steps * bs
+
+
+@dataclasses.dataclass
+class ClientBatch:
+    """Dense data for a set of sampled clients: x [C, S, B, *feat],
+    y [C, S, B, *lab], mask [C, S, B] float32, num_samples [C] float32.
+    Padded entries have mask 0. Host stacking yields numpy arrays, the
+    device store torch tensors on its device."""
+
+    x: object
+    y: object
+    mask: object
+    num_samples: np.ndarray
+
+    @property
+    def num_clients(self) -> int:
+        return self.x.shape[0]
+
+
+@dataclasses.dataclass
+class FederatedDataset:
+    """Host-side federated dataset: one (x, y) numpy shard per client plus a
+    central test set."""
+
+    name: str
+    client_x: List[np.ndarray]
+    client_y: List[np.ndarray]
+    test_x: np.ndarray
+    test_y: np.ndarray
+    num_classes: int
+
+    @property
+    def num_clients(self) -> int:
+        return len(self.client_x)
+
+    @property
+    def train_sample_counts(self) -> np.ndarray:
+        return np.array([len(y) for y in self.client_y], dtype=np.int64)
+
+
+def stack_clients(
+    data: FederatedDataset,
+    client_indices: Sequence[int],
+    batch_size: int,
+    seed: int = 0,
+    pad_bucket: int = 1,
+) -> ClientBatch:
+    """Dense numpy ClientBatch for the sampled clients: each client's rows in
+    a ``default_rng(seed)`` permutation order, zero-padded to the bucketed
+    capacity. The reference gathers the rows with its native threaded
+    gather; numpy fancy indexing selects the same rows."""
+    ns = [len(data.client_y[i]) for i in client_indices]
+    steps, bs, cap = bucket_steps(ns, batch_size, pad_bucket)
+    rng = np.random.default_rng(seed)
+    first = client_indices[0]
+    feat_shape = data.client_x[first].shape[1:]
+    lab_shape = data.client_y[first].shape[1:]
+    C = len(client_indices)
+    x = np.zeros((C, cap) + feat_shape, dtype=data.client_x[first].dtype)
+    y = np.zeros((C, cap) + lab_shape, dtype=data.client_y[first].dtype)
+    mask = np.zeros((C, cap), dtype=np.float32)
+    for j, ci in enumerate(client_indices):
+        n = ns[j]
+        order = rng.permutation(n)
+        x[j, :n] = data.client_x[ci][order]
+        y[j, :n] = data.client_y[ci][order]
+        mask[j, :n] = 1.0
+    return ClientBatch(
+        x=x.reshape((C, steps, bs) + feat_shape),
+        y=y.reshape((C, steps, bs) + lab_shape),
+        mask=mask.reshape((C, steps, bs)),
+        num_samples=np.array(ns, dtype=np.float32),
+    )

@@ -1,0 +1,45 @@
+"""Device resolution and the fp32 math policy.
+
+Entry points take an explicit ``device``. ``None`` means the card: the port
+is written for one H100 and never drops to the CPU on its own — a caller
+that wants the CPU (the tests, a parity check) says so."""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, Optional, Union
+
+import torch
+
+DeviceLike = Optional[Union[str, torch.device]]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` → ``cuda``; raise ``RuntimeError`` when CUDA is asked for
+    and there is no card (no silent CPU fallback)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "fedml_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU explicitly"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    return dev
+
+
+@contextlib.contextmanager
+def fp32_math() -> Iterator[None]:
+    """Within the block, float32 convolutions and matmuls run in full
+    float32: cuDNN's TF32 (PyTorch's default for convolutions) and cuBLAS
+    TF32 are switched off, then restored. TF32 keeps ~3 decimal digits,
+    which would make "float32" on the card a different computation from
+    float32 on the CPU and in the JAX reference (the port computes in
+    float32 only so far). No effect on the CPU."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -1,0 +1,37 @@
+"""Build and load the port's CUDA kernels at first use.
+
+Each ``ops/csrc/<name>.cu`` has a plain C interface (no PyTorch headers, so
+``nvcc`` takes seconds, not minutes). It is compiled for ``sm_90a`` by
+``torch.utils.cpp_extension.load`` into ``ops/build/<name>/`` — listed in
+.gitignore, rebuilt whenever the source changes — and its functions are
+bound with ``ctypes``. Nothing is built when the package is imported:
+only a wrapper called on a CUDA tensor gets here. A build failure raises;
+there is no fallback to a plain version."""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+_HERE = Path(__file__).resolve().parent
+CSRC_DIR = _HERE / "csrc"
+BUILD_DIR = _HERE / "build"
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+
+
+def load_kernel_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its build is missing or stale, and load
+    it. ``load`` serialises concurrent builds with a lock file in the build
+    directory; callers bind the library once (functools.cache)."""
+    from torch.utils.cpp_extension import load
+
+    build_dir = BUILD_DIR / name
+    build_dir.mkdir(parents=True, exist_ok=True)  # load does not create it
+    path = load(
+        name=f"fedml_tpu_torch_{name}",
+        sources=[str(CSRC_DIR / f"{name}.cu")],
+        build_directory=str(build_dir),
+        extra_cuda_cflags=CUDA_FLAGS,
+        is_python_module=False,
+    )
+    return ctypes.CDLL(path)

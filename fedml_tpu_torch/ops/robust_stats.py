@@ -1,0 +1,143 @@
+"""Rank-selection kernel K1 for the Byzantine-robust aggregators (port of
+``fedml_tpu/ops/robust_stats.py``).
+
+Coordinate-wise median and trimmed mean reduce a [C, D] stack of client
+updates along the small client axis (C = cohort) independently per
+coordinate (D = flattened model, millions). No sort is needed: per
+coordinate only *which* values survive the trim window matters, and a
+value's stable rank in a C-element column is a comparison count:
+
+    rank_i = #{j : x_j < x_i} + #{j < i : x_j == x_i}
+    out    = sum over i in index order of (k <= rank_i < C - k ? x_i : 0) / (C - 2k)
+
+The stable tie-break keeps exactly the multiset a stable sort's
+``s[k : C-k]`` window keeps. Median is the same at ``k = (C-1)//2`` (odd
+C) or ``C//2 - 1`` (even C: the mean of the two middle values).
+
+Three versions of one function:
+
+- the CUDA kernel ``csrc/robust_stats.cu`` (Hopper, ``sm_90a``), launched
+  by :func:`trimmed_mean_1d` for a CUDA tensor;
+- :func:`trimmed_mean_plain`, the same stable-rank compare-accumulate in
+  PyTorch, vectorised over D, in the same order — bit-identical to the
+  kernel; :func:`trimmed_mean_1d` uses it for a CPU tensor;
+- :func:`trimmed_mean_sort`, the sort-based definition, for the tests.
+
+``LAUNCHES`` counts kernel launches (only the CUDA branch of
+:func:`trimmed_mean_1d` adds to it), so a run can show that it went
+through the kernel."""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict
+
+import torch
+
+from fedml_tpu_torch.ops._build import load_kernel_library
+
+# The kernel keeps a column in a per-thread shared-memory tile; C above this
+# cap raises (csrc/robust_stats.cu kMaxClients).
+MAX_CLIENTS = 64
+KERNEL_NAME = "robust_stats.trimmed_mean"
+LAUNCHES: Dict[str, int] = {KERNEL_NAME: 0}
+
+_BLOCK = 128  # threads per block (csrc kThreads)
+_BLOCKS_PER_SM = 16
+
+
+def _check(C: int, trim_k: int) -> None:
+    if trim_k < 0 or 2 * trim_k >= C:
+        raise ValueError(f"need 0 <= trim_k < C/2; got trim_k={trim_k}, C={C}")
+    if C > MAX_CLIENTS:
+        raise ValueError(
+            f"trimmed_mean_1d supports at most {MAX_CLIENTS} clients "
+            f"(the K1 kernel's cap); got C={C}"
+        )
+
+
+def trimmed_mean_plain(x: torch.Tensor, trim_k: int) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch, on x [C, D] fp32 on any device:
+    stable ranks by comparison counts, kept values added in index order
+    (0 added for a dropped one), one true division at the end."""
+    C = x.shape[0]
+    acc = torch.zeros(x.shape[1:], dtype=torch.float32, device=x.device)
+    for i in range(C):
+        xi = x[i]
+        rank = (x[:i] <= xi).sum(dim=0) + (x[i + 1 :] < xi).sum(dim=0)
+        keep = (rank >= trim_k) & (rank < C - trim_k)
+        acc = acc + torch.where(keep, xi, torch.zeros_like(xi))
+    # divide by a full tensor: a Python-scalar divisor may be turned into a
+    # multiply by its reciprocal, which is not the kernel's IEEE division
+    return acc / torch.full_like(acc, float(C - 2 * trim_k))
+
+
+def trimmed_mean_sort(x: torch.Tensor, trim_k: int) -> torch.Tensor:
+    """The definition: sort each column, average the ``s[k:C-k]`` window
+    (its sum over a true division, so integer-valued inputs give the exact
+    mean on every device: a CUDA ``mean`` multiplies by 1/n)."""
+    C = x.shape[0]
+    s = torch.sort(x.float(), dim=0).values[trim_k : C - trim_k].sum(dim=0)
+    return s / torch.full_like(s, float(C - 2 * trim_k))
+
+
+@functools.cache
+def _kernel_fn():
+    """Build (at first use) and bind K1's C entry point."""
+    lib = load_kernel_library("robust_stats")
+    if lib.fedml_robust_stats_max_clients() != MAX_CLIENTS:
+        raise RuntimeError("csrc/robust_stats.cu kMaxClients disagrees with MAX_CLIENTS")
+    fn = lib.fedml_trimmed_mean_f32
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x: torch.Tensor, trim_k: int) -> torch.Tensor:
+    C, D = x.shape
+    out = torch.empty(D, dtype=torch.float32, device=x.device)
+    if D == 0:
+        return out
+    fn = _kernel_fn()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = min(-(-D // _BLOCK), sms * _BLOCKS_PER_SM)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), C, D, trim_k, grid, stream)
+    if err != 0:
+        raise RuntimeError(f"K1 trimmed_mean kernel launch failed: cudaError {err}")
+    LAUNCHES[KERNEL_NAME] += 1
+    return out
+
+
+def trimmed_mean_1d(x: torch.Tensor, trim_k: int) -> torch.Tensor:
+    """Per-coordinate trimmed mean of x [C, D] over axis 0: drop the
+    ``trim_k`` largest and smallest values per coordinate, average the
+    rest. Output [D] float32. Runs the CUDA kernel for a CUDA tensor and
+    the plain version for a CPU tensor; nothing else."""
+    C = x.shape[0]
+    _check(C, trim_k)
+    x = x.float().contiguous()
+    if x.is_cuda:
+        return _launch(x, trim_k)
+    if x.device.type == "cpu":
+        return trimmed_mean_plain(x, trim_k)
+    raise ValueError(f"trimmed_mean_1d: unsupported device {x.device}")
+
+
+def median_trim_k(C: int) -> int:
+    """The trim window that makes :func:`trimmed_mean_1d` the median: keep
+    the middle value (odd C) or average the two middle values (even C)."""
+    return (C - 1) // 2 if C % 2 else C // 2 - 1
+
+
+def median_1d(x: torch.Tensor) -> torch.Tensor:
+    """Per-coordinate median of x [C, D] over axis 0."""
+    C = x.shape[0]
+    if C == 1:
+        return x.float()[0]
+    return trimmed_mean_1d(x, median_trim_k(C))

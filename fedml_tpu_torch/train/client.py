@@ -1,0 +1,168 @@
+"""Local (client) training (port of ``fedml_tpu/train/client.py``).
+
+``make_local_train(model, tc, epochs)`` returns the per-client training
+function ``(variables, x, y, mask, epoch_perm) -> (variables', metrics)``
+with x [S, B, *feat], y [S, B], mask [S, B]; metrics are SUMS
+{loss_sum, correct, count, steps} so they add up exactly across clients.
+The reference runs the steps as a ``lax.scan``; here they are a Python loop
+of eager steps, and an all-padding step is skipped on the host — a complete
+no-op for params, optimizer state and metrics, as the reference's
+``lax.cond`` skip branch is (``client.py:224-271``).
+
+The epoch shuffle is a hook. The reference draws it from JAX's threefry
+stream (``masked_epoch_perm``, ``client.py:141-154``), which PyTorch cannot
+reproduce, so the port takes ``epoch_perm(epoch, mask_flat) -> perm`` from
+the caller. The default, :func:`seeded_perm_fn`, keeps the reference's
+contract with a seeded CPU ``torch.Generator``: one uniform key per slot,
+``+inf`` on padded slots, stable argsort — valid samples fill the first
+minibatches in a random order, padding sorts last."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from fedml_tpu_torch.models import ModelDef
+from fedml_tpu_torch.train import losses as L
+from fedml_tpu_torch.train.optim import apply_updates, build_client_optimizer
+
+# (epoch, mask_flat [S*B] float32 on the CPU) -> perm [S*B] int64 on the CPU
+EpochPerm = Callable[[int, torch.Tensor], torch.Tensor]
+# (round, client_slot, epoch, mask_flat) -> perm: a round-level source
+PermFn = Callable[[int, int, int, torch.Tensor], torch.Tensor]
+
+
+def masked_epoch_perm(generator: torch.Generator, m_flat: torch.Tensor) -> torch.Tensor:
+    """The shuffle contract: a uniform key per slot from ``generator``,
+    ``+inf`` on padded slots, stable argsort (padding sorts last)."""
+    keys = torch.rand(m_flat.shape, generator=generator)
+    keys = torch.where(m_flat > 0, keys, torch.full_like(keys, float("inf")))
+    return torch.argsort(keys, stable=True)
+
+
+def seeded_perm_fn(seed: int) -> PermFn:
+    """The port's default shuffle source: a CPU generator seeded from
+    (seed, round, client slot, epoch), so the stream is the same whichever
+    device trains."""
+
+    def perm_fn(round_idx, slot, epoch, m_flat):
+        key = np.random.SeedSequence([seed, round_idx, slot, epoch]).generate_state(1)[0]
+        return masked_epoch_perm(torch.Generator().manual_seed(int(key)), m_flat)
+
+    return perm_fn
+
+
+def make_task_loss(task: str) -> Callable:
+    """task → (loss, correct, total); classification only so far."""
+    if task != "classification":
+        raise NotImplementedError(
+            f"task {task!r} is not ported yet (ROADMAP.md); the port has classification"
+        )
+
+    def classification(logits, y, mask):
+        loss = L.masked_softmax_ce(logits, y, mask)
+        correct, total = L.masked_accuracy_stats(logits, y, mask)
+        return loss, correct, total
+
+    return classification
+
+
+def make_mixed_forward(model: ModelDef, tc) -> Callable:
+    """``fwd(params, xb) -> logits``. The reference casts to
+    ``tc.compute_dtype`` here and augments; the port runs float32 only so
+    far (mixed precision and augmentation are still to port)."""
+    if tc.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype {tc.compute_dtype!r} is not ported yet (ROADMAP.md); "
+            "the port computes in float32"
+        )
+    if tc.augment != "none":
+        raise NotImplementedError("augmentation is not ported yet (ROADMAP.md)")
+    return lambda params, xb: model.apply(params, xb, train=True)[0]
+
+
+class LocalTrain:
+    """The per-client training function (see the module docstring).
+    :meth:`run_epochs` is the same loop with the optimizer state in and
+    out, for callers that carry it."""
+
+    def __init__(self, model: ModelDef, tc, epochs: int, task: str = "classification"):
+        self.tc = tc
+        self.epochs = epochs
+        self.opt = build_client_optimizer(tc)
+        self.task_loss = make_task_loss(task)
+        self.fwd = make_mixed_forward(model, tc)
+
+    def _step(self, params, opt_state, xb, yb, mb, prox_ref):
+        tc = self.tc
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        logits = self.fwd(p, xb)
+        task_l, correct, total = self.task_loss(logits, yb, mb)
+        loss = task_l
+        if tc.prox_mu:
+            loss = loss + 0.5 * tc.prox_mu * L.tree_sq_dist(p, prox_ref)
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        with torch.no_grad():
+            updates, opt_state = self.opt.update(grads, opt_state, params)
+            new_params = apply_updates(params, updates)
+            # task_l (not loss) feeds the metrics, as in the reference
+            mets = torch.stack([task_l * total, correct, total, torch.ones_like(total)])
+        return new_params, opt_state, mets
+
+    def run_epochs(
+        self,
+        params: Dict[str, torch.Tensor],
+        opt_state,
+        x: torch.Tensor,
+        y: torch.Tensor,
+        mask: torch.Tensor,
+        epoch_perm: EpochPerm,
+        mask_host: Optional[torch.Tensor] = None,
+    ):
+        """→ (params', opt_state', mets [4] = loss_sum, correct, count,
+        steps). ``mask_host`` is ``mask`` on the CPU when the caller has it
+        (it decides, with the permutation, which steps hold data)."""
+        S, B = mask.shape[0], mask.shape[1]
+        n_flat = S * B
+        x_flat = x.reshape((n_flat,) + tuple(x.shape[2:]))
+        y_flat = y.reshape((n_flat,) + tuple(y.shape[2:]))
+        m_flat = mask.reshape(n_flat)
+        m_host = (mask_host if mask_host is not None else mask).reshape(n_flat).cpu()
+        prox_ref = {k: v.detach() for k, v in params.items()}
+        mets = torch.zeros(4, dtype=torch.float32, device=mask.device)
+        for epoch in range(self.epochs):
+            perm_host = epoch_perm(epoch, m_host)
+            has_data = (m_host[perm_host].reshape(S, B).sum(dim=1) > 0).tolist()
+            perm = perm_host.to(mask.device)
+            xe = x_flat[perm].reshape(x.shape)
+            ye = y_flat[perm].reshape(y.shape)
+            me = m_flat[perm].reshape(mask.shape)
+            for s in range(S):
+                if not has_data[s]:
+                    continue  # all-padding step: a complete no-op
+                params, opt_state, step_mets = self._step(
+                    params, opt_state, xe[s], ye[s], me[s], prox_ref
+                )
+                mets = mets + step_mets
+        return params, opt_state, mets
+
+    def __call__(self, variables, x, y, mask, epoch_perm: EpochPerm, mask_host=None):
+        params, _, mets = self.run_epochs(
+            variables, self.opt.init(variables), x, y, mask, epoch_perm, mask_host
+        )
+        # "steps" = effective local optimizer steps (all-padding steps are
+        # skipped and not counted) — FedNova's τ_i normalizer
+        metrics = {
+            "loss_sum": mets[0],
+            "correct": mets[1],
+            "count": mets[2],
+            "steps": mets[3],
+        }
+        return params, metrics
+
+
+def make_local_train(model: ModelDef, tc, epochs: int, task: str = "classification") -> LocalTrain:
+    """Build the per-client training function (see :class:`LocalTrain`)."""
+    return LocalTrain(model, tc, epochs, task=task)

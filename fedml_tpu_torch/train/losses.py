@@ -1,0 +1,32 @@
+"""Mask-weighted losses and metrics (port of ``fedml_tpu/train/losses.py``,
+the classification and proximal-term parts). Zero-padded examples carry
+mask 0 and contribute nothing."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+
+def _safe_div(num, den):
+    return num / torch.clamp(den, min=1e-9)
+
+
+def masked_softmax_ce(logits, labels, mask):
+    """Mean CE over masked examples. labels: int [B]; mask: float [B]."""
+    per_ex = F.cross_entropy(logits, labels.long(), reduction="none")
+    return _safe_div(torch.sum(per_ex * mask), torch.sum(mask))
+
+
+def masked_accuracy_stats(logits, labels, mask):
+    """(correct_count, total_count) as float32 sums."""
+    pred = torch.argmax(logits, dim=-1)
+    correct = torch.sum((pred == labels.long()).to(torch.float32) * mask)
+    return correct, torch.sum(mask)
+
+
+def tree_sq_dist(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
+    """Σ over leaves of ‖a − b‖² (the FedProx proximal distance)."""
+    return sum(torch.sum(torch.square(a[k] - b[k])) for k in a)

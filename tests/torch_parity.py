@@ -1,0 +1,130 @@
+"""Shared inputs for the parity tests of the PyTorch port
+(tests/test_torch_*.py): the reference's shuffle permutations, computed with
+JAX and handed to the port, and the small FedAvg slice both packages run.
+
+The port cannot reproduce JAX's threefry stream, so its local train takes a
+permutation source ``perm_fn(round, client_slot, epoch, mask_flat)``; these
+helpers feed it exactly the permutations the reference draws
+(``fold_in(split(fold_in(PRNGKey(seed), r + 1), C)[j], epoch)``,
+fedml_tpu/algorithms/fedavg.py ``_round_placed`` and
+fedml_tpu/train/client.py ``masked_epoch_perm``)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def jax_epoch_perm(client_rng, epoch: int, m_flat: torch.Tensor) -> torch.Tensor:
+    """The reference's epoch permutation for one client key."""
+    import jax
+    import jax.numpy as jnp
+
+    from fedml_tpu.train.client import masked_epoch_perm
+
+    perm = masked_epoch_perm(
+        jax.random.fold_in(client_rng, epoch), jnp.asarray(m_flat.numpy())
+    )
+    return torch.from_numpy(np.asarray(perm).astype(np.int64))
+
+
+def jax_round_perm_fn(seed: int, cohort: int):
+    """``perm_fn`` for the port's FedAvgAPI that yields the reference
+    FedAvgAPI's permutations for run seed ``seed`` and cohort size
+    ``cohort``."""
+    import jax
+
+    base = jax.random.PRNGKey(seed)
+
+    def perm_fn(round_idx, slot, epoch, m_flat):
+        rngs = jax.random.split(jax.random.fold_in(base, round_idx + 1), cohort)
+        return jax_epoch_perm(rngs[slot], epoch, m_flat)
+
+    return perm_fn
+
+
+# the whole-slice comparison: femnist_synthetic(12 clients, 40 mean samples),
+# 4 clients per round, batch 20, E=1, SGD lr 0.1, the 62-class CNN, 3 rounds
+SLICE = dict(num_clients=12, mean_samples=40, per_round=4, rounds=3, seed=0)
+
+
+def _slice_config(cfg_mod):
+    return cfg_mod.RunConfig(
+        data=cfg_mod.DataConfig(batch_size=20),
+        fed=cfg_mod.FedConfig(
+            client_num_in_total=SLICE["num_clients"],
+            client_num_per_round=SLICE["per_round"],
+            comm_round=SLICE["rounds"],
+            epochs=1,
+        ),
+        train=cfg_mod.TrainConfig(lr=0.1),
+        seed=SLICE["seed"],
+    )
+
+
+def run_slice(robust: dict | None = None):
+    """Run the slice through the reference and through the port on the CPU,
+    from the reference's init and with its permutations. ``robust`` holds
+    RobustConfig fields (None: plain FedAvgAPI). Returns
+    ``(reference_api, port_api)`` after training."""
+    import fedml_tpu.config as jcfg
+    from fedml_tpu.algorithms import FedAvgAPI as JaxFedAvg
+    from fedml_tpu.algorithms.fedavg_robust import RobustFedAvgAPI as JaxRobust
+    from fedml_tpu.data.femnist_synth import femnist_synthetic as jax_femnist
+    from fedml_tpu.models import create_model as jax_create_model
+    from fedml_tpu.robustness import RobustConfig as JaxRobustConfig
+
+    import fedml_tpu_torch.config as tcfg
+    from fedml_tpu_torch.algorithms import FedAvgAPI, RobustFedAvgAPI
+    from fedml_tpu_torch.bridge import from_flax
+    from fedml_tpu_torch.data.femnist_synth import femnist_synthetic
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.robustness import RobustConfig
+
+    shape, classes = (28, 28, 1), 62
+    data_kw = dict(num_clients=SLICE["num_clients"], mean_samples=SLICE["mean_samples"])
+    jdata, tdata = jax_femnist(**data_kw), femnist_synthetic(**data_kw)
+    jmodel = jax_create_model("cnn", "femnist", shape, classes)
+    tmodel = create_model("cnn", "femnist", shape, classes)
+    jconf, tconf = _slice_config(jcfg), _slice_config(tcfg)
+    if robust is None:
+        japi = JaxFedAvg(jconf, jdata, jmodel)
+        tapi = FedAvgAPI(
+            tconf, tdata, tmodel, device="cpu",
+            perm_fn=jax_round_perm_fn(SLICE["seed"], SLICE["per_round"]),
+        )
+    else:
+        japi = JaxRobust(jconf, jdata, jmodel, robust=JaxRobustConfig(**robust))
+        tapi = RobustFedAvgAPI(
+            tconf, tdata, tmodel, robust=RobustConfig(**robust), device="cpu",
+            perm_fn=jax_round_perm_fn(SLICE["seed"], SLICE["per_round"]),
+        )
+    init = {
+        layer: {k: np.array(v) for k, v in leaves.items()}
+        for layer, leaves in japi.global_vars["params"].items()
+    }
+    tapi.global_vars = from_flax(init)
+    japi.train()
+    tapi.train()
+    return japi, tapi
+
+
+def assert_slice_close(japi, tapi, rtol=1e-4, atol=1e-5, row_tol=1e-4):
+    """Global params allclose; every logged metric within ``row_tol``."""
+    from fedml_tpu_torch.bridge import to_flax
+
+    got = to_flax(tapi.global_vars)
+    want = japi.global_vars["params"]
+    assert got.keys() == want.keys()
+    for layer in want:
+        for leaf in want[layer]:
+            np.testing.assert_allclose(
+                got[layer][leaf], np.asarray(want[layer][leaf]),
+                rtol=rtol, atol=atol, err_msg=f"{layer}/{leaf}",
+            )
+    assert len(tapi.history) == len(japi.history) == SLICE["rounds"]
+    for trow, jrow in zip(tapi.history, japi.history):
+        keys = {k for k in jrow if k != "round_time_s"}
+        assert keys <= trow.keys(), keys - trow.keys()
+        for k in keys:
+            assert abs(trow[k] - jrow[k]) <= row_tol, (k, trow[k], jrow[k])
