@@ -7,8 +7,9 @@ Phases, each of which raises on failure:
 
 1. device: require CUDA; print torch/CUDA versions and the card's name and
    power limit (``nvidia-smi``);
-2. build: compile every kernel of the main path from the sources in this
-   checkout (``fedml_tpu_torch/ops/csrc``);
+2. build: compile every kernel of both paths from the sources in this
+   checkout (``fedml_tpu_torch/ops/csrc``), one ``nvcc`` per source, all
+   started together;
 3. K1 (the rank-select trimmed mean / median) against its plain PyTorch
    version on the card: bit-equal over a grid of cohort sizes, widths and
    trim windows, with integer ties, and at the per-leaf shapes of a round;
@@ -23,7 +24,26 @@ Phases, each of which raises on failure:
    time by name against the round's wall time);
 6. one median round on the card against the same round on the CPU, from
    the same init with the same shuffles, with one full-batch step per
-   client (a tight bound) and at the north-star batch of 20.
+   client (a tight bound) and at the north-star batch of 20;
+7. K2, K3, K4 (flash attention forward, backward dQ, backward dK/dV)
+   against their plain PyTorch versions on the card: causal and not,
+   S in {32, 128, 192, 512}, head dim in {16, 32, 64, 96, 128}, float32
+   and bfloat16, and the LM's [256, 256, 96] bfloat16 causal shape; O,
+   LSE, dQ, dK and dV each within the tolerance stated at FLASH_TOL;
+8. their times at the LM's shapes beside the plain versions, the bound and
+   ``scaled_dot_product_attention`` (forward; backward as forward+backward
+   minus forward);
+9. the LM path: FedAvgAPI(task="nwp") on the flagship LM (6 layers, 8
+   heads, 768 wide, vocab 1024, windows of 256; 8 synthetic-Shakespeare
+   clients all in every round, batch 32, E=1, AMSGrad lr 1e-3, bfloat16
+   compute) with flash attention, 3 rounds; the K2/K3/K4 launch counts are
+   zeroed just before and read just after, and must equal the counts the
+   data's shard sizes give (6 a step each, 6 more K2 an eval batch); the
+   losses finite and Train/Loss falling from round 0 to round 2;
+10. where a warm LM round's time goes (torch.profiler);
+11. one LM round on the card against the same round on the CPU (2 layers,
+    128 wide, windows of 64, float32 SGD) from the same init with the same
+    shuffles.
 
 Then it prints the kernels' JSON line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -52,12 +72,34 @@ MEDIAN_ROUNDS, TRIMMED_ROUNDS = 3, 2
 # north-star's 24 steps of batch 20 at lr 0.1; each bound is ~10x its own.
 CARD_VS_CPU = {-1: (1e-4, 5e-5), 20: (1e-3, 1e-2)}
 
-# data-sheet HBM bandwidth (bytes/s) and fp32 non-tensor peak (FLOP/s)
+# card vs CPU after one LM round (float32 SGD): the same float32 arithmetic
+# summed in another order; on the CPU alone a 1e-7 relative nudge of the
+# init moves this round's params by 3.6e-7 (the LM is not chaotic here,
+# unlike the CNN), so 1e-5 is ~30x that.
+LM_CARD_VS_CPU = (1e-4, 1e-5)
+
+# K2-K4 against their plain versions, by input type: |err| <= rtol·|ref| +
+# atol·max|ref|. float32: only the order of the float32 sums differs (the
+# plain versions run at the kernels' own 64-row tiles). bfloat16: one
+# rounding of P (K2), dS (K3) or an output to bf16 may go the other way
+# when the float32 sums before it differ in their last bits — one bf16 ulp
+# (2^-8 relative) of that value.
+FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0**-7, 2.0**-8)}
+FLASH_S_GRID = (32, 128, 192, 512)
+FLASH_D_GRID = (16, 32, 64, 96, 128)
+FLASH_BH = 3
+# the flagship LM (bench.py _flagship_lm_row): attention at B=32, H=8
+LM = dict(layers=6, heads=8, width=768, vocab=1024, seq=256, clients=8,
+          samples=512, batch=32, lr=1e-3)
+LM_ROUNDS = 3
+
+# data-sheet HBM bandwidth (bytes/s), fp32 non-tensor peak and dense bf16
+# tensor-core peak (FLOP/s)
 CARDS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100": (3.35e12, 67e12),  # SXM5, "NVIDIA H100 80GB HBM3"
-    "H200": (4.8e12, 67e12),
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H100": (3.35e12, 67e12, 989e12),  # SXM5, "NVIDIA H100 80GB HBM3"
+    "H200": (4.8e12, 67e12, 989e12),
 }
 
 
@@ -114,11 +156,18 @@ def phase_device():
 
 
 def phase_build():
+    """Both kernel sources at once (each ``load`` runs its own nvcc)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fedml_tpu_torch.ops import flash_attention as fa
     from fedml_tpu_torch.ops import robust_stats as rs
 
     t0 = time.perf_counter()
-    rs._kernel_fn()
-    log(json.dumps({"built": [rs.KERNEL_NAME], "build_s": round(time.perf_counter() - t0, 3)}))
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(rs._kernel_fn), pool.submit(fa._lib)]:
+            f.result()  # raises a build failure
+    log(json.dumps({"built": [rs.KERNEL_NAME, *fa.KERNEL_NAMES],
+                    "build_s": round(time.perf_counter() - t0, 3)}))
 
 
 def _check_equal(got, want, what) -> float:
@@ -179,7 +228,7 @@ def phase_k1_timing(name: str, smi: str):
     from fedml_tpu_torch.ops import robust_stats as rs
     from fedml_tpu_torch.robustness import coordinate_median, trimmed_mean
 
-    card, (bw, fp32_peak) = card_rates(name)
+    card, (bw, fp32_peak, _) = card_rates(name)
     gen = torch.Generator(device="cuda").manual_seed(1)
     model = create_model("cnn", "femnist", (28, 28, 1), 62)
     stack = {
@@ -360,6 +409,304 @@ def phase_card_vs_cpu(num_clients=128, per_round=COHORT):
             torch.testing.assert_close(card[k], cpu[k], rtol=rtol, atol=atol, msg=lambda m: f"{k}: {m}")
 
 
+# ---------------------------------------------------------------- K2-K4
+
+
+def _flash_case(fa, gen, device, BH, S, Sk, d, dtype, causal):
+    """Kernels (through the wrappers) and plain versions on the same
+    inputs; returns {what: (kernel, plain)}. The plain versions run at the
+    kernels' own tiles (KERNEL_TILE rows, clamped to S)."""
+    import torch
+
+    q = torch.randn(BH, S, d, generator=gen, device=device).to(dtype)
+    k, v = (torch.randn(BH, Sk, d, generator=gen, device=device).to(dtype) for _ in range(2))
+    do = torch.randn(BH, S, d, generator=gen, device=device).to(dtype)
+    scale, bq, bk = d**-0.5, min(fa.KERNEL_TILE, S), min(fa.KERNEL_TILE, Sk)
+    o, lse = fa.flash_forward(q, k, v, scale, causal, bq, bk)
+    po, plse = fa.flash_forward_plain(q, k, v, scale, causal, bq, bk)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, scale, causal, bq, bk)
+    dq, pdq = fa.flash_backward_dq(*args), fa.flash_backward_dq_plain(*args)
+    (dk, dv), (pdk, pdv) = fa.flash_backward_dkv(*args), fa.flash_backward_dkv_plain(*args)
+    return {"O": (o, po), "LSE": (lse, plse), "dQ": (dq, pdq), "dK": (dk, pdk), "dV": (dv, pdv)}
+
+
+def _flash_check(got, want, dtype_name, what) -> float:
+    """Raise unless |got - want| <= rtol·|want| + atol·max|want|
+    (FLASH_TOL); return the max |got - want|."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    rtol, atol = FLASH_TOL["float32" if want.dtype == torch.float32 else dtype_name]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bound = rtol * w.abs() + atol * w.abs().max()
+    if not torch.isfinite(g).all() or (err > bound).any():
+        raise AssertionError(f"{what}: max |err| {err.max().item()} above rtol {rtol}, "
+                             f"atol {atol}·max|ref| ({w.abs().max().item()})")
+    return err.max().item()
+
+
+def phase_flash_parity(device="cuda", s_grid=FLASH_S_GRID, d_grid=FLASH_D_GRID, flagship=True):
+    """K2/K3/K4 against their plain versions; returns {kernel: max |err|}."""
+    import torch
+
+    from fedml_tpu_torch.device import fp32_math
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    cases = [(FLASH_BH, S, S, d, dt, causal) for S in s_grid for d in d_grid
+             for dt in (torch.float32, torch.bfloat16) for causal in (False, True)]
+    cases.append((FLASH_BH, 128, 192, 64, torch.bfloat16, False))  # Sk != S
+    if flagship:
+        cases.append((LM["batch"] * LM["heads"], LM["seq"], LM["seq"],
+                      LM["width"] // LM["heads"], torch.bfloat16, True))
+    owner = {"O": fa.FWD, "LSE": fa.FWD, "dQ": fa.BWD_DQ, "dK": fa.BWD_DKV, "dV": fa.BWD_DKV}
+    errs = {name: 0.0 for name in fa.KERNEL_NAMES}
+    with fp32_math():
+        for BH, S, Sk, d, dt, causal in cases:
+            out = _flash_case(fa, gen, device, BH, S, Sk, d, dt, causal)
+            dt_name = str(dt).split(".")[-1]
+            for what, (got, want) in out.items():
+                e = _flash_check(got, want, dt_name,
+                                 f"{what} BH={BH} S={S} Sk={Sk} d={d} {dt_name} causal={causal}")
+                errs[owner[what]] = max(errs[owner[what]], e)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    log(json.dumps({"flash_parity": {"cases": len(cases), "max_abs_err": errs,
+                                     "tolerance": {k: list(v) for k, v in FLASH_TOL.items()}}}))
+    return errs
+
+
+def phase_flash_timing(name: str, smi: str):
+    """K2/K3/K4 at the LM's attention shapes (q, k, v [256, 256, 96] bf16,
+    causal) beside their plain versions, their bounds and SDPA on the same
+    tensors as [32, 8, 256, 96]."""
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    card, (bw, _, bf16_peak) = card_rates(name)
+    B, H, S, d = LM["batch"], LM["heads"], LM["seq"], LM["width"] // LM["heads"]
+    BH, scale, blk = B * H, d**-0.5, fa.KERNEL_TILE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn(BH, S, d, generator=gen, device="cuda").bfloat16() for _ in range(4))
+    o, lse = fa.flash_forward(q, k, v, scale, True, blk, blk)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    bwd = (q, k, v, do, lse, delta, scale, True, blk, blk)
+    before = dict(fa.LAUNCHES)
+    t = {
+        fa.FWD: device_ms(lambda: fa.flash_forward(q, k, v, scale, True, blk, blk)),
+        fa.BWD_DQ: device_ms(lambda: fa.flash_backward_dq(*bwd)),
+        fa.BWD_DKV: device_ms(lambda: fa.flash_backward_dkv(*bwd)),
+    }
+    fa.LAUNCHES.update(before)  # timing launches are not the main path's
+    plain = {
+        fa.FWD: device_ms(lambda: fa.flash_forward_plain(q, k, v, scale, True, blk, blk), iters=5),
+        fa.BWD_DQ: device_ms(lambda: fa.flash_backward_dq_plain(*bwd), iters=5),
+        fa.BWD_DKV: device_ms(lambda: fa.flash_backward_dkv_plain(*bwd), iters=5),
+    }
+    qs, ks, vs = (x.view(B, H, S, d).detach().clone().requires_grad_(True) for x in (q, k, v))
+    dos = do.view(B, H, S, d)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        torch.autograd.grad(out, (qs, ks, vs), dos)
+
+    sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
+    sdpa_bwd = device_ms(sdpa_fwd_bwd) - sdpa_fwd
+    # the function's work: each input read once, each output written once;
+    # matmul FLOPs over the S(S+1)/2 causal (query, key) pairs
+    tensor, row = BH * S * d * 2, BH * S * 4
+    pairs = BH * S * (S + 1) // 2
+    work = {
+        fa.FWD: (4 * tensor + row, 4 * d * pairs),              # q k v -> o, lse
+        fa.BWD_DQ: (5 * tensor + 2 * row, 6 * d * pairs),       # q k v do lse delta -> dq
+        fa.BWD_DKV: (6 * tensor + 2 * row, 8 * d * pairs),      # ... -> dk dv
+    }
+    bounds = {}
+    for kname, (nbytes, flops) in work.items():
+        tb, tf = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+        bounds[kname] = (max(tb, tf), "bytes" if tb >= tf else "operations", nbytes, flops)
+    library = {fa.FWD: sdpa_fwd, fa.BWD_DQ: sdpa_bwd, fa.BWD_DKV: sdpa_bwd}
+    log(json.dumps({
+        "flash_timing_ms": {kn: {"kernel": t[kn], "plain": plain[kn], "bound": bounds[kn][0],
+                                 "bound_by": bounds[kn][1], "bytes": bounds[kn][2],
+                                 "flops": bounds[kn][3], "library": library[kn]}
+                            for kn in fa.KERNEL_NAMES},
+        "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
+        "shape": {"B": B, "H": H, "S": S, "d": d, "dtype": "bfloat16", "causal": True},
+        "rates": f"{card} data sheet: {bw / 1e12} TB/s, {bf16_peak / 1e12} TFLOP/s dense bf16",
+        "card": smi,
+        "notes": "library = F.scaled_dot_product_attention(is_causal=True); its backward "
+                 "(forward+backward minus forward) computes dQ, dK and dV together, so it is "
+                 "the yardstick of K3 and K4 together",
+    }))
+    return t, plain, bounds, library
+
+
+# ---------------------------------------------------------------- the LM path
+
+
+def _flagship_lm(rounds: int, layers: int = LM["layers"], **smaller):
+    """The flagship LM row (bench.py _flagship_lm_row) with flash attention;
+    ``smaller`` overrides LM's entries for a rehearsal on the CPU."""
+    from fedml_tpu_torch.config import DataConfig, FedConfig, RunConfig, TrainConfig
+    from fedml_tpu_torch.data.synthetic import synthetic_shakespeare
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bthd
+
+    lm = {**LM, **smaller}
+    data = synthetic_shakespeare(num_clients=lm["clients"], samples_per_client=lm["samples"],
+                                 seq_len=lm["seq"], vocab_size=lm["vocab"], seed=0,
+                                 seq_targets=True)
+    model = create_model("transformer", "shakespeare_synth", (lm["seq"],), lm["vocab"],
+                         num_layers=layers, num_heads=lm["heads"], embed_dim=lm["width"],
+                         attn_fn=flash_attention_bthd)
+    cfg = RunConfig(
+        data=DataConfig(batch_size=lm["batch"], pad_bucket=1),
+        fed=FedConfig(client_num_in_total=lm["clients"], client_num_per_round=lm["clients"],
+                      comm_round=rounds, epochs=1, frequency_of_the_test=10_000,
+                      client_parallelism="scan"),
+        train=TrainConfig(client_optimizer="adam", lr=lm["lr"], compute_dtype="bfloat16"),
+        seed=0,
+    )
+    return cfg, data, model
+
+
+def expected_flash_launches(api, layers: int) -> dict:
+    """K2/K3/K4 launches of ``api.train()`` from the rounds' cohorts on the
+    host: one launch per layer of each kernel for every local step that
+    holds data — ceil(n / batch) a client of n samples an epoch, since the
+    shuffle puts the valid samples first and all-padding steps are skipped
+    — and one K2 per layer for every eval batch."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    cfg = api.config
+    B, steps = cfg.data.batch_size, 0
+    for r in range(cfg.fed.comm_round):
+        counts = api.data.train_sample_counts[api.scheduler.select(r)]
+        steps += sum(-(-int(n) // B) for n in counts) * cfg.fed.epochs
+    evals = sum(api._is_eval_round(r) for r in range(cfg.fed.comm_round))
+    eval_batches = evals * api._eval_batches()[0].shape[0]
+    return {fa.FWD: layers * (steps + eval_batches), fa.BWD_DQ: layers * steps,
+            fa.BWD_DKV: layers * steps, "steps": steps, "eval_batches": eval_batches}
+
+
+def phase_lm_path(device="cuda", rounds=LM_ROUNDS, layers=LM["layers"], **smaller):
+    """FedAvgAPI(task="nwp") on the flagship LM with flash attention;
+    returns the K2/K3/K4 launches of the run."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    cfg, data, model = _flagship_lm(rounds, layers, **smaller)
+    api = FedAvgAPI(cfg, data, model, task="nwp", device=None if device == "cuda" else device,
+                    log_fn=lambda row: log("[lm] " + json.dumps(row)))
+    want = expected_flash_launches(api, layers)
+    for name in fa.KERNEL_NAMES:
+        fa.LAUNCHES[name] = 0  # zeroed just before the main path
+    api.train()
+    launches = {name: fa.LAUNCHES[name] for name in fa.KERNEL_NAMES}  # read just after
+    rows = api.history
+    for row in rows:
+        for key in ("Train/Loss", "Train/Acc"):
+            if not math.isfinite(row[key]):
+                raise AssertionError(f"LM: non-finite {key} in {row}")
+    for key in ("Test/Loss", "Test/Acc"):
+        if not all(math.isfinite(r[key]) for r in rows if key in r):
+            raise AssertionError(f"LM: non-finite {key}")
+    if not rows[-1]["Train/Loss"] < rows[0]["Train/Loss"]:
+        raise AssertionError(f"LM: Train/Loss did not fall: {[r['Train/Loss'] for r in rows]}")
+    for name in fa.KERNEL_NAMES:
+        expect = want[name] if device == "cuda" else 0
+        if launches[name] != expect:
+            raise AssertionError(f"LM: {launches[name]} {name} launches, want {expect}")
+    log(json.dumps({"lm_path": {"launches": launches, "expected": want,
+                                "round_time_s": [r["round_time_s"] for r in rows],
+                                "train_loss": [r["Train/Loss"] for r in rows]}}))
+    return launches
+
+
+def phase_profile_lm_round():
+    """Where a warm LM round's time goes: round 1 under torch.profiler
+    after round 0; device kernel time by name against the round's wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+
+    cfg, data, model = _flagship_lm(2)
+    api = FedAvgAPI(cfg, data, model, task="nwp", device="cuda")
+    api.train_round(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        api.train_round(1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    flash = {"fwd": "flash_fwd_kernel", "bwd_dq": "flash_bwd_dq_kernel",
+             "bwd_dkv": "flash_bwd_dkv_kernel"}
+    log(json.dumps({"profile_lm_round": {
+        "wall_ms_profiled": wall_ms,
+        "kernel_launches": sum(e.count for e in kernels),
+        "device_kernel_ms": dev_ms if kernels else "not measured",
+        "device_busy_share": dev_ms / wall_ms if kernels else "not measured",
+        "flash_kernels_ms_calls": {
+            short: [sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3,
+                    sum(e.count for e in kernels if key in e.key)]
+            for short, key in flash.items()
+        },
+        "top_kernels_ms_calls": {e.key[:70]: [e.self_device_time_total / 1e3, e.count] for e in top},
+    }}))
+
+
+def _small_lm(device):
+    """A CPU-sized LM round: 2 layers, 128 wide (head dim 64), windows of
+    64, 4 clients, batch 16, float32 SGD lr 0.1, flash attention."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.config import DataConfig, FedConfig, RunConfig, TrainConfig
+    from fedml_tpu_torch.data.synthetic import synthetic_shakespeare
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bthd
+
+    data = synthetic_shakespeare(num_clients=4, samples_per_client=32, seq_len=64,
+                                 vocab_size=LM["vocab"], seed=0, seq_targets=True)
+    model = create_model("transformer", "shakespeare_synth", (64,), LM["vocab"], num_layers=2,
+                         num_heads=2, embed_dim=128, attn_fn=flash_attention_bthd)
+    cfg = RunConfig(data=DataConfig(batch_size=16),
+                    fed=FedConfig(client_num_in_total=4, client_num_per_round=4, comm_round=1,
+                                  epochs=1),
+                    train=TrainConfig(lr=0.1), seed=0)
+    return FedAvgAPI(cfg, data, model, task="nwp", device=device)
+
+
+def phase_lm_card_vs_cpu():
+    """One small LM round on the card and on the CPU from the same init
+    with the same shuffles (see LM_CARD_VS_CPU)."""
+    import torch
+
+    rtol, atol = LM_CARD_VS_CPU
+    out = {}
+    for device in ("cpu", "cuda"):
+        api = _small_lm(device)
+        t0 = time.perf_counter()
+        api.train()
+        out[device] = ({k: v.cpu() for k, v in api.global_vars.items()}, time.perf_counter() - t0,
+                       api.history[-1]["Train/Loss"])
+    (cpu, cpu_s, cpu_loss), (card, card_s, card_loss) = out["cpu"], out["cuda"]
+    err = max((card[k] - cpu[k]).abs().max().item() for k in cpu)
+    log(json.dumps({"lm_card_vs_cpu": {"max_abs_err": err, "rtol": rtol, "atol": atol,
+                                       "train_loss": [cpu_loss, card_loss],
+                                       "cpu_round_s": cpu_s, "cuda_round_s": card_s}}))
+    for k in cpu:
+        torch.testing.assert_close(card[k], cpu[k], rtol=rtol, atol=atol, msg=lambda m: f"{k}: {m}")
+
+
 def main() -> int:
     import torch
 
@@ -373,9 +720,31 @@ def main() -> int:
     launches = phase_main_path()
     phase_profile_round()
     phase_card_vs_cpu()
+    flash_err = phase_flash_parity()
+    ft, fplain, fbounds, flib = phase_flash_timing(name, smi)
+    flash_launches = phase_lm_path()
+    phase_profile_lm_round()
+    phase_lm_card_vs_cpu()
 
+    from fedml_tpu_torch.ops import flash_attention as fa
     from fedml_tpu_torch.ops import robust_stats as rs
 
+    replaces = {fa.FWD: "fedml_tpu/ops/flash_attention.py:133",
+                fa.BWD_DQ: "fedml_tpu/ops/flash_attention.py:293",
+                fa.BWD_DKV: "fedml_tpu/ops/flash_attention.py:314"}
+    flash_rows = [{
+        "name": kn,
+        "route": "cuda",
+        "source": "fedml_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": replaces[kn],
+        "launches": flash_launches[kn],
+        "max_abs_err": flash_err[kn],
+        "ms": ft[kn],
+        "plain_ms": fplain[kn],
+        "bound_ms": fbounds[kn][0],
+        "bound_by": fbounds[kn][1],
+        "library_ms": flib[kn],
+    } for kn in fa.KERNEL_NAMES]
     log(json.dumps({"kernels": [{
         "name": rs.KERNEL_NAME,
         "route": "cuda",
@@ -388,7 +757,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": t["sort_window_median_round"],
-    }]}))
+    }] + flash_rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -8,7 +8,8 @@ aggregate). The reference lifts the local train over the clients with
 ``vmap`` or ``lax.scan`` and proves the two schedules compute the same
 thing; the port runs every ``client_parallelism`` mode as the sequential
 loop — the schedule ``resolve_client_parallelism`` picks for the FEMNIST
-CNN. Knobs that in the reference change only the schedule, never the
+CNN, and the "scan" schedule the flagship LM runs. ``task`` is
+"classification" or "nwp" (next-word prediction, the transformer LM). Knobs that in the reference change only the schedule, never the
 numbers (``client_parallelism``, ``fused_rounds``, ``fused_plan``,
 ``pipeline``, ``compile.*``), are not read here. Knobs that would change
 the numbers and are not ported yet raise."""

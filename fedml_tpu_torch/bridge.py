@@ -1,14 +1,17 @@
 """flax params ⇄ port variables.
 
 The reference's weights are a nested flax ``params`` dict
-(``{layer: {"kernel", "bias"}}``); the port's are a flat ``{name: tensor}``
-dict keyed like the module's ``state_dict`` (``layer.weight``,
-``layer.bias``). The layouts differ by transposes only — the same ones
-``fedml_tpu/models/pretrained.py`` applies to torch checkpoints:
+(``{scope: {... {leaf: array}}}``, with array leaves at any depth — the
+LM's ``block0/ln1/scale`` or its top-level ``pos_embed``); the port's are a
+flat ``{name: tensor}`` dict keyed like the module's ``state_dict``, the
+scopes joined by dots. Leaves keep their names except the dense and conv
+``kernel``, which is the port's ``weight``; the layouts differ by transposes
+only — the same ones ``fedml_tpu/models/pretrained.py`` applies to torch
+checkpoints:
 
 - conv kernel: flax HWIO ⇄ torch OIHW;
 - dense kernel: flax [in, out] ⇄ torch [out, in];
-- biases unchanged.
+- biases, norm scales, embedding tables and ``pos_embed`` unchanged.
 
 Ported models keep the reference's flatten order (see models/cnn.py), so no
 row permutation is needed and ``to_flax(from_flax(p))`` is exactly ``p``."""
@@ -19,9 +22,6 @@ from typing import Dict
 
 import numpy as np
 import torch
-
-_FLAX_TO_TORCH = {"kernel": "weight", "bias": "bias"}
-_TORCH_TO_FLAX = {v: k for k, v in _FLAX_TO_TORCH.items()}
 
 
 def _kernel_to_torch(a: np.ndarray) -> np.ndarray:
@@ -40,31 +40,36 @@ def _kernel_to_flax(a: np.ndarray) -> np.ndarray:
     raise ValueError(f"unsupported kernel rank {a.ndim}")
 
 
-def from_flax(params: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
+def from_flax(params: Dict[str, object]) -> Dict[str, torch.Tensor]:
     """Nested flax ``params`` (numpy leaves) → port variables (CPU tensors)."""
     state = {}
-    for layer, leaves in params.items():
-        for leaf, value in leaves.items():
-            if leaf not in _FLAX_TO_TORCH:
-                raise ValueError(f"unsupported flax leaf {layer}/{leaf}")
+
+    def walk(prefix: str, tree) -> None:
+        for key, value in tree.items():
+            if hasattr(value, "items"):  # a scope (dict or FrozenDict)
+                walk(f"{prefix}{key}.", value)
+                continue
             a = np.asarray(value)
-            if leaf == "kernel":
-                a = _kernel_to_torch(a)
+            if key == "kernel":
+                a, key = _kernel_to_torch(a), "weight"
             # a copy: the source may be read-only (a JAX array's view)
-            state[f"{layer}.{_FLAX_TO_TORCH[leaf]}"] = torch.tensor(a)
+            state[prefix + key] = torch.tensor(a)
+
+    walk("", params)
     return state
 
 
-def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, object]:
     """Port variables → nested flax ``params`` with numpy leaves (the
     inverse of :func:`from_flax`)."""
-    params: Dict[str, Dict[str, np.ndarray]] = {}
+    params: Dict[str, object] = {}
     for name, t in state.items():
-        layer, leaf = name.rsplit(".", 1)
-        if leaf not in _TORCH_TO_FLAX:
-            raise ValueError(f"unsupported variable {name}")
+        *scopes, leaf = name.split(".")
         a = t.detach().cpu().numpy()
         if leaf == "weight":
-            a = _kernel_to_flax(a)
-        params.setdefault(layer, {})[_TORCH_TO_FLAX[leaf]] = np.ascontiguousarray(a)
+            a, leaf = _kernel_to_flax(a), "kernel"
+        node = params
+        for s in scopes:
+            node = node.setdefault(s, {})
+        node[leaf] = np.ascontiguousarray(a)
     return params

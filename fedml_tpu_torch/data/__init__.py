@@ -1,6 +1,6 @@
-"""Federated data containers, the device store and the FEMNIST-geometry
-synthetic dataset (port of ``fedml_tpu/data/``; other loaders are still to
-port, ROADMAP.md)."""
+"""Federated data containers, the device store, the FEMNIST-geometry
+synthetic dataset and the synthetic Shakespeare LM data (port of
+``fedml_tpu/data/``; other loaders are still to port, ROADMAP.md)."""
 
 from fedml_tpu_torch.data.base import (  # noqa: F401
     ClientBatch,

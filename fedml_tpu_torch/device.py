@@ -34,8 +34,8 @@ def fp32_math() -> Iterator[None]:
     float32: cuDNN's TF32 (PyTorch's default for convolutions) and cuBLAS
     TF32 are switched off, then restored. TF32 keeps ~3 decimal digits,
     which would make "float32" on the card a different computation from
-    float32 on the CPU and in the JAX reference (the port computes in
-    float32 only so far). No effect on the CPU."""
+    float32 on the CPU and in the JAX reference. bfloat16 products (mixed
+    precision) are not affected. No effect on the CPU."""
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -8,8 +8,8 @@ a plain ``{name: tensor}`` dict keyed like the module's ``state_dict``; the
 (``torch.func.functional_call``), so the federated loop can hold, stack and
 average many copies of the weights without many modules.
 
-Inputs keep the reference's layout (NHWC images), so the two packages are
-fed the same arrays."""
+Inputs keep the reference's layout (NHWC images, integer token windows),
+so the two packages are fed the same arrays."""
 
 from __future__ import annotations
 
@@ -38,25 +38,45 @@ def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     )
 
 
+def init_param_(module: nn.Module, leaf: str, t: torch.Tensor, generator: torch.Generator):
+    """Fill ``t``, the parameter ``leaf`` of ``module``, with its flax
+    initializer: a normal of the std in the module's own
+    ``normal_init_std`` entry for ``leaf`` if it has one, else by name —
+    dense/conv ``weight``: lecun_normal; ``bias``: zeros; norm ``scale``:
+    ones; ``embedding`` [V, C]: flax's ``default_embed_init``, an
+    untruncated normal of std 1/√C."""
+    std = getattr(module, "normal_init_std", {}).get(leaf)
+    if leaf == "embedding":
+        std = math.sqrt(1.0 / t.shape[-1])
+    if std is not None:
+        return nn.init.normal_(t, mean=0.0, std=std, generator=generator)
+    if leaf == "weight" and t.dim() >= 2:
+        return lecun_normal_(t, generator)
+    if leaf == "bias":
+        return t.zero_()
+    if leaf == "scale":
+        return t.fill_(1.0)
+    raise ValueError(f"no flax initializer known for parameter {leaf!r} of {type(module).__name__}")
+
+
 @dataclasses.dataclass
 class ModelDef:
     module: nn.Module
     input_shape: Tuple[int, ...]  # per-example shape (no batch dim), NHWC
     num_classes: int
     name: str = "model"
+    input_dtype: torch.dtype = torch.float32  # torch.int32 for token models
 
     def init(self, generator: torch.Generator) -> Variables:
-        """Fresh float32 variables on the CPU with flax's defaults:
-        lecun-normal weights, zero biases. Drawn in ``named_parameters``
+        """Fresh float32 variables on the CPU, each from its flax
+        initializer (:func:`init_param_`). Drawn in ``named_parameters``
         order from ``generator``, so a seed gives the same weights on
         every device."""
         out = {}
         for name, p in self.module.named_parameters():
+            owner, _, leaf = name.rpartition(".")
             t = torch.empty(p.shape, dtype=torch.float32)
-            if p.dim() >= 2:
-                lecun_normal_(t, generator)
-            else:
-                t.zero_()
+            init_param_(self.module.get_submodule(owner), leaf, t, generator)
             out[name] = t
         return out
 

@@ -1,9 +1,12 @@
 """Model registry: model-name × dataset → ModelDef (port of
-``fedml_tpu/models/registry.py``; only ``cnn`` is ported so far)."""
+``fedml_tpu/models/registry.py``; ``cnn`` and ``transformer`` are ported so
+far)."""
 
 from __future__ import annotations
 
 from typing import Tuple
+
+import torch
 
 from fedml_tpu_torch.models import ModelDef
 
@@ -16,17 +19,32 @@ def create(
     **kw,
 ) -> ModelDef:
     name = model_name.lower()
-    if kw:
-        raise NotImplementedError(
-            f"create_model options {sorted(kw)} are not ported yet (ROADMAP.md)"
-        )
     if name == "cnn":
+        if kw:
+            raise TypeError(f"the cnn model takes no options; got {sorted(kw)}")
         from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
 
         return ModelDef(
             CNNOriginalFedAvg(num_classes=num_classes, input_shape=tuple(input_shape)),
             tuple(input_shape), num_classes, name="cnn",
         )
+    if name == "transformer":
+        # the federated causal LM: num_classes is the vocabulary; it trains
+        # under task="nwp". Options (num_layers, num_heads, embed_dim,
+        # max_len, attn_fn) go to TransformerLM; max_len defaults to the
+        # window length.
+        from fedml_tpu_torch.models.transformer import TransformerLM
+
+        if kw.get("moe_experts"):
+            raise ValueError(
+                "MoE transformers return (logits, aux) and train through "
+                "expert parallelism, not the federated ModelDef path"
+            )
+        kw.setdefault("max_len", int(input_shape[0]))
+        return ModelDef(
+            TransformerLM(vocab_size=num_classes, **kw),
+            tuple(input_shape), num_classes, name="transformer", input_dtype=torch.int32,
+        )
     raise NotImplementedError(
-        f"model {model_name!r} is not ported yet (ROADMAP.md); the port has: cnn"
+        f"model {model_name!r} is not ported yet (ROADMAP.md); the port has: cnn, transformer"
     )

@@ -1,0 +1,307 @@
+"""Blockwise (flash) attention, kernels K2 (forward), K3 (backward dQ) and
+K4 (backward dK/dV) (port of ``fedml_tpu/ops/flash_attention.py``).
+
+softmax(Q Kᵀ/√d [causal]) V by online softmax, never holding the S×S
+scores in device memory; the forward saves the log-sum-exp rows, and the
+backward recomputes P from them tile by tile: dQ over the key tiles, dK and
+dV over the query tiles (FlashAttention, Dao et al. 2022; online softmax per
+Milakov & Gionis).
+
+Three versions of each kernel's function:
+
+- the CUDA kernels in ``csrc/flash_attention.cu`` (Hopper, ``sm_90a``),
+  launched by :func:`flash_forward` / :func:`flash_backward_dq` /
+  :func:`flash_backward_dkv` for CUDA tensors. They pick their own tiles
+  (:data:`KERNEL_TILE` rows), so on the card ``block_q``/``block_k`` only
+  bound what the caller may pass;
+- :func:`flash_forward_plain`, :func:`flash_backward_dq_plain` and
+  :func:`flash_backward_dkv_plain`: the same blockwise arithmetic with the
+  same casts in PyTorch ops, at the caller's block sizes; the wrappers use
+  them for CPU tensors, and nothing else.
+
+The casts that decide the bfloat16 numbers are the reference kernel's: P is
+rounded to v's type before P·V (K2), dO·Vᵀ is float32 and dS is rounded to
+k's type before dS·K (K3), K4 is float32 throughout, and every output is
+rounded to the inputs' type. δ = rowsum(dO∘O) is float32 torch ops outside
+any kernel, as in the reference.
+
+``LAUNCHES`` counts kernel launches (only the CUDA branches add to it), so a
+run can show that it went through the kernels. The v5e timings in the
+reference module's docstring are the TPU's, not this port's."""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from fedml_tpu_torch.ops._build import load_kernel_library
+
+FWD, BWD_DQ, BWD_DKV = "flash_attention.fwd", "flash_attention.bwd_dq", "flash_attention.bwd_dkv"
+KERNEL_NAMES = (FWD, BWD_DQ, BWD_DKV)
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+
+KERNEL_TILE = 64  # rows of the kernels' query and key tiles (csrc kTile)
+HEAD_DIMS = (16, 32, 64, 96, 128)  # the head dims the kernels are built for
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def _masked_scores(q, k, q0: int, k0: int, scale: float, causal: bool):
+    """Scaled float32 scores of one (query block, key block) pair with the
+    causal mask — the one definition the three plain versions share."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        rows = q0 + torch.arange(q.shape[-2], device=q.device)[:, None]
+        cols = k0 + torch.arange(k.shape[-2], device=q.device)[None, :]
+        s = torch.where(rows >= cols, s, torch.full_like(s, _NEG_INF))
+    return s
+
+
+def _live(q0: int, block_q: int, k0: int, causal: bool) -> bool:
+    """A block pair is live unless every (row, col) in it has col > row."""
+    return not causal or k0 <= q0 + block_q - 1
+
+
+def flash_forward_plain(q, k, v, scale: float, causal: bool, block_q: int, block_k: int):
+    """K2's arithmetic on q [BH, S, d], k/v [BH, Sk, d] → (O [BH, S, d] in
+    q's type, LSE [BH, S] float32)."""
+    BH, S, d = q.shape
+    Sk = k.shape[1]
+    out = torch.empty_like(q)
+    lse = torch.empty(BH, S, dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, block_q):
+        qb = q[:, q0 : q0 + block_q]
+        acc = torch.zeros(BH, block_q, d, dtype=torch.float32, device=q.device)
+        m = torch.full((BH, block_q, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros(BH, block_q, 1, dtype=torch.float32, device=q.device)
+        for k0 in range(0, Sk, block_k):
+            if not _live(q0, block_q, k0, causal):
+                break
+            s = _masked_scores(qb, k[:, k0 : k0 + block_k], q0, k0, scale, causal)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            m = m_new
+            pv = torch.matmul(p.to(v.dtype).float(), v[:, k0 : k0 + block_k].float())
+            acc = acc * corr + pv
+        safe_l = torch.where(l > 0, l, torch.ones_like(l))
+        out[:, q0 : q0 + block_q] = (acc / safe_l).to(q.dtype)
+        lse[:, q0 : q0 + block_q] = (m + torch.log(safe_l))[..., 0]
+    return out, lse
+
+
+def flash_backward_dq_plain(q, k, v, do, lse, delta, scale: float, causal: bool,
+                            block_q: int, block_k: int):
+    """K3's arithmetic → dQ [BH, S, d] in q's type."""
+    S, Sk = q.shape[1], k.shape[1]
+    dq = torch.empty_like(q)
+    for q0 in range(0, S, block_q):
+        qs = slice(q0, q0 + block_q)
+        acc = torch.zeros(q[:, qs].shape, dtype=torch.float32, device=q.device)
+        for k0 in range(0, Sk, block_k):
+            if not _live(q0, block_q, k0, causal):
+                break
+            ks = slice(k0, k0 + block_k)
+            s = _masked_scores(q[:, qs], k[:, ks], q0, k0, scale, causal)
+            p = torch.exp(s - lse[:, qs, None])
+            dov = torch.matmul(do[:, qs].float(), v[:, ks].float().transpose(-1, -2))
+            ds = p * (dov - delta[:, qs, None]) * scale
+            acc = acc + torch.matmul(ds.to(k.dtype).float(), k[:, ks].float())
+        dq[:, qs] = acc.to(q.dtype)
+    return dq
+
+
+def flash_backward_dkv_plain(q, k, v, do, lse, delta, scale: float, causal: bool,
+                             block_q: int, block_k: int):
+    """K4's arithmetic (float32 throughout) → (dK, dV) in k's and v's types."""
+    S, Sk = q.shape[1], k.shape[1]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, Sk, block_k):
+        ks = slice(k0, k0 + block_k)
+        dk_acc = torch.zeros(k[:, ks].shape, dtype=torch.float32, device=k.device)
+        dv_acc = torch.zeros_like(dk_acc)
+        for q0 in range(0, S, block_q):
+            if not _live(q0, block_q, k0, causal):
+                continue
+            qs = slice(q0, q0 + block_q)
+            s = _masked_scores(q[:, qs], k[:, ks], q0, k0, scale, causal)
+            p = torch.exp(s - lse[:, qs, None])
+            dof = do[:, qs].float()
+            dv_acc = dv_acc + torch.matmul(p.transpose(-1, -2), dof)
+            dov = torch.matmul(dof, v[:, ks].float().transpose(-1, -2))
+            ds = p * (dov - delta[:, qs, None]) * scale
+            dk_acc = dk_acc + torch.matmul(ds.transpose(-1, -2), q[:, qs].float())
+        dk[:, ks] = dk_acc.to(k.dtype)
+        dv[:, ks] = dv_acc.to(v.dtype)
+    return dk, dv
+
+
+# ---------------------------------------------------------------- the kernels
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """Build (at first use) and bind the three C entry points."""
+    lib = load_kernel_library("flash_attention")
+    if lib.fedml_flash_max_head_dim() != max(HEAD_DIMS) or lib.fedml_flash_tile() != KERNEL_TILE:
+        raise RuntimeError("csrc/flash_attention.cu disagrees with HEAD_DIMS / KERNEL_TILE")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    shape = [I, I, I, I, F, P]  # bh, s_len, sk_len, causal, scale, stream
+    lib.fedml_flash_fwd.argtypes = [I, I, P, P, P, P, P] + shape
+    lib.fedml_flash_bwd_dq.argtypes = [I, I, P, P, P, P, P, P, P] + shape
+    lib.fedml_flash_bwd_dkv.argtypes = [I, I, P, P, P, P, P, P, P, P] + shape
+    for fn in (lib.fedml_flash_fwd, lib.fedml_flash_bwd_dq, lib.fedml_flash_bwd_dkv):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name: str, fn, q, operands, Sk: int, causal: bool, scale: float) -> None:
+    """Check what the C entry point takes on trust, then launch.
+    ``operands`` are (tensor, kind) in the C argument order; kind "q" is
+    [BH, S, d] and "k" [BH, Sk, d] in q's type, "row" [BH, S] float32."""
+    BH, S, d = q.shape
+    if d not in HEAD_DIMS or q.dtype not in _DTYPE_CODE or (causal and S != Sk):
+        raise ValueError(f"{name}: no kernel for head dim {d}, {q.dtype}, "
+                         f"causal={causal} with S={S}, Sk={Sk}")
+    want = {"q": ((BH, S, d), q.dtype), "k": ((BH, Sk, d), q.dtype),
+            "row": ((BH, S), torch.float32)}
+    for t, kind in operands:
+        shape, dtype = want[kind]
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: operand {tuple(t.shape)} {t.dtype} (contiguous="
+                             f"{t.is_contiguous()}), expected {shape} {dtype} contiguous")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPE_CODE[q.dtype], d, *(t.data_ptr() for t, _ in operands),
+                 BH, S, Sk, int(causal), scale, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _device_kind(*ts) -> str:
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"flash attention: tensors on different devices {[t.device for t in ts]}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention: unsupported device {dev}")
+    return dev.type
+
+
+def flash_forward(q, k, v, scale: float, causal: bool, block_q: int, block_k: int):
+    """K2: (O, LSE) for contiguous q [BH, S, d], k/v [BH, Sk, d]."""
+    if _device_kind(q, k, v) == "cpu":
+        return flash_forward_plain(q, k, v, scale, causal, block_q, block_k)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _launch(FWD, _lib().fedml_flash_fwd, q,
+            [(q, "q"), (k, "k"), (v, "k"), (out, "q"), (lse, "row")], k.shape[1], causal, scale)
+    return out, lse
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, scale: float, causal: bool,
+                      block_q: int, block_k: int):
+    """K3: dQ."""
+    if _device_kind(q, k, v, do, lse, delta) == "cpu":
+        return flash_backward_dq_plain(q, k, v, do, lse, delta, scale, causal, block_q, block_k)
+    dq = torch.empty_like(q)
+    _launch(BWD_DQ, _lib().fedml_flash_bwd_dq, q,
+            [(q, "q"), (k, "k"), (v, "k"), (do, "q"), (lse, "row"), (delta, "row"), (dq, "q")],
+            k.shape[1], causal, scale)
+    return dq
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, scale: float, causal: bool,
+                       block_q: int, block_k: int):
+    """K4: (dK, dV)."""
+    if _device_kind(q, k, v, do, lse, delta) == "cpu":
+        return flash_backward_dkv_plain(q, k, v, do, lse, delta, scale, causal, block_q, block_k)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(BWD_DKV, _lib().fedml_flash_bwd_dkv, q,
+            [(q, "q"), (k, "k"), (v, "k"), (do, "q"), (lse, "row"), (delta, "row"),
+             (dk, "k"), (dv, "k")], k.shape[1], causal, scale)
+    return dk, dv
+
+
+# ---------------------------------------------------------------- autograd
+
+
+class _Flash(torch.autograd.Function):
+    """K2 forward; K3 and K4 backward. Saves (q, k, v, O, LSE)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, block_q: int, block_k: int):
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        out, lse = flash_forward(q, k, v, scale, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (scale, causal, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = torch.sum(do.float() * out.float(), dim=-1)
+        dq = flash_backward_dq(q, k, v, do, lse, delta, *ctx.cfg)
+        dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, *ctx.cfg)
+        return dq, dk, dv, None, None, None
+
+
+def _check(q, k, v, causal: bool, block_q: int, block_k: int) -> Tuple[int, int]:
+    """The reference's shape contract; returns the clamped block sizes."""
+    S, d = q.shape[-2:]
+    Sk = k.shape[-2]
+    block_q, block_k = min(block_q, S), min(block_k, Sk)
+    if S % block_q or Sk % block_k:
+        raise ValueError(
+            f"sequence lengths ({S}, {Sk}) must be multiples of the block "
+            f"sizes ({block_q}, {block_k})"
+        )
+    if causal and S != Sk:
+        raise ValueError("causal attention requires matching Q/K lengths")
+    if q.reshape(-1, S, d).shape[0] != k.reshape(-1, Sk, d).shape[0] or k.shape != v.shape:
+        raise ValueError(
+            f"q/k/v leading (batch, heads) dims must match: q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}, v {tuple(v.shape)} (broadcast MQA/GQA heads first)"
+        )
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} has no flash kernel; supported: {HEAD_DIMS}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+        raise ValueError(
+            f"flash attention takes float32 or bfloat16 q/k/v of one type; got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    return block_q, block_k
+
+
+def flash_attention(q, k, v, causal: bool = True, block_q: int = 512, block_k: int = 512):
+    """Blockwise attention softmax(Q Kᵀ/√d [, causal]) V on q/k/v [..., S, d]
+    with any leading batch/head dims. Sequence lengths must be multiples of
+    the (clamped) block sizes, as in the reference. Differentiable through
+    the flash backward kernels."""
+    block_q, block_k = _check(q, k, v, causal, block_q, block_k)
+    S, d = q.shape[-2:]
+    Sk = k.shape[-2]
+    out = _Flash.apply(
+        q.reshape(-1, S, d).contiguous(),
+        k.reshape(-1, Sk, d).contiguous(),
+        v.reshape(-1, Sk, d).contiguous(),
+        causal, block_q, block_k,
+    )
+    return out.reshape(q.shape)
+
+
+def flash_attention_bthd(q, k, v, causal: bool = True, **kw):
+    """[B, T, H, D]-layout adapter: the drop-in flash-backed ``attn_fn`` for
+    :class:`fedml_tpu_torch.models.transformer.TransformerLM`."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          causal=causal, **kw)
+    return out.transpose(1, 2).to(q.dtype)

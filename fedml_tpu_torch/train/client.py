@@ -55,32 +55,50 @@ def seeded_perm_fn(seed: int) -> PermFn:
 
 
 def make_task_loss(task: str) -> Callable:
-    """task → (loss, correct, total); classification only so far."""
-    if task != "classification":
-        raise NotImplementedError(
-            f"task {task!r} is not ported yet (ROADMAP.md); the port has classification"
-        )
+    """task → (loss, correct, total): classification and nwp (next-word
+    prediction over token windows) so far."""
 
     def classification(logits, y, mask):
         loss = L.masked_softmax_ce(logits, y, mask)
         correct, total = L.masked_accuracy_stats(logits, y, mask)
         return loss, correct, total
 
-    return classification
+    def nwp(logits, y, mask):
+        loss = L.masked_seq_ce(logits, y, mask)
+        correct, total = L.masked_seq_accuracy_stats(logits, y, mask)
+        return loss, correct, total
+
+    tasks = {"classification": classification, "nwp": nwp}
+    if task not in tasks:
+        raise NotImplementedError(
+            f"task {task!r} is not ported yet (ROADMAP.md); the port has {sorted(tasks)}"
+        )
+    return tasks[task]
+
+
+def cast_floats(tree: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Cast every floating leaf; integer leaves pass through."""
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
 
 
 def make_mixed_forward(model: ModelDef, tc) -> Callable:
-    """``fwd(params, xb) -> logits``. The reference casts to
-    ``tc.compute_dtype`` here and augments; the port runs float32 only so
-    far (mixed precision and augmentation are still to port)."""
-    if tc.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {tc.compute_dtype!r} is not ported yet (ROADMAP.md); "
-            "the port computes in float32"
-        )
+    """``fwd(params, xb) -> logits`` in float32. The float32 master params
+    and any float inputs are cast to ``tc.compute_dtype`` inside the
+    differentiated function (the cast is linear, so the gradients come
+    back in float32 on the master params); integer tokens are not cast;
+    the logits are widened back to float32. In float32 every cast is a
+    no-op. Augmentation is not ported."""
     if tc.augment != "none":
         raise NotImplementedError("augmentation is not ported yet (ROADMAP.md)")
-    return lambda params, xb: model.apply(params, xb, train=True)[0]
+    cdt = getattr(torch, tc.compute_dtype, None)
+    if not isinstance(cdt, torch.dtype) or not cdt.is_floating_point:
+        raise ValueError(f"unknown compute_dtype {tc.compute_dtype!r}")
+
+    def fwd(params, xb):
+        xb_c = xb.to(cdt) if xb.is_floating_point() else xb
+        return model.apply(cast_floats(params, cdt), xb_c, train=True)[0].float()
+
+    return fwd
 
 
 class LocalTrain:

@@ -1,6 +1,6 @@
 """Mask-weighted losses and metrics (port of ``fedml_tpu/train/losses.py``,
-the classification and proximal-term parts). Zero-padded examples carry
-mask 0 and contribute nothing."""
+the classification, next-word and proximal-term parts). Zero-padded
+examples carry mask 0 and contribute nothing."""
 
 from __future__ import annotations
 
@@ -25,6 +25,27 @@ def masked_accuracy_stats(logits, labels, mask):
     pred = torch.argmax(logits, dim=-1)
     correct = torch.sum((pred == labels.long()).to(torch.float32) * mask)
     return correct, torch.sum(mask)
+
+
+def masked_seq_ce(logits, labels, mask, pad_token: int = 0):
+    """Next-word/char CE over sequences, ignoring pad tokens. logits
+    [B, T, V], labels int [B, T], mask float [B] (example mask). Label 0 is
+    the pad token even where it is a real symbol (the synthetic chain's),
+    as in the reference."""
+    V = logits.shape[-1]
+    per_tok = F.cross_entropy(
+        logits.reshape(-1, V), labels.reshape(-1).long(), reduction="none"
+    ).reshape(labels.shape)
+    tok_mask = (labels != pad_token).to(torch.float32) * mask[:, None]
+    return _safe_div(torch.sum(per_tok * tok_mask), torch.sum(tok_mask))
+
+
+def masked_seq_accuracy_stats(logits, labels, mask, pad_token: int = 0):
+    """(correct_count, total_count) over the non-pad tokens."""
+    pred = torch.argmax(logits, dim=-1)
+    tok_mask = (labels != pad_token).to(torch.float32) * mask[:, None]
+    correct = torch.sum((pred == labels.long()).to(torch.float32) * tok_mask)
+    return correct, torch.sum(tok_mask)
 
 
 def tree_sq_dist(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):

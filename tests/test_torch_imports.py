@@ -41,6 +41,7 @@ def _port_modules():
 def test_importing_every_port_module_loads_no_jax_or_reference_module():
     mods = ["fedml_tpu_torch"] + _port_modules()
     assert "fedml_tpu_torch.ops.robust_stats" in mods
+    assert "fedml_tpu_torch.ops.flash_attention" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

@@ -128,3 +128,87 @@ def assert_slice_close(japi, tapi, rtol=1e-4, atol=1e-5, row_tol=1e-4):
         assert keys <= trow.keys(), keys - trow.keys()
         for k in keys:
             assert abs(trow[k] - jrow[k]) <= row_tol, (k, trow[k], jrow[k])
+
+
+# the LM slice: synthetic_shakespeare(4 clients, ~16 windows of 64 tokens,
+# vocab 64), a 2-layer, 2-head, 32-wide TransformerLM with flash attention
+# (blocks of 32), all 4 clients each round, batch 8, E=1, 2 rounds, task nwp
+LM_SLICE = dict(num_clients=4, samples_per_client=16, seq_len=64, vocab=64,
+                layers=2, heads=2, width=32, block=32, batch=8, rounds=2, seed=0)
+
+
+def lm_data_kw():
+    s = LM_SLICE
+    return dict(num_clients=s["num_clients"], samples_per_client=s["samples_per_client"],
+                seq_len=s["seq_len"], vocab_size=s["vocab"], seed=s["seed"], seq_targets=True)
+
+
+def lm_model_kw(flash_fn):
+    """create_model options of the LM slice with ``flash_fn`` (either
+    package's ``flash_attention_bthd``) at the slice's blocks."""
+    import functools
+
+    s = LM_SLICE
+    return dict(num_layers=s["layers"], num_heads=s["heads"], embed_dim=s["width"],
+                attn_fn=functools.partial(flash_fn, block_q=s["block"], block_k=s["block"]))
+
+
+def _lm_config(cfg_mod, compute_dtype, optimizer, lr):
+    s = LM_SLICE
+    return cfg_mod.RunConfig(
+        data=cfg_mod.DataConfig(batch_size=s["batch"]),
+        fed=cfg_mod.FedConfig(
+            client_num_in_total=s["num_clients"], client_num_per_round=s["num_clients"],
+            comm_round=s["rounds"], epochs=1, client_parallelism="scan",
+        ),
+        train=cfg_mod.TrainConfig(client_optimizer=optimizer, lr=lr, compute_dtype=compute_dtype),
+        seed=s["seed"],
+    )
+
+
+def run_lm_slice(compute_dtype: str, optimizer: str, lr: float):
+    """FedAvgAPI(task="nwp") on the LM slice through the reference (client
+    schedule "scan") and through the port on the CPU, from the reference's
+    init with its permutations. Returns ``(reference_api, port_api, init)``
+    with ``init`` the shared initial params (flat, numpy)."""
+    import fedml_tpu.config as jcfg
+    from fedml_tpu.algorithms import FedAvgAPI as JaxFedAvg
+    from fedml_tpu.data.synthetic import synthetic_shakespeare as jax_shakespeare
+    from fedml_tpu.models import create_model as jax_create_model
+    from fedml_tpu.ops.flash_attention import flash_attention_bthd as jax_flash
+
+    import fedml_tpu_torch.config as tcfg
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.bridge import from_flax
+    from fedml_tpu_torch.data.synthetic import synthetic_shakespeare
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bthd
+
+    s = LM_SLICE
+    shape = (s["seq_len"],)
+    jmodel = jax_create_model("transformer", "shakespeare_synth", shape, s["vocab"],
+                              **lm_model_kw(jax_flash))
+    tmodel = create_model("transformer", "shakespeare_synth", shape, s["vocab"],
+                          **lm_model_kw(flash_attention_bthd))
+    args = (compute_dtype, optimizer, lr)
+    japi = JaxFedAvg(_lm_config(jcfg, *args), jax_shakespeare(**lm_data_kw()), jmodel, task="nwp")
+    tapi = FedAvgAPI(
+        _lm_config(tcfg, *args), synthetic_shakespeare(**lm_data_kw()), tmodel, task="nwp",
+        device="cpu", perm_fn=jax_round_perm_fn(s["seed"], s["num_clients"]),
+    )
+    init = flat_params(japi.global_vars["params"])
+    tapi.global_vars = from_flax(japi.global_vars["params"])
+    japi.train()
+    tapi.train()
+    return japi, tapi, init
+
+
+def flat_params(tree, prefix: str = "") -> dict:
+    """Nested flax-style params → {"scope/.../leaf": numpy array}."""
+    out = {}
+    for key, value in tree.items():
+        if hasattr(value, "items"):
+            out.update(flat_params(value, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = np.asarray(value)
+    return out
