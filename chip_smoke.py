@@ -32,7 +32,11 @@ Phases, each of which raises on failure:
    LSE, dQ, dK and dV each within the tolerance stated at FLASH_TOL;
 8. their times at the LM's shapes beside the plain versions, the bound and
    ``scaled_dot_product_attention`` (forward; backward as forward+backward
-   minus forward);
+   minus forward), with each kernel's achieved TFLOP/s, share of its bound,
+   registers, local memory and blocks resident on an SM, and K3 + K4 over
+   SDPA's backward; then the SASS of the built library (``cuobjdump``):
+   every bfloat16 K3/K4 instantiation must hold tensor-core (HMMA)
+   instructions;
 9. the LM path: FedAvgAPI(task="nwp") on the flagship LM (6 layers, 8
    heads, 768 wide, vocab 1024, windows of 256; 8 synthetic-Shakespeare
    clients all in every round, batch 32, E=1, AMSGrad lr 1e-3, bfloat16
@@ -54,6 +58,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -464,6 +471,7 @@ def phase_flash_parity(device="cuda", s_grid=FLASH_S_GRID, d_grid=FLASH_D_GRID, 
                       LM["width"] // LM["heads"], torch.bfloat16, True))
     owner = {"O": fa.FWD, "LSE": fa.FWD, "dQ": fa.BWD_DQ, "dK": fa.BWD_DKV, "dV": fa.BWD_DKV}
     errs = {name: 0.0 for name in fa.KERNEL_NAMES}
+    by_output = {what: 0.0 for what in owner}
     with fp32_math():
         for BH, S, Sk, d, dt, causal in cases:
             out = _flash_case(fa, gen, device, BH, S, Sk, d, dt, causal)
@@ -472,9 +480,11 @@ def phase_flash_parity(device="cuda", s_grid=FLASH_S_GRID, d_grid=FLASH_D_GRID, 
                 e = _flash_check(got, want, dt_name,
                                  f"{what} BH={BH} S={S} Sk={Sk} d={d} {dt_name} causal={causal}")
                 errs[owner[what]] = max(errs[owner[what]], e)
+                by_output[what] = max(by_output[what], e)
     if device == "cuda":
         torch.cuda.synchronize()
     log(json.dumps({"flash_parity": {"cases": len(cases), "max_abs_err": errs,
+                                     "max_abs_err_by_output": by_output,
                                      "tolerance": {k: list(v) for k, v in FLASH_TOL.items()}}}))
     return errs
 
@@ -531,20 +541,83 @@ def phase_flash_timing(name: str, smi: str):
         tb, tf = nbytes / bw * 1e3, flops / bf16_peak * 1e3
         bounds[kname] = (max(tb, tf), "bytes" if tb >= tf else "operations", nbytes, flops)
     library = {fa.FWD: sdpa_fwd, fa.BWD_DQ: sdpa_bwd, fa.BWD_DKV: sdpa_bwd}
+    info = {kn: fa.kernel_info(kn, torch.bfloat16, d) for kn in fa.KERNEL_NAMES}
     log(json.dumps({
         "flash_timing_ms": {kn: {"kernel": t[kn], "plain": plain[kn], "bound": bounds[kn][0],
                                  "bound_by": bounds[kn][1], "bytes": bounds[kn][2],
-                                 "flops": bounds[kn][3], "library": library[kn]}
+                                 "flops": bounds[kn][3], "library": library[kn],
+                                 "tflops": bounds[kn][3] / t[kn] / 1e9,
+                                 "bound_share": bounds[kn][0] / t[kn], **info[kn]}
                             for kn in fa.KERNEL_NAMES},
         "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
+        "k2_over_sdpa_fwd": t[fa.FWD] / sdpa_fwd,
+        "k3_plus_k4_over_sdpa_bwd": (t[fa.BWD_DQ] + t[fa.BWD_DKV]) / sdpa_bwd,
         "shape": {"B": B, "H": H, "S": S, "d": d, "dtype": "bfloat16", "causal": True},
         "rates": f"{card} data sheet: {bw / 1e12} TB/s, {bf16_peak / 1e12} TFLOP/s dense bf16",
         "card": smi,
         "notes": "library = F.scaled_dot_product_attention(is_causal=True); its backward "
                  "(forward+backward minus forward) computes dQ, dK and dV together, so it is "
-                 "the yardstick of K3 and K4 together",
+                 "the yardstick of K3 and K4 together; tflops = the causal half's matmul "
+                 "FLOPs over the kernel's time; registers, local_bytes (spills), smem_bytes "
+                 "and blocks_per_sm from the CUDA runtime for the bfloat16 kernels",
     }))
     return t, plain, bounds, library
+
+
+def _cuobjdump():
+    """The toolkit's cuobjdump, or the copy Triton ships; None if neither."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [shutil.which("cuobjdump")]
+    if CUDA_HOME:
+        cands.append(os.path.join(CUDA_HOME, "bin", "cuobjdump"))
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                                  "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if c and os.access(c, os.X_OK)), None)
+
+
+def sass_counts(sass: str) -> dict:
+    """{kernel<type, D>: {opcode: count}} of the flash kernels in a
+    ``cuobjdump -sass`` listing: HMMA (tensor-core products), FFMA (float32
+    FMA), LDSM (ldmatrix), LDL/STL (local memory: spills)."""
+    counts, label = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : \S*?(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc)?_kernel)I(\w*?)"
+                         r"Li(\d+)E", line)
+        if head:
+            kern, typ, d = head.groups()
+            label = f"{kern}<{'float' if typ == 'f' else 'bf16'}, {d}>"
+            counts[label] = {op: 0 for op in ("HMMA", "FFMA", "LDSM", "LDL", "STL")}
+            continue
+        if "Function : " in line:
+            label = None
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if label and op and op.group(1) in counts[label]:
+            counts[label][op.group(1)] += 1
+    return counts
+
+
+def phase_sass():
+    """Disassemble the built flash library; raise unless every bfloat16
+    K3/K4 instantiation holds HMMA instructions."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    tool = _cuobjdump()
+    if tool is None:
+        log("[sass] cuobjdump not available")
+        return
+    listing = subprocess.run([tool, "-sass", fa._lib()._name], capture_output=True, text=True,
+                             timeout=300, check=True).stdout
+    counts = sass_counts(listing)
+    tc = {k: v for k, v in counts.items() if "_tc_kernel<bf16" in k}
+    log(json.dumps({"sass": counts, "tool": tool}))
+    if len(tc) != 2 * len(fa.HEAD_DIMS) or any(v["HMMA"] == 0 for v in tc.values()):
+        raise AssertionError(f"bf16 K3/K4 instantiations without HMMA: {tc}")
 
 
 # ---------------------------------------------------------------- the LM path
@@ -649,8 +722,7 @@ def phase_profile_lm_round():
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    flash = {"fwd": "flash_fwd_kernel", "bwd_dq": "flash_bwd_dq_kernel",
-             "bwd_dkv": "flash_bwd_dkv_kernel"}
+    flash = {"fwd": "flash_fwd_kernel", "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd_dkv"}
     log(json.dumps({"profile_lm_round": {
         "wall_ms_profiled": wall_ms,
         "kernel_launches": sum(e.count for e in kernels),
@@ -722,6 +794,7 @@ def main() -> int:
     phase_card_vs_cpu()
     flash_err = phase_flash_parity()
     ft, fplain, fbounds, flib = phase_flash_timing(name, smi)
+    phase_sass()
     flash_launches = phase_lm_path()
     phase_profile_lm_round()
     phase_lm_card_vs_cpu()

@@ -15,16 +15,16 @@
 // The casts that decide the bfloat16 numbers are the TPU kernel's: K2 rounds
 // P to the inputs' type before P V; K3 takes dO V^T in float32 and rounds dS
 // to the inputs' type before dS K; K4 is float32 throughout; every output is
-// rounded to the inputs' type once at the end. All products are float32
-// multiply-adds of the (exactly widened) inputs, so a bfloat16 product is what
-// a tensor core with float32 accumulation would give, summed in another order.
+// rounded to the inputs' type once at the end.
 //
-// What bounds it on the H100: at the LM's shapes (S = 256, D = 96, bfloat16,
-// causal) the ideal kernel is bound by bytes (~64-85 FLOP per byte moved,
-// under the card's ~295 FLOP/byte bf16 ridge). This first version is bound by
-// neither: it does its products with float32 FMA on the CUDA cores (67 TFLOP/s
-// peak, not the tensor cores' 989) out of shared memory, so it is bound by
-// the FMA pipe and by shared-memory loads. Its design, simple first:
+// What bounds them on the H100: at the LM's shapes (S = 256, D = 96, bfloat16,
+// causal) the ideal kernels are bound by bytes (~64-85 FLOP per byte moved,
+// under the card's ~295 FLOP/byte bf16 ridge). Two designs live here.
+//
+// SIMT kernels: K2 for both types, K3 and K4 for float32. They do every
+// product as float32 FMA of the (exactly widened) inputs on the CUDA cores
+// (67 TFLOP/s peak), out of float32 tiles in shared memory, so they are bound
+// by the FMA pipe and by shared-memory loads, not by bytes:
 //   - the TPU grid's sequential K axis becomes a loop inside a block: one block
 //     per (batch*head, 64-row tile) of the output, 256 threads; blocks are
 //     independent, so nothing carries over between them;
@@ -33,17 +33,47 @@
 //     quarter-warp's 8 rows fall in distinct banks;
 //   - each thread owns a 4 x 4 register tile of a 64 x 64 score block (rows
 //     ty + 16 i, columns tx + 16 j) and 4 x D/16 outputs (rows ty + 16 i,
-//     columns tx + 16 j);
-//   - under the causal mask only the tiles it leaves live are visited (about
-//     half the work), and the heaviest query tiles are scheduled first;
-//   - ragged edges (S not a multiple of 64) are guarded: rows past the end
-//     load as zeros and are never stored, columns past the end are masked.
-// Shared memory: up to 172.5 KB (K4 at D = 128), under the 227 KB a block can
-// have; above 48 KB it is opted into with cudaFuncSetAttribute.
-// Built without --use_fast_math: expf, logf and the divisions are IEEE.
+//     columns tx + 16 j).
+// Tensor cores cannot give float32 products of float32 inputs at float32
+// accuracy, so float32 (off the LM's bf16 path) keeps these kernels.
+//
+// Tensor-core kernels: K3 and K4 for bfloat16 (`flash_bwd_*_tc_kernel`).
+// Same blocks and loops, but the products are mma.sync m16n8k16 (bf16
+// operands, float32 accumulation) fed by ldmatrix, and the row operations
+// run on the accumulator fragments in registers (FlashAttention-2's layout):
+//   - 4 warps a block, each owning 16 rows of the 64-row tile; K4 computes
+//     S^T = K Q^T so that its rows are keys, and P^T, dS^T then sit in
+//     registers as the A operand of dV += P^T dO and dK += dS^T Q;
+//   - tiles stay bf16 in shared memory, rows padded by 16 bytes so ldmatrix's
+//     8 rows fall in distinct banks for every D; 6 tiles (~78 KB at D = 96)
+//     let two blocks share an SM;
+//   - cp.async copies 16 bytes a thread (zero-filled past the end), double-
+//     buffered: K3 prefetches the next K and V tiles, K4 the next Q and dO
+//     tiles with their LSE and delta rows, while the block computes on the
+//     current ones; dQ, dK, dV are staged through shared memory and stored
+//     16 bytes a thread.
+// Their numbers keep the reference's rounding points: S = Q K^T and dO V^T
+// are products of bf16 inputs, which a bf16 mma computes exactly before its
+// float32 sums. K3 rounds dS to bf16 for the dS K mma, as the reference does.
+// K4 must not round P or dS: each is split into hi = bf16(x) and
+// lo = bf16(x - hi) (|x - hi - lo| <= 2^-16 |x|) and multiplied as hi B + lo B,
+// B (dO, Q) being exact in bf16. Tensor-core accumulation is not IEEE-order
+// float32 (the sums run in another order, and within an mma the hardware's
+// own), so the results agree with the float32 plain versions to one bf16
+// ulp of the rounded values, not bit for bit.
+//
+// Both designs: under the causal mask only the tiles it leaves live are
+// visited (about half the work), and the heaviest tiles are scheduled first;
+// ragged edges (S not a multiple of 64) are guarded: rows past the end load
+// as zeros and are never stored, columns past the end are masked, and K4
+// gives padded query rows no weight. Shared memory above 48 KB is opted into
+// with cudaFuncSetAttribute. Built without --use_fast_math: expf, logf and
+// the divisions are IEEE.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -453,6 +483,376 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// ------------------------------------------------------------------ K3, K4 (bf16): tensor cores
+
+constexpr int kTcWarps = 4;                // a warp owns 16 rows of a 64-row tile
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcPad = 8;                  // row padding of a bf16 tile: 16 bytes
+static_assert(kTcWarps * 16 == kTile, "a tile's rows are split across the warps");
+static_assert(kTcThreads == 2 * kTile, "K4 copies its LSE and delta rows one thread a row");
+
+template <int D> constexpr int tc_ld() { return D + kTcPad; }  // row stride, elements
+template <int D> constexpr int tc_tile_bytes() { return kTile * tc_ld<D>() * 2; }
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without passing through registers; zeros if !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest has landed (this thread's copies)
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 and gets (row l / 4, columns 2 (l % 4) + {0, 1})
+// of each (of its transpose with .trans).
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8]: bf16 products, float32 sums. Lane l
+// holds c at rows l / 4 (c0, c1) and l / 4 + 8 (c2, c3), columns 2 (l % 4) + {0, 1}.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// (x0, x1) rounded to bf16 (nearest even), x0 in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  return bits(__floats2bfloat162_rn(x0, x1));
+}
+// x = hi + lo to within 2^-16 |x| (x normal): hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// Lane addresses of the x4 ldmatrix loads over a bf16 tile [64][tc_ld<D>]:
+// the A operand (rows m0.., columns k0..k0+15) of one mma ...
+template <int D>
+__device__ __forceinline__ uint32_t a_frag(uint32_t tile, int m0, int k0, int lane) {
+  return tile + ((m0 + (lane & 15)) * tc_ld<D>() + k0 + (lane >> 4) * 8) * 2;
+}
+// ... the B operands of two mmas (n0.., n0 + 8..) from a tile stored [n][k] ...
+template <int D>
+__device__ __forceinline__ uint32_t b_frag(uint32_t tile, int n0, int k0, int lane) {
+  return tile + ((n0 + (lane & 7) + (lane >> 4) * 8) * tc_ld<D>() + k0 + ((lane >> 3) & 1) * 8) * 2;
+}
+// ... and from a tile stored [k][n] (loaded with .trans).
+template <int D>
+__device__ __forceinline__ uint32_t bt_frag(uint32_t tile, int k0, int n0, int lane) {
+  return tile + ((k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * tc_ld<D>() + n0 + (lane >> 4) * 8) * 2;
+}
+
+// dst[r][:] = src[row0 + r][:] for the 64 rows of a tile, 16 bytes a thread;
+// rows past `rows` are zero-filled and read nothing.
+template <int D>
+__device__ __forceinline__ void cp_tile(uint32_t dst, const bf16* __restrict__ src, int row0,
+                                        int rows) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  static_assert(kTile * kChunks % kTcThreads == 0, "a tile's chunks split evenly");
+#pragma unroll
+  for (int it = 0; it < kTile * kChunks / kTcThreads; ++it) {
+    const int i = threadIdx.x + it * kTcThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool valid = row0 + r < rows;
+    cp_async16(dst + (r * tc_ld<D>() + c * 8) * 2,
+               src + static_cast<size_t>(valid ? row0 + r : 0) * D + c * 8, valid);
+  }
+}
+
+// The warp's [16 x 64] score blocks s = A1 B1^T and dp = A2 B2^T: A1, A2
+// [64][D] tiles of which the warp takes rows m0..m0+15, B1, B2 [64][D] tiles.
+template <int D>
+__device__ __forceinline__ void score_pair(uint32_t a1, uint32_t b1, uint32_t a2, uint32_t b2,
+                                           int m0, int lane, float (&s)[8][4],
+                                           float (&dp)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t fa1[4], fa2[4], fb[4];
+    ldsm_x4(fa1, a_frag<D>(a1, m0, kk, lane));
+    ldsm_x4(fa2, a_frag<D>(a2, m0, kk, lane));
+#pragma unroll
+    for (int n = 0; n < kTile; n += 16) {
+      ldsm_x4(fb, b_frag<D>(b1, n, kk, lane));
+      mma_bf16(s[n / 8], fa1, fb[0], fb[1]);
+      mma_bf16(s[n / 8 + 1], fa1, fb[2], fb[3]);
+      ldsm_x4(fb, b_frag<D>(b2, n, kk, lane));
+      mma_bf16(dp[n / 8], fa2, fb[0], fb[1]);
+      mma_bf16(dp[n / 8 + 1], fa2, fb[2], fb[3]);
+    }
+  }
+}
+
+// The A operand of keys (or queries) k0..k0+15 of a [16 x 64] block held as
+// mma accumulators: two adjacent n8 accumulators are one k16 A fragment.
+__device__ __forceinline__ void a_from_acc(const float (&x)[8][4], int k0, uint32_t a[4]) {
+  const int j = k0 / 8;
+  a[0] = pack_bf16(x[j][0], x[j][1]);
+  a[1] = pack_bf16(x[j][2], x[j][3]);
+  a[2] = pack_bf16(x[j + 1][0], x[j + 1][1]);
+  a[3] = pack_bf16(x[j + 1][2], x[j + 1][3]);
+}
+__device__ __forceinline__ void split_from_acc(const float (&x)[8][4], int k0, uint32_t hi[4],
+                                               uint32_t lo[4]) {
+  const int j = k0 / 8;
+  split_bf16(x[j][0], x[j][1], hi[0], lo[0]);
+  split_bf16(x[j][2], x[j][3], hi[1], lo[1]);
+  split_bf16(x[j + 1][0], x[j + 1][1], hi[2], lo[2]);
+  split_bf16(x[j + 1][2], x[j + 1][3], hi[3], lo[3]);
+}
+
+// acc[16 x D] += sum over the kParts A fragments of A [16 x 16] B, B rows
+// k0..k0+15 of a [64][D] tile stored [k][n].
+template <int D, int kParts>
+__device__ __forceinline__ void acc_product(const uint32_t (&a)[kParts][4], uint32_t b, int k0,
+                                            int lane, float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < D; n += 16) {
+    uint32_t fb[4];
+    ldsm_x4_trans(fb, bt_frag<D>(b, k0, n, lane));
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+      mma_bf16(acc[n / 8], a[p], fb[0], fb[1]);
+      mma_bf16(acc[n / 8 + 1], a[p], fb[2], fb[3]);
+    }
+  }
+}
+
+// Round the warp's [16 x D] accumulators to bf16 into its rows m0.. of a
+// shared tile that only this warp reads, then store the rows below `rows`
+// to out[row0 + m0 + r][:], 16 bytes a thread.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* tile, const float (&acc)[D / 8][4], int m0,
+                                           int lane, bf16* __restrict__ out, int row0, int rows) {
+  constexpr int ld = tc_ld<D>(), kChunks = D / 8;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(tile + (m0 + g) * ld + 8 * j + t2) =
+        __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    *reinterpret_cast<__nv_bfloat162*>(tile + (m0 + g + 8) * ld + 8 * j + t2) =
+        __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const int i = lane + it * 32, r = i / kChunks, c = i % kChunks;
+    if (row0 + m0 + r < rows)
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(row0 + m0 + r) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + (m0 + r) * ld + c * 8);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ dq, int s_len, int sk_len, int causal, float scale) {
+  constexpr int kTileBytes = tc_tile_bytes<D>();
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  // Q, dO, then K and V double-buffered
+  const uint32_t qs = smem_addr(tc_smem), dos = qs + kTileBytes;
+  const uint32_t ks0 = dos + kTileBytes, vs0 = ks0 + 2 * kTileBytes;
+
+  const int bh = blockIdx.x;
+  const int nq = gridDim.y;
+  const int qt = nq - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const bf16* qb = q + static_cast<size_t>(bh) * s_len * D;
+  const bf16* dob = dout + static_cast<size_t>(bh) * s_len * D;
+  const bf16* kb = k + static_cast<size_t>(bh) * sk_len * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk_len * D;
+
+  cp_tile<D>(qs, qb, q0, s_len);
+  cp_tile<D>(dos, dob, q0, s_len);
+  cp_tile<D>(ks0, kb, 0, sk_len);
+  cp_tile<D>(vs0, vb, 0, sk_len);
+  cp_async_commit();
+
+  // this lane's query rows r0 (accumulators 0, 1) and r0 + 8 (2, 3)
+  const int r0 = q0 + m0 + g, r1 = r0 + 8;
+  const float* lse_b = lse + static_cast<size_t>(bh) * s_len;
+  const float* delta_b = delta + static_cast<size_t>(bh) * s_len;
+  const float lse_r[2] = {r0 < s_len ? lse_b[r0] : 0.0f, r1 < s_len ? lse_b[r1] : 0.0f};
+  const float delta_r[2] = {r0 < s_len ? delta_b[r0] : 0.0f, r1 < s_len ? delta_b[r1] : 0.0f};
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  const int nk = (sk_len + kTile - 1) / kTile;
+  const int k_end = causal ? min(nk, qt + 1) : nk;
+  for (int kt = 0; kt < k_end; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < k_end) {  // the next pair lands while this one is used
+      cp_tile<D>(ks0 + (buf ^ 1) * kTileBytes, kb, (kt + 1) * kTile, sk_len);
+      cp_tile<D>(vs0 + (buf ^ 1) * kTileBytes, vb, (kt + 1) * kTile, sk_len);
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const uint32_t ks = ks0 + buf * kTileBytes, vs = vs0 + buf * kTileBytes;
+
+    float s[8][4], ds[8][4];  // S, then dO V^T, then dS
+    score_pair<D>(qs, ks, dos, vs, m0, lane, s, ds);
+    const int k0 = kt * kTile;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;  // 0: row r0, 1: row r1
+        const float sc = masked_score(s[j][e], scale, h ? r1 : r0, k0 + 8 * j + t2 + (e & 1),
+                                      sk_len, causal != 0);
+        const float p = expf(sc - lse_r[h]);
+        ds[j][e] = p * (ds[j][e] - delta_r[h]) * scale;
+      }
+#pragma unroll
+    for (int kk = 0; kk < kTile; kk += 16) {
+      uint32_t a[1][4];
+      a_from_acc(ds, kk, a[0]);  // dS in k's type before dS K
+      acc_product<D, 1>(a, ks, kk, lane, acc);
+    }
+    __syncthreads();
+  }
+  store_rows<D>(reinterpret_cast<bf16*>(tc_smem), acc, m0, lane,
+                dq + static_cast<size_t>(bh) * s_len * D, q0, s_len);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int s_len, int sk_len,
+                        int causal, float scale) {
+  constexpr int kTileBytes = tc_tile_bytes<D>();
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  // K, V, then Q, dO and the LSE and delta rows double-buffered
+  const uint32_t ks = smem_addr(tc_smem), vs = ks + kTileBytes;
+  const uint32_t qs0 = vs + kTileBytes, dos0 = qs0 + 2 * kTileBytes;
+  float* rows_s = reinterpret_cast<float*>(tc_smem + 6 * kTileBytes);  // [2][lse, delta][64]
+  const uint32_t rows0 = smem_addr(rows_s);
+
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;  // low key tiles see the most query tiles: first
+  const int k0 = kt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const bf16* qb = q + static_cast<size_t>(bh) * s_len * D;
+  const bf16* dob = dout + static_cast<size_t>(bh) * s_len * D;
+  const bf16* kb = k + static_cast<size_t>(bh) * sk_len * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk_len * D;
+  const float* lse_b = lse + static_cast<size_t>(bh) * s_len;
+  const float* delta_b = delta + static_cast<size_t>(bh) * s_len;
+
+  // query tile qt into buffer buf: Q, dO, and one LSE or delta row a thread
+  auto load_q_tile = [&](int qt, int buf) {
+    cp_tile<D>(qs0 + buf * kTileBytes, qb, qt * kTile, s_len);
+    cp_tile<D>(dos0 + buf * kTileBytes, dob, qt * kTile, s_len);
+    const int r = threadIdx.x % kTile, which = threadIdx.x / kTile;  // 0: LSE, 1: delta
+    const bool valid = qt * kTile + r < s_len;
+    cp_async4(rows0 + ((buf * 2 + which) * kTile + r) * 4,
+              (which ? delta_b : lse_b) + (valid ? qt * kTile + r : 0), valid);
+  };
+
+  cp_tile<D>(ks, kb, k0, sk_len);
+  cp_tile<D>(vs, vb, k0, sk_len);
+  const int nq = (s_len + kTile - 1) / kTile;
+  // a query tile is live unless every (row, col) pair in it has col > row
+  const int qt_begin = causal ? kt : 0;
+  load_q_tile(qt_begin, 0);
+  cp_async_commit();
+
+  // this lane's key rows kr0 (accumulators 0, 1) and kr0 + 8 (2, 3)
+  const int kr0 = k0 + m0 + g;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+
+  for (int qt = qt_begin; qt < nq; ++qt) {
+    const int buf = (qt - qt_begin) & 1;
+    if (qt + 1 < nq) load_q_tile(qt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const uint32_t qs = qs0 + buf * kTileBytes, dos = dos0 + buf * kTileBytes;
+    const float* lse_s = rows_s + buf * 2 * kTile;
+    const float* delta_s = lse_s + kTile;
+
+    float p[8][4], ds[8][4];  // S^T then P^T; V dO^T then dS^T
+    score_pair<D>(ks, qs, vs, dos, m0, lane, p, ds);
+    const int q0 = qt * kTile;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + t2 + (e & 1);  // query column in the tile
+        const float sc = masked_score(p[j][e], scale, q0 + c, kr0 + (e >> 1) * 8, sk_len,
+                                      causal != 0);
+        // query rows past the end hold zeros, not a softmax row: no weight
+        const float pe = q0 + c < s_len ? expf(sc - lse_s[c]) : 0.0f;
+        p[j][e] = pe;
+        ds[j][e] = pe * (ds[j][e] - delta_s[c]) * scale;
+      }
+    // float32 P and dS, each as bf16 hi + lo: two mmas a product
+#pragma unroll
+    for (int kk = 0; kk < kTile; kk += 16) {
+      uint32_t a[2][4];
+      split_from_acc(p, kk, a[0], a[1]);
+      acc_product<D, 2>(a, dos, kk, lane, dv_acc);
+      split_from_acc(ds, kk, a[0], a[1]);
+      acc_product<D, 2>(a, qs, kk, lane, dk_acc);
+    }
+    __syncthreads();
+  }
+  bf16* tiles = reinterpret_cast<bf16*>(tc_smem);
+  store_rows<D>(tiles, dk_acc, m0, lane, dk + static_cast<size_t>(bh) * sk_len * D, k0, sk_len);
+  store_rows<D>(tiles + kTile * tc_ld<D>(), dv_acc, m0, lane,
+                dv + static_cast<size_t>(bh) * sk_len * D, k0, sk_len);
+}
+
 // ------------------------------------------------------------------ launch
 
 template <int D> constexpr size_t fwd_smem() {
@@ -489,52 +889,142 @@ int opt_in(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
+// out: threads a block, registers a thread, local memory bytes a thread,
+// dynamic shared memory bytes a block, blocks resident on one SM
+template <typename Kernel>
+int kernel_info(Kernel kernel, int threads, size_t smem, int* out) {
+  int err = opt_in(kernel, smem);
+  cudaFuncAttributes attr;
+  if (err == 0) err = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
+  int blocks = 0;
+  if (err == 0)
+    err = static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem));
+  if (err != 0) return err;
+  out[0] = threads;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = static_cast<int>(smem);
+  out[4] = blocks;
+  return 0;
+}
+
+// K3 and K4: the SIMT kernels for float32 ...
+template <typename T, int D>
+struct Backward {
+  static constexpr size_t kDqSmem = dq_smem<D>(), kDkvSmem = dkv_smem<D>();
+  static int dq(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_bwd_dq_kernel<T, D>, kDqSmem);
+    if (err != 0) return err;
+    flash_bwd_dq_kernel<T, D><<<grid, kThreads, kDqSmem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.o), a.s_len,
+        a.sk_len, a.causal, a.scale);
+    return 0;
+  }
+  static int dkv(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_bwd_dkv_kernel<T, D>, kDkvSmem);
+    if (err != 0) return err;
+    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, kDkvSmem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.o),
+        static_cast<T*>(a.dv), a.s_len, a.sk_len, a.causal, a.scale);
+    return 0;
+  }
+  static int info(Which which, int* out) {
+    return which == Which::kDq ? kernel_info(flash_bwd_dq_kernel<T, D>, kThreads, kDqSmem, out)
+                               : kernel_info(flash_bwd_dkv_kernel<T, D>, kThreads, kDkvSmem, out);
+  }
+};
+
+// ... and the tensor-core kernels for bfloat16
+template <int D>
+struct Backward<bf16, D> {
+  static constexpr size_t kDqSmem = 6 * tc_tile_bytes<D>();
+  static constexpr size_t kDkvSmem = 6 * tc_tile_bytes<D>() + 4 * kTile * sizeof(float);
+  static_assert(kDkvSmem <= 232448 / 2, "two K4 blocks share an SM");
+  static int dq(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_bwd_dq_tc_kernel<D>, kDqSmem);
+    if (err != 0) return err;
+    flash_bwd_dq_tc_kernel<D><<<grid, kTcThreads, kDqSmem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse_in, a.delta,
+        static_cast<bf16*>(a.o), a.s_len, a.sk_len, a.causal, a.scale);
+    return 0;
+  }
+  static int dkv(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_bwd_dkv_tc_kernel<D>, kDkvSmem);
+    if (err != 0) return err;
+    flash_bwd_dkv_tc_kernel<D><<<grid, kTcThreads, kDkvSmem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse_in, a.delta,
+        static_cast<bf16*>(a.o), static_cast<bf16*>(a.dv), a.s_len, a.sk_len, a.causal,
+        a.scale);
+    return 0;
+  }
+  static int info(Which which, int* out) {
+    return which == Which::kDq
+               ? kernel_info(flash_bwd_dq_tc_kernel<D>, kTcThreads, kDqSmem, out)
+               : kernel_info(flash_bwd_dkv_tc_kernel<D>, kTcThreads, kDkvSmem, out);
+  }
+};
+
 template <typename T, int D>
 int launch(Which which, const Args& a) {
   const dim3 grid(a.bh, which == Which::kDkv ? (a.sk_len + kTile - 1) / kTile
                                              : (a.s_len + kTile - 1) / kTile);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
   int err = 0;
   if (which == Which::kFwd) {
     if ((err = opt_in(flash_fwd_kernel<T, D>, fwd_smem<D>())) != 0) return err;
     flash_fwd_kernel<T, D><<<grid, kThreads, fwd_smem<D>(), a.stream>>>(
-        q, k, v, static_cast<T*>(a.o), a.lse_out, a.s_len, a.sk_len, a.causal, a.scale);
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<T*>(a.o), a.lse_out, a.s_len, a.sk_len, a.causal, a.scale);
   } else if (which == Which::kDq) {
-    if ((err = opt_in(flash_bwd_dq_kernel<T, D>, dq_smem<D>())) != 0) return err;
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_smem<D>(), a.stream>>>(
-        q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.o),
-        a.s_len, a.sk_len, a.causal, a.scale);
+    if ((err = Backward<T, D>::dq(grid, a)) != 0) return err;
   } else {
-    if ((err = opt_in(flash_bwd_dkv_kernel<T, D>, dkv_smem<D>())) != 0) return err;
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, dkv_smem<D>(), a.stream>>>(
-        q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.o),
-        static_cast<T*>(a.dv), a.s_len, a.sk_len, a.causal, a.scale);
+    if ((err = Backward<T, D>::dkv(grid, a)) != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_head_dim(int head_dim, Which which, const Args& a) {
-  switch (head_dim) {
-    case 16: return launch<T, 16>(which, a);
-    case 32: return launch<T, 32>(which, a);
-    case 64: return launch<T, 64>(which, a);
-    case 96: return launch<T, 96>(which, a);
-    case 128: return launch<T, 128>(which, a);
-    default: return -1;
-  }
+template <typename T, int D>
+int info(Which which, int* out) {
+  if (which == Which::kFwd)
+    return kernel_info(flash_fwd_kernel<T, D>, kThreads, fwd_smem<D>(), out);
+  return Backward<T, D>::info(which, out);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t
-// (0 = launched) or -1 for a (dtype, head_dim) with no kernel.
-int dispatch(int dtype, int head_dim, Which which, const Args& a) {
-  if (a.bh <= 0 || a.s_len <= 0 || a.sk_len <= 0) return 0;
-  if (dtype == 0) return dispatch_head_dim<float>(head_dim, which, a);
-  if (dtype == 1) return dispatch_head_dim<__nv_bfloat16>(head_dim, which, a);
-  return -1;
+// Calls Op<T, D>::run(args...) for the (dtype, head_dim) pair; -1 for a pair
+// with no kernel. dtype: 0 = float32, 1 = bfloat16.
+template <template <typename, int> class Op, typename... A>
+int dispatch(int dtype, int head_dim, A... args) {
+  if (dtype != 0 && dtype != 1) return -1;
+#define FEDML_FLASH_HEAD_DIM(D)                                                   \
+  case D:                                                                         \
+    return dtype == 0 ? Op<float, D>::run(args...) : Op<bf16, D>::run(args...);
+  switch (head_dim) {
+    FEDML_FLASH_HEAD_DIM(16)
+    FEDML_FLASH_HEAD_DIM(32)
+    FEDML_FLASH_HEAD_DIM(64)
+    FEDML_FLASH_HEAD_DIM(96)
+    FEDML_FLASH_HEAD_DIM(128)
+    default: return -1;
+  }
+#undef FEDML_FLASH_HEAD_DIM
 }
+
+template <typename T, int D>
+struct Launch {
+  static int run(Which which, const Args& a) {
+    if (a.bh <= 0 || a.s_len <= 0 || a.sk_len <= 0) return 0;
+    return launch<T, D>(which, a);
+  }
+};
+
+template <typename T, int D>
+struct Info {
+  static int run(Which which, int* out) { return info<T, D>(which, out); }
+};
 
 }  // namespace
 
@@ -551,7 +1041,7 @@ int fedml_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const
                     float scale, void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse,
          bh, s_len, sk_len, causal, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, head_dim, Which::kFwd, a);
+  return dispatch<Launch>(dtype, head_dim, Which::kFwd, a);
 }
 
 int fedml_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k, const void* v,
@@ -559,7 +1049,7 @@ int fedml_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k, co
                        int bh, int s_len, int sk_len, int causal, float scale, void* stream) {
   Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr,
          bh, s_len, sk_len, causal, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, head_dim, Which::kDq, a);
+  return dispatch<Launch>(dtype, head_dim, Which::kDq, a);
 }
 
 int fedml_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k, const void* v,
@@ -568,7 +1058,15 @@ int fedml_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k, c
                         void* stream) {
   Args a{q, k, v, dout, lse, delta, dk, dv, nullptr,
          bh, s_len, sk_len, causal, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, head_dim, Which::kDkv, a);
+  return dispatch<Launch>(dtype, head_dim, Which::kDkv, a);
+}
+
+// The launch configuration of one kernel and what the compiler made of it:
+// which 0 = K2, 1 = K3, 2 = K4; out[5] as kernel_info fills it. Returns a
+// cudaError_t, or -1 for a (dtype, head_dim, which) with no kernel.
+int fedml_flash_kernel_info(int dtype, int head_dim, int which, int* out) {
+  if (which < 0 || which > 2) return -1;
+  return dispatch<Info>(dtype, head_dim, static_cast<Which>(which), out);
 }
 
 }  // extern "C"

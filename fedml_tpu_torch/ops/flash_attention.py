@@ -13,7 +13,10 @@ Three versions of each kernel's function:
   launched by :func:`flash_forward` / :func:`flash_backward_dq` /
   :func:`flash_backward_dkv` for CUDA tensors. They pick their own tiles
   (:data:`KERNEL_TILE` rows), so on the card ``block_q``/``block_k`` only
-  bound what the caller may pass;
+  bound what the caller may pass. For bfloat16, K3 and K4 run on the
+  tensor cores (``mma.sync`` with float32 sums; K4 multiplies its float32
+  P and dS as bf16 hi + lo pairs, so it rounds neither); K2, and K3/K4
+  for float32, do float32 FMA on the CUDA cores;
 - :func:`flash_forward_plain`, :func:`flash_backward_dq_plain` and
   :func:`flash_backward_dkv_plain`: the same blockwise arithmetic with the
   same casts in PyTorch ops, at the caller's block sizes; the wrappers use
@@ -158,9 +161,25 @@ def _lib() -> ctypes.CDLL:
     lib.fedml_flash_fwd.argtypes = [I, I, P, P, P, P, P] + shape
     lib.fedml_flash_bwd_dq.argtypes = [I, I, P, P, P, P, P, P, P] + shape
     lib.fedml_flash_bwd_dkv.argtypes = [I, I, P, P, P, P, P, P, P, P] + shape
-    for fn in (lib.fedml_flash_fwd, lib.fedml_flash_bwd_dq, lib.fedml_flash_bwd_dkv):
+    lib.fedml_flash_kernel_info.argtypes = [I, I, I, ctypes.POINTER(I)]
+    for fn in (lib.fedml_flash_fwd, lib.fedml_flash_bwd_dq, lib.fedml_flash_bwd_dkv,
+               lib.fedml_flash_kernel_info):
         fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_info(name: str, dtype: torch.dtype, head_dim: int) -> Dict[str, int]:
+    """How kernel ``name`` is launched for (dtype, head_dim) and what the
+    compiler made of it: threads a block, registers and local-memory bytes
+    a thread (spills land there), dynamic shared memory a block, and the
+    blocks one SM holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().fedml_flash_kernel_info(_DTYPE_CODE[dtype], head_dim,
+                                         KERNEL_NAMES.index(name), out)
+    if err != 0:
+        raise RuntimeError(f"{name}: no kernel info for {dtype}, head dim {head_dim}: error {err}")
+    keys = ("threads", "registers", "local_bytes", "smem_bytes", "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 def _launch(name: str, fn, q, operands, Sk: int, causal: bool, scale: float) -> None:
@@ -178,6 +197,9 @@ def _launch(name: str, fn, q, operands, Sk: int, causal: bool, scale: float) -> 
         if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name}: operand {tuple(t.shape)} {t.dtype} (contiguous="
                              f"{t.is_contiguous()}), expected {shape} {dtype} contiguous")
+        if kind != "row" and t.data_ptr() % 16:  # the kernels copy rows 16 bytes at a time
+            raise ValueError(f"{name}: operand {tuple(t.shape)} at {t.data_ptr():#x} is not "
+                             f"16-byte aligned")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], d, *(t.data_ptr() for t, _ in operands),
