@@ -12,9 +12,13 @@ Phases, each of which raises on failure:
    started together;
 3. K1 (the rank-select trimmed mean / median) against its plain PyTorch
    version on the card: bit-equal over a grid of cohort sizes, widths and
-   trim windows, with integer ties, and at the per-leaf shapes of a round;
-   then its time beside the plain version, ``torch.quantile``, the
-   sort-and-window path, ``torch.median`` and the memory bound;
+   trim windows (every cohort of the register kernel, C = 2..16, and the
+   shared-memory kernel above), with integer ties, and at the per-leaf
+   shapes of a round; then its time for a round's 8 leaves and for one flat
+   launch beside the plain version, ``torch.quantile``, the sort-and-window
+   path, ``torch.median`` and the memory bound, each time's share of the
+   bound, and the registers and local memory of the kernel a cohort of 10
+   takes;
 4. the main path: RobustFedAvgAPI on the FEMNIST north-star configuration
    (128 synthetic clients, 10 per round, batch 20, E=1, SGD lr 0.1, the
    62-class CNN at full width): 3 rounds with the coordinate median, 2 with
@@ -35,7 +39,7 @@ Phases, each of which raises on failure:
    minus forward), with each kernel's achieved TFLOP/s, share of its bound,
    registers, local memory and blocks resident on an SM, and K3 + K4 over
    SDPA's backward; then the SASS of the built library (``cuobjdump``):
-   every bfloat16 K3/K4 instantiation must hold tensor-core (HMMA)
+   every bfloat16 K2/K3/K4 instantiation must hold tensor-core (HMMA)
    instructions;
 9. the LM path: FedAvgAPI(task="nwp") on the flagship LM (6 layers, 8
    heads, 768 wide, vocab 1024, windows of 256; 8 synthetic-Shakespeare
@@ -171,7 +175,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(rs._kernel_fn), pool.submit(fa._lib)]:
+        for f in [pool.submit(rs._lib), pool.submit(fa._lib)]:
             f.result()  # raises a build failure
     log(json.dumps({"built": [rs.KERNEL_NAME, *fa.KERNEL_NAMES],
                     "build_s": round(time.perf_counter() - t0, 3)}))
@@ -205,6 +209,13 @@ def phase_k1_parity(device="cuda", c_grid=C_GRID, d_grid=D_GRID):
                 errs.append(_check_equal(
                     rs.trimmed_mean_1d(x, k), rs.trimmed_mean_plain(x, k), f"C={C} D={D} k={k}"
                 ))
+    # every cohort of the register kernel (C = 2..16) and the first C above it
+    for C in range(2, 18):
+        x = torch.randn(C, 700, generator=gen, device=device)
+        for k in range((C - 1) // 2 + 1):
+            errs.append(_check_equal(
+                rs.trimmed_mean_1d(x, k), rs.trimmed_mean_plain(x, k), f"C={C} D=700 k={k}"
+            ))
     # integer-valued ties: only the kept multiset decides the result
     for C in (6, COHORT):
         x = torch.randint(-3, 4, (C, d_grid[-1]), generator=gen, device=device).float()
@@ -221,7 +232,8 @@ def phase_k1_parity(device="cuda", c_grid=C_GRID, d_grid=D_GRID):
                 rs.trimmed_mean_1d(x, k), rs.trimmed_mean_plain(x, k), f"{name} k={k}"
             ))
     log(f"[k1] bit-equal to the plain version in {len(errs)} cases "
-        f"(C in {list(c_grid)}, D in {list(d_grid)}, every k; integer ties; round leaf shapes)")
+        f"(C in {list(c_grid)}, D in {list(d_grid)}, every k; C = 2..17 at D = 700; "
+        f"integer ties; round leaf shapes)")
     return max(errs)
 
 
@@ -291,6 +303,10 @@ def phase_k1_timing(name: str, smi: str):
     log(json.dumps({
         "k1_timing_ms": t, "C": COHORT, "D": D, "bytes": nbytes, "ops": ops,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        # a round's 8 leaves read and write the same bytes as one flat launch
+        "bound_share": {key: bound_ms / t[key] for key in
+                        ("k1_median_round", "k1_trimmed_round", "k1_median_flat", "k1_trimmed_flat")},
+        "kernel_info": {f"C={c}": rs.kernel_info(c) for c in (COHORT, 33)},
         "rates": f"{card} data sheet: {bw / 1e12} TB/s, {fp32_peak / 1e12} TFLOP/s fp32",
         "card": smi,
         "notes": "torch.median is the lower median at even C (not the same function); "
@@ -512,6 +528,9 @@ def phase_flash_timing(name: str, smi: str):
         fa.BWD_DQ: device_ms(lambda: fa.flash_backward_dq(*bwd)),
         fa.BWD_DKV: device_ms(lambda: fa.flash_backward_dkv(*bwd)),
     }
+    # the same shapes unmasked: every block visits all the key tiles, so the
+    # per-block prologue and epilogue weigh less than under the causal mask
+    k2_full = device_ms(lambda: fa.flash_forward(q, k, v, scale, False, blk, blk))
     fa.LAUNCHES.update(before)  # timing launches are not the main path's
     plain = {
         fa.FWD: device_ms(lambda: fa.flash_forward_plain(q, k, v, scale, True, blk, blk), iters=5),
@@ -526,6 +545,7 @@ def phase_flash_timing(name: str, smi: str):
         torch.autograd.grad(out, (qs, ks, vs), dos)
 
     sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
+    sdpa_fwd_full = device_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))
     sdpa_bwd = device_ms(sdpa_fwd_bwd) - sdpa_fwd
     # the function's work: each input read once, each output written once;
     # matmul FLOPs over the S(S+1)/2 causal (query, key) pairs
@@ -551,6 +571,8 @@ def phase_flash_timing(name: str, smi: str):
                             for kn in fa.KERNEL_NAMES},
         "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
         "k2_over_sdpa_fwd": t[fa.FWD] / sdpa_fwd,
+        "not_causal_ms": {"k2": k2_full, "sdpa_fwd": sdpa_fwd_full,
+                          "k2_over_sdpa_fwd": k2_full / sdpa_fwd_full},
         "k3_plus_k4_over_sdpa_bwd": (t[fa.BWD_DQ] + t[fa.BWD_DKV]) / sdpa_bwd,
         "shape": {"B": B, "H": H, "S": S, "d": d, "dtype": "bfloat16", "causal": True},
         "rates": f"{card} data sheet: {bw / 1e12} TB/s, {bf16_peak / 1e12} TFLOP/s dense bf16",
@@ -604,7 +626,7 @@ def sass_counts(sass: str) -> dict:
 
 def phase_sass():
     """Disassemble the built flash library; raise unless every bfloat16
-    K3/K4 instantiation holds HMMA instructions."""
+    K2/K3/K4 instantiation holds HMMA instructions."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     tool = _cuobjdump()
@@ -616,8 +638,8 @@ def phase_sass():
     counts = sass_counts(listing)
     tc = {k: v for k, v in counts.items() if "_tc_kernel<bf16" in k}
     log(json.dumps({"sass": counts, "tool": tool}))
-    if len(tc) != 2 * len(fa.HEAD_DIMS) or any(v["HMMA"] == 0 for v in tc.values()):
-        raise AssertionError(f"bf16 K3/K4 instantiations without HMMA: {tc}")
+    if len(tc) != 3 * len(fa.HEAD_DIMS) or any(v["HMMA"] == 0 for v in tc.values()):
+        raise AssertionError(f"bf16 K2/K3/K4 instantiations without HMMA: {tc}")
 
 
 # ---------------------------------------------------------------- the LM path
@@ -722,7 +744,7 @@ def phase_profile_lm_round():
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    flash = {"fwd": "flash_fwd_kernel", "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd_dkv"}
+    flash = {"fwd": "flash_fwd", "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd_dkv"}
     log(json.dumps({"profile_lm_round": {
         "wall_ms_profiled": wall_ms,
         "kernel_launches": sum(e.count for e in kernels),

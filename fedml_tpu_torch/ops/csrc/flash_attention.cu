@@ -21,40 +21,46 @@
 // causal) the ideal kernels are bound by bytes (~64-85 FLOP per byte moved,
 // under the card's ~295 FLOP/byte bf16 ridge). Two designs live here.
 //
-// SIMT kernels: K2 for both types, K3 and K4 for float32. They do every
-// product as float32 FMA of the (exactly widened) inputs on the CUDA cores
-// (67 TFLOP/s peak), out of float32 tiles in shared memory, so they are bound
-// by the FMA pipe and by shared-memory loads, not by bytes:
+// SIMT kernels, for float32 (off the LM's bf16 path): K2, K3 and K4. They do
+// every product as float32 FMA on the CUDA cores (67 TFLOP/s peak), out of
+// float32 tiles in shared memory, so they are bound by the FMA pipe and by
+// shared-memory loads, not by bytes:
 //   - the TPU grid's sequential K axis becomes a loop inside a block: one block
 //     per (batch*head, 64-row tile) of the output, 256 threads; blocks are
 //     independent, so nothing carries over between them;
-//   - tiles of 64 rows are widened to float32 in shared memory with rows
+//   - tiles of 64 rows are held in float32 in shared memory with rows
 //     padded by 4 floats, so float4 loads along D are aligned and a
 //     quarter-warp's 8 rows fall in distinct banks;
 //   - each thread owns a 4 x 4 register tile of a 64 x 64 score block (rows
 //     ty + 16 i, columns tx + 16 j) and 4 x D/16 outputs (rows ty + 16 i,
 //     columns tx + 16 j).
 // Tensor cores cannot give float32 products of float32 inputs at float32
-// accuracy, so float32 (off the LM's bf16 path) keeps these kernels.
+// accuracy, so float32 keeps these kernels.
 //
-// Tensor-core kernels: K3 and K4 for bfloat16 (`flash_bwd_*_tc_kernel`).
-// Same blocks and loops, but the products are mma.sync m16n8k16 (bf16
-// operands, float32 accumulation) fed by ldmatrix, and the row operations
-// run on the accumulator fragments in registers (FlashAttention-2's layout):
+// Tensor-core kernels, for bfloat16: K2 (`flash_fwd_tc_kernel`), K3 and K4
+// (`flash_bwd_*_tc_kernel`). Same blocks and loops, but the products are
+// mma.sync m16n8k16 (bf16 operands, float32 accumulation) fed by ldmatrix,
+// and the row operations run on the accumulator fragments in registers
+// (FlashAttention-2's layout):
 //   - 4 warps a block, each owning 16 rows of the 64-row tile; K4 computes
 //     S^T = K Q^T so that its rows are keys, and P^T, dS^T then sit in
 //     registers as the A operand of dV += P^T dO and dK += dS^T Q;
+//   - K2 keeps its warp's Q rows as A fragments in registers, and its online
+//     softmax in registers too: a row's scores sit in the 4 lanes of a quad,
+//     so its max and sum take two shuffles; P, rounded to bf16, is the A
+//     operand of O += P V straight from the score accumulators;
 //   - tiles stay bf16 in shared memory, rows padded by 16 bytes so ldmatrix's
-//     8 rows fall in distinct banks for every D; 6 tiles (~78 KB at D = 96)
-//     let two blocks share an SM;
+//     8 rows fall in distinct banks for every D; K2's 5 tiles (~66 KB at
+//     D = 96) let three blocks share an SM, K3's and K4's 6 tiles two;
 //   - cp.async copies 16 bytes a thread (zero-filled past the end), double-
-//     buffered: K3 prefetches the next K and V tiles, K4 the next Q and dO
-//     tiles with their LSE and delta rows, while the block computes on the
-//     current ones; dQ, dK, dV are staged through shared memory and stored
+//     buffered: K2 and K3 prefetch the next K and V tiles, K4 the next Q and
+//     dO tiles with their LSE and delta rows, while the block computes on the
+//     current ones; O, dQ, dK, dV are staged through shared memory and stored
 //     16 bytes a thread.
 // Their numbers keep the reference's rounding points: S = Q K^T and dO V^T
 // are products of bf16 inputs, which a bf16 mma computes exactly before its
-// float32 sums. K3 rounds dS to bf16 for the dS K mma, as the reference does.
+// float32 sums. K2 sums l over the float32 p and rounds P to bf16 only for
+// the P V mma; K3 rounds dS to bf16 for the dS K mma, as the reference does.
 // K4 must not round P or dS: each is split into hi = bf16(x) and
 // lo = bf16(x - hi) (|x - hi - lo| <= 2^-16 |x|) and multiplied as hi B + lo B,
 // B (dO, Q) being exact in bf16. Tensor-core accumulation is not IEEE-order
@@ -483,7 +489,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-// ------------------------------------------------------------------ K3, K4 (bf16): tensor cores
+// ------------------------------------------------------------------ K2, K3, K4 (bf16): tensor cores
 
 constexpr int kTcWarps = 4;                // a warp owns 16 rows of a 64-row tile
 constexpr int kTcThreads = 32 * kTcWarps;
@@ -853,6 +859,144 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 dv + static_cast<size_t>(bh) * sk_len * D, k0, sk_len);
 }
 
+// ------------------------------------------------------------------ K2 (bf16): tensor cores
+
+// Three blocks an SM up to D = 96 (5 tiles, ~66 KB at D = 96, and at most
+// 168 registers a thread); two at D = 128.
+template <int D> constexpr int fwd_tc_blocks() { return D <= 96 ? 3 : 2; }
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, fwd_tc_blocks<D>())
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                    int s_len, int sk_len, int causal, float scale) {
+  constexpr int kTileBytes = tc_tile_bytes<D>();
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  // Q, then K and V double-buffered
+  const uint32_t qs = smem_addr(tc_smem);
+  const uint32_t ks0 = qs + kTileBytes, vs0 = ks0 + 2 * kTileBytes;
+
+  const int bh = blockIdx.x;
+  const int nq = gridDim.y;
+  const int qt = nq - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const bf16* qb = q + static_cast<size_t>(bh) * s_len * D;
+  const bf16* kb = k + static_cast<size_t>(bh) * sk_len * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk_len * D;
+
+  cp_tile<D>(qs, qb, q0, s_len);
+  cp_tile<D>(ks0, kb, 0, sk_len);
+  cp_tile<D>(vs0, vb, 0, sk_len);
+  cp_async_commit();
+
+  // this lane's query rows r0 (accumulators 0, 1) and r0 + 8 (2, 3); the
+  // running max starts at the mask value, so the first correction is 0
+  const int r0 = q0 + m0 + g, r1 = r0 + 8;
+  float m_run[2] = {kMaskValue, kMaskValue}, l_run[2] = {0.0f, 0.0f};
+  uint32_t qf[D / 16][4];  // the warp's Q rows as A fragments, loaded once
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  const int nk = (sk_len + kTile - 1) / kTile;
+  const int k_end = causal ? min(nk, qt + 1) : nk;
+  for (int kt = 0; kt < k_end; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < k_end) {  // the next pair lands while this one is used
+      cp_tile<D>(ks0 + (buf ^ 1) * kTileBytes, kb, (kt + 1) * kTile, sk_len);
+      cp_tile<D>(vs0 + (buf ^ 1) * kTileBytes, vb, (kt + 1) * kTile, sk_len);
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const uint32_t ks = ks0 + buf * kTileBytes, vs = vs0 + buf * kTileBytes;
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) ldsm_x4(qf[kk / 16], a_frag<D>(qs, m0, kk, lane));
+    }
+
+    float s[8][4];  // S, then P
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16)
+#pragma unroll
+      for (int n = 0; n < kTile; n += 16) {
+        uint32_t fb[4];
+        ldsm_x4(fb, b_frag<D>(ks, n, kk, lane));
+        mma_bf16(s[n / 8], qf[kk / 16], fb[0], fb[1]);
+        mma_bf16(s[n / 8 + 1], qf[kk / 16], fb[2], fb[3]);
+      }
+    const int k0 = kt * kTile;
+    // only the diagonal tile and the ragged end hold masked (row, col) pairs
+    const bool edge = k0 + kTile > sk_len || (causal && k0 + kTile - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = edge ? masked_score(s[j][e], scale, (e >> 1) ? r1 : r0,
+                                      k0 + 8 * j + t2 + (e & 1), sk_len, causal != 0)
+                       : s[j][e] * scale;
+
+    // online softmax: a row's 64 scores sit in the 4 lanes of a quad
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kMaskValue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[h], mx);
+      const float corr = expf(m_run[h] - m_new);
+      float sum = 0.0f;  // of the float32 p, before P is rounded for P V
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][2 * h] = expf(s[j][2 * h] - m_new);
+        s[j][2 * h + 1] = expf(s[j][2 * h + 1] - m_new);
+        sum += s[j][2 * h] + s[j][2 * h + 1];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[h] = l_run[h] * corr + sum;
+      m_run[h] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * h] *= corr;
+        acc[j][2 * h + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTile; kk += 16) {
+      uint32_t a[1][4];
+      a_from_acc(s, kk, a[0]);  // P in v's type before P V
+      acc_product<D, 1>(a, vs, kk, lane, acc);
+    }
+    __syncthreads();
+  }
+
+  float safe_l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) safe_l[h] = l_run[h] > 0.0f ? l_run[h] : 1.0f;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = acc[j][e] / safe_l[e >> 1];
+  // the warp's own rows of the Q tile, whose fragments it already holds
+  store_rows<D>(reinterpret_cast<bf16*>(tc_smem), acc, m0, lane,
+                o + static_cast<size_t>(bh) * s_len * D, q0, s_len);
+  if ((lane & 3) == 0) {
+    float* lse_b = lse + static_cast<size_t>(bh) * s_len;
+    if (r0 < s_len) lse_b[r0] = m_run[0] + logf(safe_l[0]);
+    if (r1 < s_len) lse_b[r1] = m_run[1] + logf(safe_l[1]);
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 template <int D> constexpr size_t fwd_smem() {
@@ -908,6 +1052,41 @@ int kernel_info(Kernel kernel, int threads, size_t smem, int* out) {
   out[4] = blocks;
   return 0;
 }
+
+// K2: the SIMT kernel for float32 ...
+template <typename T, int D>
+struct Forward {
+  static constexpr size_t kSmem = fwd_smem<D>();
+  static int run(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_fwd_kernel<T, D>, kSmem);
+    if (err != 0) return err;
+    flash_fwd_kernel<T, D><<<grid, kThreads, kSmem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<T*>(a.o), a.lse_out, a.s_len, a.sk_len, a.causal, a.scale);
+    return 0;
+  }
+  static int info(int* out) { return kernel_info(flash_fwd_kernel<T, D>, kThreads, kSmem, out); }
+};
+
+// ... and the tensor-core kernel for bfloat16
+template <int D>
+struct Forward<bf16, D> {
+  static constexpr size_t kSmem = 5 * tc_tile_bytes<D>();
+  static_assert(fwd_tc_blocks<D>() * (kSmem + 1024) <= 233472,
+                "the K2 blocks an SM is built for fit its shared memory");
+  static int run(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_fwd_tc_kernel<D>, kSmem);
+    if (err != 0) return err;
+    flash_fwd_tc_kernel<D><<<grid, kTcThreads, kSmem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse_out, a.s_len, a.sk_len,
+        a.causal, a.scale);
+    return 0;
+  }
+  static int info(int* out) {
+    return kernel_info(flash_fwd_tc_kernel<D>, kTcThreads, kSmem, out);
+  }
+};
 
 // K3 and K4: the SIMT kernels for float32 ...
 template <typename T, int D>
@@ -975,10 +1154,7 @@ int launch(Which which, const Args& a) {
                                              : (a.s_len + kTile - 1) / kTile);
   int err = 0;
   if (which == Which::kFwd) {
-    if ((err = opt_in(flash_fwd_kernel<T, D>, fwd_smem<D>())) != 0) return err;
-    flash_fwd_kernel<T, D><<<grid, kThreads, fwd_smem<D>(), a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<T*>(a.o), a.lse_out, a.s_len, a.sk_len, a.causal, a.scale);
+    if ((err = Forward<T, D>::run(grid, a)) != 0) return err;
   } else if (which == Which::kDq) {
     if ((err = Backward<T, D>::dq(grid, a)) != 0) return err;
   } else {
@@ -989,8 +1165,7 @@ int launch(Which which, const Args& a) {
 
 template <typename T, int D>
 int info(Which which, int* out) {
-  if (which == Which::kFwd)
-    return kernel_info(flash_fwd_kernel<T, D>, kThreads, fwd_smem<D>(), out);
+  if (which == Which::kFwd) return Forward<T, D>::info(out);
   return Backward<T, D>::info(which, out);
 }
 

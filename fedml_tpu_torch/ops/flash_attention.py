@@ -13,10 +13,11 @@ Three versions of each kernel's function:
   launched by :func:`flash_forward` / :func:`flash_backward_dq` /
   :func:`flash_backward_dkv` for CUDA tensors. They pick their own tiles
   (:data:`KERNEL_TILE` rows), so on the card ``block_q``/``block_k`` only
-  bound what the caller may pass. For bfloat16, K3 and K4 run on the
-  tensor cores (``mma.sync`` with float32 sums; K4 multiplies its float32
-  P and dS as bf16 hi + lo pairs, so it rounds neither); K2, and K3/K4
-  for float32, do float32 FMA on the CUDA cores;
+  bound what the caller may pass. For bfloat16, K2, K3 and K4 run on the
+  tensor cores (``mma.sync`` with float32 sums; K2 sums l over the float32
+  P before it rounds P for P·V; K4 multiplies its float32 P and dS as bf16
+  hi + lo pairs, so it rounds neither); for float32 they do float32 FMA on
+  the CUDA cores;
 - :func:`flash_forward_plain`, :func:`flash_backward_dq_plain` and
   :func:`flash_backward_dkv_plain`: the same blockwise arithmetic with the
   same casts in PyTorch ops, at the caller's block sizes; the wrappers use

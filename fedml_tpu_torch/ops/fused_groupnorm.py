@@ -53,8 +53,9 @@ class _LnAct(torch.autograd.Function):
         s1 = torch.sum(dxhat, dim=-1, keepdim=True)
         s2 = torch.sum(dxhat * xhat, dim=-1, keepdim=True)
         dx = (inv / D) * (D * dxhat - s1 - xhat * s2)
-        # autograd rounds dγ, dβ to γ's and β's type (the reference hands
-        # them on in float32)
+        # float32 dγ, dβ, as the reference's; autograd would round them to a
+        # bf16 γ's and β's type, so mixed precision passes float32 γ and β
+        # holding bf16 values (train/client.py make_mixed_forward)
         return dx.to(x.dtype), dgamma, dbeta, None, None
 
 

@@ -37,8 +37,9 @@ import torch
 
 from fedml_tpu_torch.ops._build import load_kernel_library
 
-# The kernel keeps a column in a per-thread shared-memory tile; C above this
-# cap raises (csrc/robust_stats.cu kMaxClients).
+# The kernel keeps a column in registers for C <= 16 and in a per-thread
+# shared-memory tile above; C above this cap raises (csrc/robust_stats.cu
+# kMaxClients).
 MAX_CLIENTS = 64
 KERNEL_NAME = "robust_stats.trimmed_mean"
 LAUNCHES: Dict[str, int] = {KERNEL_NAME: 0}
@@ -83,18 +84,32 @@ def trimmed_mean_sort(x: torch.Tensor, trim_k: int) -> torch.Tensor:
 
 
 @functools.cache
-def _kernel_fn():
-    """Build (at first use) and bind K1's C entry point."""
+def _lib() -> ctypes.CDLL:
+    """Build (at first use) and bind K1's C entry points."""
     lib = load_kernel_library("robust_stats")
     if lib.fedml_robust_stats_max_clients() != MAX_CLIENTS:
         raise RuntimeError("csrc/robust_stats.cu kMaxClients disagrees with MAX_CLIENTS")
-    fn = lib.fedml_trimmed_mean_f32
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    I = ctypes.c_int
+    lib.fedml_trimmed_mean_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, I, ctypes.c_longlong, I, I, ctypes.c_void_p,
     ]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.fedml_robust_stats_kernel_info.argtypes = [I, ctypes.POINTER(I)]
+    for fn in (lib.fedml_trimmed_mean_f32, lib.fedml_robust_stats_kernel_info):
+        fn.restype = I
+    return lib
+
+
+def kernel_info(C: int) -> Dict[str, int]:
+    """The kernel that takes a cohort of C (in registers for C <= 16, in a
+    shared-memory tile above) and what the compiler made of it: threads a
+    block, registers and local-memory bytes a thread (spills land there),
+    dynamic shared memory a block, and the blocks one SM holds at once."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().fedml_robust_stats_kernel_info(C, out)
+    if err != 0:
+        raise RuntimeError(f"K1: no kernel info for C={C}: cudaError {err}")
+    keys = ("threads", "registers", "local_bytes", "smem_bytes", "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 def _launch(x: torch.Tensor, trim_k: int) -> torch.Tensor:
@@ -102,7 +117,7 @@ def _launch(x: torch.Tensor, trim_k: int) -> torch.Tensor:
     out = torch.empty(D, dtype=torch.float32, device=x.device)
     if D == 0:
         return out
-    fn = _kernel_fn()
+    fn = _lib().fedml_trimmed_mean_f32
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     grid = min(-(-D // _BLOCK), sms * _BLOCKS_PER_SM)
     with torch.cuda.device(x.device):

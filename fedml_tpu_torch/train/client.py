@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.models import ModelDef
+from fedml_tpu_torch.models.norms import LayerNorm
 from fedml_tpu_torch.train import losses as L
 from fedml_tpu_torch.train.optim import apply_updates, build_client_optimizer
 
@@ -81,22 +82,49 @@ def cast_floats(tree: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, 
     return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
 
 
+class _RoundTo(torch.autograd.Function):
+    """x rounded to ``dtype``'s values but kept in x's type; the gradient
+    passes through unchanged, as the transpose of the reference's cast
+    passes on the float32 gradient its custom VJP returns."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def make_mixed_forward(model: ModelDef, tc) -> Callable:
     """``fwd(params, xb) -> logits`` in float32. The float32 master params
     and any float inputs are cast to ``tc.compute_dtype`` inside the
     differentiated function (the cast is linear, so the gradients come
     back in float32 on the master params); integer tokens are not cast;
     the logits are widened back to float32. In float32 every cast is a
-    no-op. Augmentation is not ported."""
+    no-op. Augmentation is not ported.
+
+    LayerNorm's ``scale`` and ``bias`` are rounded to the compute type's
+    values but stay float32: its custom backward returns float32 dγ and
+    dβ, which the reference hands to the master params unrounded, while
+    autograd would round them to the type of a cast γ and β."""
     if tc.augment != "none":
         raise NotImplementedError("augmentation is not ported yet (ROADMAP.md)")
     cdt = getattr(torch, tc.compute_dtype, None)
     if not isinstance(cdt, torch.dtype) or not cdt.is_floating_point:
         raise ValueError(f"unknown compute_dtype {tc.compute_dtype!r}")
 
+    ln_affine = set()
+    if cdt != torch.float32:
+        for name, mod in model.module.named_modules():
+            if isinstance(mod, LayerNorm):
+                ln_affine.update(f"{name}.{leaf}" if name else leaf for leaf in ("scale", "bias"))
+
     def fwd(params, xb):
         xb_c = xb.to(cdt) if xb.is_floating_point() else xb
-        return model.apply(cast_floats(params, cdt), xb_c, train=True)[0].float()
+        params_c = cast_floats({k: v for k, v in params.items() if k not in ln_affine}, cdt)
+        params_c.update({k: _RoundTo.apply(params[k], cdt) for k in ln_affine})
+        return model.apply(params_c, xb_c, train=True)[0].float()
 
     return fwd
 
