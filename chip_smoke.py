@@ -51,7 +51,20 @@ Phases, each of which raises on failure:
 10. where a warm LM round's time goes (torch.profiler);
 11. one LM round on the card against the same round on the CPU (2 layers,
     128 wide, windows of 64, float32 SGD) from the same init with the same
-    shuffles.
+    shuffles;
+12. the cross-silo transport (``phase_transport``): on the north-star CNN
+    at batch 20, FedOptAPI (FedAdam, server lr 0.05) trained on the client
+    actors' own minibatches (``actor_order_perm_fn``) against the same
+    2 rounds as a loopback federation of 10 client actors in threads
+    (TRANSPORT_SIM_TOL), and one round over shared memory bit-equal to one
+    over loopback, all with cuDNN's deterministic algorithms; then 2 rounds
+    of the flagship LM over loopback, 8 client actors on the card, with the
+    K2/K3/K4 launch counts zeroed just before and read just after (they
+    must equal the counts the clients' shards give) and Train/Loss finite
+    and falling; and a ``[transport]`` JSON line with each run's warm round
+    time, wire bytes up and down a round (the port's CommMeter), the
+    seconds a round spends in to_bytes/from_bytes and its other host spans,
+    beside the card's name and power limit.
 
 Then it prints the kernels' JSON line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -96,6 +109,15 @@ LM_CARD_VS_CPU = (1e-4, 1e-5)
 # when the float32 sums before it differ in their last bits — one bf16 ulp
 # (2^-8 relative) of that value.
 FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0**-7, 2.0**-8)}
+
+# FedOptAPI against the loopback federation after 2 FedAdam rounds at batch
+# 20, (rtol, atol): bit-equal. The simulator trains each client on its
+# actor's minibatches (actor_order_perm_fn), so both runtimes take the same
+# float32 steps on the same batches at the same shapes, with cuDNN's
+# deterministic algorithms, and average and step the server alike. Measured
+# 0.0 on the H100 and on the CPU.
+TRANSPORT_SIM_TOL = (0.0, 0.0)
+TRANSPORT_ROUNDS = 2
 FLASH_S_GRID = (32, 128, 192, 512)
 FLASH_D_GRID = (16, 32, 64, 96, 128)
 FLASH_BH = 3
@@ -801,6 +823,162 @@ def phase_lm_card_vs_cpu():
         torch.testing.assert_close(card[k], cpu[k], rtol=rtol, atol=atol, msg=lambda m: f"{k}: {m}")
 
 
+# ---------------------------------------------------------------- the transport
+
+
+def _transport_report(fed, rounds: int, wall_s: float) -> dict:
+    """Warm round time (broadcast, local training, uploads and aggregate;
+    no eval), wire bytes and host seconds a round of a finished federation,
+    from its history, the port's CommMeter and the spans of the process
+    tracer (reset before the run)."""
+    from fedml_tpu_torch.core.message import MessageType as MT
+    from fedml_tpu_torch.telemetry import get_comm_meter, get_tracer
+
+    sent = get_comm_meter().snapshot()["bytes_sent"]
+    spans, eval_s = {}, {}
+    for ev in get_tracer().events():
+        spans[ev.name] = spans.get(ev.name, 0.0) + ev.dur_us / 1e6
+        if ev.name == "eval":
+            eval_s[ev.attrs["round"]] = ev.dur_us / 1e6
+    # a history row's t_s is taken after the round's aggregate and before its
+    # eval, so the span between the last two rows holds the eval of the one
+    # before: take it out, as the simulator's round_time_s leaves eval out
+    t_s = [row["t_s"] for row in fed.history]
+    return {
+        "rounds": rounds,
+        "wall_s": wall_s,
+        "warm_round_s": t_s[-1] - t_s[-2] - eval_s.get(rounds - 2, 0.0) if rounds > 1 else None,
+        "round_t_s": t_s,
+        "wire_bytes_up_per_round": sent.get(MT.C2S_SEND_MODEL, 0) / rounds,
+        "wire_bytes_down_per_round": (sent.get(MT.S2C_INIT_CONFIG, 0)
+                                      + sent.get(MT.S2C_SYNC_MODEL, 0)) / rounds,
+        "host_s_per_round": {name: spans.get(name, 0.0) / rounds for name in
+                             ("to_bytes", "from_bytes", "local_train", "broadcast", "aggregate",
+                              "eval")},
+        "notes": "to_bytes/from_bytes: every message's encode and decode; local_train sums the "
+                 "client actors' concurrent spans; broadcast holds the server's to_bytes",
+    }
+
+
+def _traced_federation(run, *args, **kw):
+    """``run(*args, **kw)`` with the comm meter and tracer reset before;
+    returns (server, report)."""
+    from fedml_tpu_torch.telemetry import get_comm_meter, get_tracer
+
+    get_comm_meter().reset()
+    get_tracer().reset()
+    t0 = time.perf_counter()
+    fed = run(*args, **kw)
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return fed, _transport_report(fed, len(fed.history), time.perf_counter() - t0)
+
+
+def expected_transport_flash_launches(cfg, data, layers: int) -> dict:
+    """K2/K3/K4 launches of a transport federation: each sampled client's
+    local steps that hold data (ceil(n / batch) an epoch), and one K2 a
+    layer for each batch of 256 the server evaluates."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.scheduler import ClientScheduler
+
+    fed, B = cfg.fed, cfg.data.batch_size
+    sched = ClientScheduler.from_config(cfg, num_clients=fed.client_num_in_total)
+    steps = sum(-(-int(data.train_sample_counts[c]) // B) * fed.epochs
+                for r in range(fed.comm_round) for c in sched.select(r))
+    evals = sum(r % fed.frequency_of_the_test == 0 or r == fed.comm_round - 1
+                for r in range(fed.comm_round))
+    eval_batches = evals * -(-len(data.test_y) // 256)
+    return {fa.FWD: layers * (steps + eval_batches), fa.BWD_DQ: layers * steps,
+            fa.BWD_DKV: layers * steps, "steps": steps, "eval_batches": eval_batches}
+
+
+def phase_transport(smi: str, device="cuda", num_clients=128, per_round=COHORT,
+                    lm_layers=LM["layers"], **lm_smaller):
+    """The cross-silo transport on the north-star CNN and the flagship LM
+    (see the module docstring, phase 12); returns the LM run's K2/K3/K4
+    launches. ``device="cpu"`` with smaller sizes rehearses it."""
+    import torch
+
+    from fedml_tpu_torch.algorithms import FedOptAPI
+    from fedml_tpu_torch.algorithms.fedavg_transport import (
+        actor_order_perm_fn, run_loopback_federation, run_shm_federation,
+    )
+    from fedml_tpu_torch.config import ServerConfig
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    dev = None if device == "cuda" else device
+    server = ServerConfig(server_optimizer="adam", server_lr=0.05)
+
+    def cnn(rounds):
+        cfg, data, model = _north_star(rounds, num_clients, per_round)
+        return cfg.replace(server=server), data, model
+
+    def host(vars_):
+        return {k: v.cpu() for k, v in vars_.items()}
+
+    report = {}
+    # cuDNN's deterministic algorithms for the CNN runs, so that the same
+    # steps on the same batches give the same bits in either runtime
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        # 1. FedAdam at batch 20: the simulator, trained on the actors'
+        # minibatches, against the loopback federation
+        cfg, data, model = cnn(TRANSPORT_ROUNDS)
+        t0 = time.perf_counter()
+        sim = FedOptAPI(cfg, data, model, device=dev, perm_fn=actor_order_perm_fn(cfg, data))
+        sim.train()
+        report["cnn_sim"] = {
+            "rounds": TRANSPORT_ROUNDS, "wall_s": time.perf_counter() - t0,
+            "warm_round_s": sim.history[-1]["round_time_s"],
+            "round_time_s": [r["round_time_s"] for r in sim.history]}
+        fed, report["cnn_loopback"] = _traced_federation(
+            run_loopback_federation, *cnn(TRANSPORT_ROUNDS), server_opt=True, device=dev)
+        for row in fed.history:
+            if not all(math.isfinite(row[k]) for k in ("Train/Loss", "Test/Loss") if k in row):
+                raise AssertionError(f"transport CNN: non-finite loss in {row}")
+        rtol, atol = TRANSPORT_SIM_TOL
+        want, got = host(sim.global_vars), host(fed.global_vars)
+        err = max((got[k] - want[k]).abs().max().item() for k in want)
+        report["cnn_sim_vs_loopback"] = {"max_abs_err": err, "rtol": rtol, "atol": atol}
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=rtol, atol=atol,
+                                       msg=lambda m: f"sim vs loopback {k}: {m}")
+        # one round over shared memory, bit-equal to one over loopback
+        loop, _ = _traced_federation(run_loopback_federation, *cnn(1), server_opt=True,
+                                     device=dev)
+        shm, report["cnn_shm"] = _traced_federation(run_shm_federation, *cnn(1),
+                                                    server_opt=True, device=dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    a, b = host(loop.global_vars), host(shm.global_vars)
+    if not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("shm round differs from the loopback round")
+    report["cnn_shm_vs_loopback"] = "bit-equal"
+
+    # 2. the flagship LM over loopback, K2-K4 in the client actors
+    cfg, data, model = _flagship_lm(TRANSPORT_ROUNDS, lm_layers, **lm_smaller)
+    want = expected_transport_flash_launches(cfg, data, lm_layers)
+    for name in fa.KERNEL_NAMES:
+        fa.LAUNCHES[name] = 0  # zeroed just before the transport's LM run
+    fed, report["lm_loopback"] = _traced_federation(
+        run_loopback_federation, cfg, data, model, task="nwp", device=dev,
+        log_fn=lambda row: log("[transport:lm] " + json.dumps(row)))
+    launches = {name: fa.LAUNCHES[name] for name in fa.KERNEL_NAMES}  # read just after
+    losses = [row["Train/Loss"] for row in fed.history]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"transport LM: Train/Loss not finite and falling: {losses}")
+    for name in fa.KERNEL_NAMES:
+        expect = want[name] if device == "cuda" else 0
+        if launches[name] != expect:
+            raise AssertionError(f"transport LM: {launches[name]} {name} launches, want {expect}")
+    report["lm_loopback"].update(launches=launches, expected=want, train_loss=losses)
+    log("[transport] " + json.dumps({**report, "device": device, "card": smi}))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -820,6 +998,7 @@ def main() -> int:
     flash_launches = phase_lm_path()
     phase_profile_lm_round()
     phase_lm_card_vs_cpu()
+    transport_launches = phase_transport(smi)
 
     from fedml_tpu_torch.ops import flash_attention as fa
     from fedml_tpu_torch.ops import robust_stats as rs
@@ -833,6 +1012,7 @@ def main() -> int:
         "source": "fedml_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": replaces[kn],
         "launches": flash_launches[kn],
+        "transport_launches": transport_launches[kn],
         "max_abs_err": flash_err[kn],
         "ms": ft[kn],
         "plain_ms": fplain[kn],

@@ -52,16 +52,26 @@ def from_flax(params: Dict[str, object]) -> Dict[str, torch.Tensor]:
             a = np.asarray(value)
             if key == "kernel":
                 a, key = _kernel_to_torch(a), "weight"
-            # a copy: the source may be read-only (a JAX array's view)
-            state[prefix + key] = torch.tensor(a)
+            # a contiguous copy: the source may be read-only (a JAX array's
+            # view), and a kernel's transposed view would hand the layers
+            # strided weights (other kernels, other summation orders)
+            state[prefix + key] = torch.tensor(np.ascontiguousarray(a))
 
     walk("", params)
     return state
 
 
+def _sorted_keys(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted_keys(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, object]:
     """Port variables → nested flax ``params`` with numpy leaves (the
-    inverse of :func:`from_flax`)."""
+    inverse of :func:`from_flax`), keys sorted at every level as JAX's tree
+    utilities leave a reference model — the order its wire header lists
+    them in."""
     params: Dict[str, object] = {}
     for name, t in state.items():
         *scopes, leaf = name.split(".")
@@ -72,4 +82,4 @@ def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, object]:
         for s in scopes:
             node = node.setdefault(s, {})
         node[leaf] = np.ascontiguousarray(a)
-    return params
+    return _sorted_keys(params)

@@ -1,5 +1,6 @@
-"""Synthetic federated datasets (port of ``fedml_tpu/data/synthetic.py``;
-only ``synthetic_shakespeare`` so far).
+"""Synthetic federated datasets (port of ``fedml_tpu/data/synthetic.py``:
+``synthetic_classification`` with the IID partition, and
+``synthetic_shakespeare``).
 
 A copy of the reference's numpy generator: the same seed gives
 byte-identical arrays (tests/test_torch_fed_transformer.py)."""
@@ -9,6 +10,48 @@ from __future__ import annotations
 import numpy as np
 
 from fedml_tpu_torch.data.base import FederatedDataset
+
+
+def synthetic_classification(
+    num_clients: int = 10,
+    num_classes: int = 10,
+    feat_shape=(28, 28, 1),
+    samples_per_client: int = 64,
+    partition_method: str = "homo",
+    partition_alpha: float = 0.5,
+    seed: int = 0,
+    ragged: bool = True,
+) -> FederatedDataset:
+    """Gaussian-blob classification data, split IID across clients
+    (``partition_method="homo"``: shuffle, split evenly). With ``ragged``
+    each shard is trimmed to a client-specific 50-100% of its size."""
+    if partition_method != "homo":
+        raise NotImplementedError(
+            f"partition_method {partition_method!r} is not ported yet (ROADMAP.md); the port has 'homo'"
+        )
+    rng = np.random.default_rng(seed)
+    n_total = num_clients * samples_per_client
+    dim = int(np.prod(feat_shape))
+    means = rng.normal(0.0, 1.0, size=(num_classes, dim))
+    y = rng.integers(0, num_classes, size=n_total).astype(np.int32)
+    x = (means[y] + rng.normal(0.0, 1.0, size=(n_total, dim))).astype(np.float32)
+    x = x.reshape((n_total,) + tuple(feat_shape))
+    parts = np.array_split(rng.permutation(n_total), num_clients)
+    client_x, client_y = [], []
+    for part in parts:
+        idxs = np.sort(part)
+        if ragged:
+            idxs = idxs[: max(2, int(len(idxs) * rng.uniform(0.5, 1.0)))]
+        client_x.append(x[idxs])
+        client_y.append(y[idxs])
+    n_test = max(num_classes * 8, 64)
+    yt = rng.integers(0, num_classes, size=n_test).astype(np.int32)
+    xt = (means[yt] + rng.normal(0.0, 1.0, size=(n_test, dim))).astype(np.float32)
+    xt = xt.reshape((n_test,) + tuple(feat_shape))
+    return FederatedDataset(
+        name="synthetic", client_x=client_x, client_y=client_y, test_x=xt, test_y=yt,
+        num_classes=num_classes,
+    )
 
 
 def synthetic_shakespeare(

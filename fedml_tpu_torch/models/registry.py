@@ -1,6 +1,6 @@
 """Model registry: model-name × dataset → ModelDef (port of
-``fedml_tpu/models/registry.py``; ``cnn`` and ``transformer`` are ported so
-far)."""
+``fedml_tpu/models/registry.py``; ``lr``, ``cnn`` and ``transformer`` are
+ported so far)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,15 @@ def create(
     **kw,
 ) -> ModelDef:
     name = model_name.lower()
+    if name == "lr":
+        if kw:
+            raise TypeError(f"the lr model takes no options; got {sorted(kw)}")
+        from fedml_tpu_torch.models.linear import LogisticRegression
+
+        return ModelDef(
+            LogisticRegression(num_classes=num_classes, input_shape=tuple(input_shape)),
+            tuple(input_shape), num_classes, name="lr",
+        )
     if name == "cnn":
         if kw:
             raise TypeError(f"the cnn model takes no options; got {sorted(kw)}")
@@ -46,5 +55,5 @@ def create(
             tuple(input_shape), num_classes, name="transformer", input_dtype=torch.int32,
         )
     raise NotImplementedError(
-        f"model {model_name!r} is not ported yet (ROADMAP.md); the port has: cnn, transformer"
+        f"model {model_name!r} is not ported yet (ROADMAP.md); the port has: lr, cnn, transformer"
     )

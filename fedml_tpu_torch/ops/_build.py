@@ -6,17 +6,32 @@ Each ``ops/csrc/<name>.cu`` has a plain C interface (no PyTorch headers, so
 .gitignore, rebuilt whenever the source changes — and its functions are
 bound with ``ctypes``. Nothing is built when the package is imported:
 only a wrapper called on a CUDA tensor gets here. A build failure raises;
-there is no fallback to a plain version."""
+there is no fallback to a plain version.
+
+:func:`count_launch` is the one place a wrapper adds to its launch counter:
+client actors of the cross-silo transport launch kernels from several
+threads at once, and ``counts[name] += 1`` is a read-modify-write that a
+thread switch can split, losing an increment."""
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
+from typing import Dict
 
 _HERE = Path(__file__).resolve().parent
 CSRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(counts: Dict[str, int], name: str) -> None:
+    """Add one launch of kernel ``name`` to ``counts``, atomically across
+    threads."""
+    with _LAUNCH_LOCK:
+        counts[name] += 1
 
 
 def load_kernel_library(name: str) -> ctypes.CDLL:

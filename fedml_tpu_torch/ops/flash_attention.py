@@ -42,7 +42,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from fedml_tpu_torch.ops._build import load_kernel_library
+from fedml_tpu_torch.ops._build import count_launch, load_kernel_library
 
 FWD, BWD_DQ, BWD_DKV = "flash_attention.fwd", "flash_attention.bwd_dq", "flash_attention.bwd_dkv"
 KERNEL_NAMES = (FWD, BWD_DQ, BWD_DKV)
@@ -207,7 +207,7 @@ def _launch(name: str, fn, q, operands, Sk: int, causal: bool, scale: float) -> 
                  BH, S, Sk, int(causal), scale, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
 
 
 def _device_kind(*ts) -> str:

@@ -35,7 +35,7 @@ from typing import Dict
 
 import torch
 
-from fedml_tpu_torch.ops._build import load_kernel_library
+from fedml_tpu_torch.ops._build import count_launch, load_kernel_library
 
 # The kernel keeps a column in registers for C <= 16 and in a per-thread
 # shared-memory tile above; C above this cap raises (csrc/robust_stats.cu
@@ -125,7 +125,7 @@ def _launch(x: torch.Tensor, trim_k: int) -> torch.Tensor:
         err = fn(x.data_ptr(), out.data_ptr(), C, D, trim_k, grid, stream)
     if err != 0:
         raise RuntimeError(f"K1 trimmed_mean kernel launch failed: cudaError {err}")
-    LAUNCHES[KERNEL_NAME] += 1
+    count_launch(LAUNCHES, KERNEL_NAME)
     return out
 
 

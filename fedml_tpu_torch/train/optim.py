@@ -1,4 +1,6 @@
-"""Functional client optimizers with optax's exact update rules.
+"""Functional optimizers with optax's exact update rules: the client's
+(SGD, momentum, AMSGrad, L2) and FedOpt's server optimizers (Adam, Yogi,
+Adagrad).
 
 The reference builds its client optimizer from optax
 (``fedml_tpu/train/client.py:30-43``): ``add_decayed_weights(wd)`` (L2 added
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 Params = Dict[str, torch.Tensor]
@@ -56,11 +59,109 @@ def scale(step_size: float) -> GradientTransformation:
     return GradientTransformation(lambda params: (), update)
 
 
+def _full_like(params: Params, value: float) -> Params:
+    return {k: torch.full_like(v, value) for k, v in params.items()}
+
+
+def _bias_correction(decay: float, count: int, device) -> torch.Tensor:
+    """optax's ``1 - decay**count`` in float32, bit for bit: XLA raises a
+    float to an integer power by repeated squaring, rounding each product
+    to float32 (``torch.pow`` rounds differently from the third power on).
+    Returned as a 0-dim tensor on the params' device, so the moments are
+    truly divided by it there (a CUDA division by a host scalar multiplies
+    by its reciprocal)."""
+    power, base, n = np.float32(1.0), np.float32(decay), int(count)
+    while n:
+        if n & 1:
+            power = np.float32(power * base)
+        base = np.float32(base * base)
+        n >>= 1
+    return torch.tensor(np.float32(1.0) - power, dtype=torch.float32, device=device)
+
+
+class AdamState(NamedTuple):
+    count: int
+    mu: Params
+    nu: Params
+
+
 class AmsgradState(NamedTuple):
     count: int
     mu: Params
     nu: Params
     nu_max: Params
+
+
+def _moments(g: Params, state, b1: float, b2: float):
+    """Adam's first and second moment updates."""
+    mu = {k: (1 - b1) * g[k] + b1 * state.mu[k] for k in g}
+    nu = {k: (1 - b2) * (g[k] ** 2) + b2 * state.nu[k] for k in g}
+    return mu, nu
+
+
+def scale_by_adam(
+    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0
+) -> GradientTransformation:
+    """``optax.scale_by_adam``: bias correction on both moments, ``eps``
+    outside the square root."""
+
+    def init(params):
+        return AdamState(0, _zeros_like(params), _zeros_like(params))
+
+    def update(g, state, params=None):
+        mu, nu = _moments(g, state, b1, b2)
+        count = state.count + 1
+        device = next(iter(g.values())).device
+        bc1, bc2 = _bias_correction(b1, count, device), _bias_correction(b2, count, device)
+        updates = {k: (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2 + eps_root) + eps) for k in g}
+        return updates, AdamState(count, mu, nu)
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_yogi(
+    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-3, eps_root: float = 0.0,
+    initial_accumulator_value: float = 1e-6,
+) -> GradientTransformation:
+    """``optax.scale_by_yogi``: both moments start at
+    ``initial_accumulator_value``; ``v ← v − (1−b2)·sign(v − g²)·g²``; bias
+    correction as Adam's."""
+
+    def init(params):
+        return AdamState(0, _full_like(params, initial_accumulator_value),
+                         _full_like(params, initial_accumulator_value))
+
+    def update(g, state, params=None):
+        mu = {k: (1 - b1) * g[k] + b1 * state.mu[k] for k in g}
+        nu = {}
+        for k in g:
+            g2 = g[k] * g[k]
+            nu[k] = state.nu[k] - (1 - b2) * torch.sign(state.nu[k] - g2) * g2
+        count = state.count + 1
+        device = next(iter(g.values())).device
+        bc1, bc2 = _bias_correction(b1, count, device), _bias_correction(b2, count, device)
+        updates = {k: (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2 + eps_root) + eps) for k in g}
+        return updates, AdamState(count, mu, nu)
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_rss(initial_accumulator_value: float = 0.1, eps: float = 1e-7) -> GradientTransformation:
+    """``optax.scale_by_rss`` (Adagrad): ``t ← t + g²``; the update is
+    ``g · rsqrt(t + eps)`` where t > 0, else 0."""
+
+    def init(params):
+        return _full_like(params, initial_accumulator_value)
+
+    def update(g, state, params=None):
+        t = {k: g[k] * g[k] + state[k] for k in g}
+        updates = {
+            k: torch.where(t[k] > 0, torch.rsqrt(t[k] + eps), torch.zeros_like(t[k])) * g[k]
+            for k in g
+        }
+        return updates, t
+
+    return GradientTransformation(init, update)
 
 
 def scale_by_amsgrad(
@@ -70,14 +171,10 @@ def scale_by_amsgrad(
         return AmsgradState(0, _zeros_like(params), _zeros_like(params), _zeros_like(params))
 
     def update(g, state, params=None):
-        mu = {k: (1 - b1) * g[k] + b1 * state.mu[k] for k in g}
-        nu = {k: (1 - b2) * (g[k] ** 2) + b2 * state.nu[k] for k in g}
+        mu, nu = _moments(g, state, b1, b2)
         count = state.count + 1
-        # optax computes 1 - decay**count in float32, then divides by it
-        # (a 0-dim tensor on the params' device: a true division there)
         device = next(iter(g.values())).device
-        bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** count).to(device)
-        bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** count).to(device)
+        bc1, bc2 = _bias_correction(b1, count, device), _bias_correction(b2, count, device)
         nu_max = {}
         updates = {}
         for k in g:
@@ -111,6 +208,18 @@ def sgd(lr: float, momentum: Optional[float] = None) -> GradientTransformation:
 
 def amsgrad(lr: float) -> GradientTransformation:
     return chain(scale_by_amsgrad(), scale(-lr))
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
+    return chain(scale_by_adam(b1, b2, eps), scale(-lr))
+
+
+def yogi(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-3) -> GradientTransformation:
+    return chain(scale_by_yogi(b1, b2, eps), scale(-lr))
+
+
+def adagrad(lr: float, initial_accumulator_value: float = 0.1, eps: float = 1e-7) -> GradientTransformation:
+    return chain(scale_by_rss(initial_accumulator_value, eps), scale(-lr))
 
 
 def apply_updates(params: Params, updates: Params) -> Params:

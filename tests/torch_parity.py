@@ -1,6 +1,8 @@
 """Shared inputs for the parity tests of the PyTorch port
 (tests/test_torch_*.py): the reference's shuffle permutations, computed with
-JAX and handed to the port, and the small FedAvg slice both packages run.
+JAX and handed to the port, the small FedAvg slice both packages run, the
+logistic-regression fixture of the transport tests, and a private program
+cache for the reference's compiled programs.
 
 The port cannot reproduce JAX's threefry stream, so its local train takes a
 permutation source ``perm_fn(round, client_slot, epoch, mask_flat)``; these
@@ -10,6 +12,8 @@ fedml_tpu/algorithms/fedavg.py ``_round_placed`` and
 fedml_tpu/train/client.py ``masked_epoch_perm``)."""
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -26,6 +30,87 @@ def jax_epoch_perm(client_rng, epoch: int, m_flat: torch.Tensor) -> torch.Tensor
         jax.random.fold_in(client_rng, epoch), jnp.asarray(m_flat.numpy())
     )
     return torch.from_numpy(np.asarray(perm).astype(np.int64))
+
+
+def jax_transport_perm_fn(seed: int):
+    """``perm_fn`` for the port's transport ``LocalTrainer`` that yields the
+    reference LocalTrainer's permutations: its key is keyed by the CLIENT
+    index, ``fold_in(PRNGKey(seed), (round + 1)·7919 + client_index)``
+    (fedml_tpu/algorithms/fedavg_transport.py ``LocalTrainer._train``)."""
+    import jax
+
+    base = jax.random.PRNGKey(seed)
+
+    def perm_fn(round_idx, client_index, epoch, m_flat):
+        rng = jax.random.fold_in(base, (round_idx + 1) * 7919 + client_index)
+        return jax_epoch_perm(rng, epoch, m_flat)
+
+    return perm_fn
+
+
+@contextlib.contextmanager
+def private_reference_programs(path):
+    """Run the reference with a ProgramCache and a serialized-executable
+    store of its own (under ``path``), restoring the process-wide ones on
+    exit. The session store of tests/conftest.py keys an executable without
+    its input sharding, so a program another test compiled for the 8-device
+    mesh can be handed to a single-device call of the same shapes and fail
+    there ("Expected args ... to have 8 shards"); with a private store and
+    cache every reference program these tests run is compiled here, for the
+    arguments they give it."""
+    from fedml_tpu.compile import ProgramCache, use_program_cache
+    from fedml_tpu.compile.executable_cache import install_run_executable_cache
+
+    _, restore = install_run_executable_cache(str(path))
+    try:
+        with use_program_cache(ProgramCache()):
+            yield
+    finally:
+        restore()
+
+
+# the transport tests' logistic-regression fixture
+# (tests/test_transport_algorithms.py): 4 IID clients of 6-12 samples, 5
+# features, 3 classes, all 4 clients every round, full batch (the
+# deterministic oracle: one step of every sample, so the shuffles do not
+# matter), 3 rounds, evaluated at rounds 0 and 2
+LR = dict(num_clients=4, num_classes=3, feat=(5,), samples=12, data_seed=9, rounds=3, seed=0)
+
+
+def lr_data(synthetic_classification):
+    """The fixture's data from either package's ``synthetic_classification``."""
+    return synthetic_classification(
+        num_clients=LR["num_clients"], num_classes=LR["num_classes"], feat_shape=LR["feat"],
+        samples_per_client=LR["samples"], partition_method="homo", seed=LR["data_seed"],
+    )
+
+
+def lr_config(cfg_mod, train: dict, server: dict | None = None, comm: dict | None = None,
+              epochs: int = 1, batch_size: int = -1):
+    """The fixture's RunConfig in either package's config module."""
+    return cfg_mod.RunConfig(
+        data=cfg_mod.DataConfig(batch_size=batch_size),
+        fed=cfg_mod.FedConfig(
+            client_num_in_total=LR["num_clients"], client_num_per_round=LR["num_clients"],
+            comm_round=LR["rounds"], epochs=epochs, frequency_of_the_test=3,
+        ),
+        train=cfg_mod.TrainConfig(**train),
+        server=cfg_mod.ServerConfig(**(server or {})),
+        comm=cfg_mod.CommConfig(**(comm or {})),
+        seed=LR["seed"],
+    )
+
+
+def jax_lr_model():
+    from fedml_tpu.models import create_model
+
+    return create_model("lr", "synthetic", LR["feat"], LR["num_classes"])
+
+
+def torch_lr_model():
+    from fedml_tpu_torch.models import create_model
+
+    return create_model("lr", "synthetic", LR["feat"], LR["num_classes"])
 
 
 def jax_round_perm_fn(seed: int, cohort: int):
@@ -48,25 +133,28 @@ def jax_round_perm_fn(seed: int, cohort: int):
 SLICE = dict(num_clients=12, mean_samples=40, per_round=4, rounds=3, seed=0)
 
 
-def _slice_config(cfg_mod):
+def _slice_config(cfg_mod, rounds: int = SLICE["rounds"], server: dict | None = None):
     return cfg_mod.RunConfig(
         data=cfg_mod.DataConfig(batch_size=20),
         fed=cfg_mod.FedConfig(
             client_num_in_total=SLICE["num_clients"],
             client_num_per_round=SLICE["per_round"],
-            comm_round=SLICE["rounds"],
+            comm_round=rounds,
             epochs=1,
         ),
         train=cfg_mod.TrainConfig(lr=0.1),
+        server=cfg_mod.ServerConfig(**(server or {})),
         seed=SLICE["seed"],
     )
 
 
-def run_slice(robust: dict | None = None):
+def run_slice(robust: dict | None = None, server: dict | None = None,
+              rounds: int = SLICE["rounds"]):
     """Run the slice through the reference and through the port on the CPU,
     from the reference's init and with its permutations. ``robust`` holds
-    RobustConfig fields (None: plain FedAvgAPI). Returns
-    ``(reference_api, port_api)`` after training."""
+    RobustConfig fields, ``server`` ServerConfig fields for FedOptAPI (both
+    None: plain FedAvgAPI). Returns ``(reference_api, port_api)`` after
+    ``rounds`` rounds of training."""
     import fedml_tpu.config as jcfg
     from fedml_tpu.algorithms import FedAvgAPI as JaxFedAvg
     from fedml_tpu.algorithms.fedavg_robust import RobustFedAvgAPI as JaxRobust
@@ -86,8 +174,18 @@ def run_slice(robust: dict | None = None):
     jdata, tdata = jax_femnist(**data_kw), femnist_synthetic(**data_kw)
     jmodel = jax_create_model("cnn", "femnist", shape, classes)
     tmodel = create_model("cnn", "femnist", shape, classes)
-    jconf, tconf = _slice_config(jcfg), _slice_config(tcfg)
-    if robust is None:
+    jconf, tconf = _slice_config(jcfg, rounds, server), _slice_config(tcfg, rounds, server)
+    if server is not None:
+        from fedml_tpu.algorithms.fedopt import FedOptAPI as JaxFedOpt
+
+        from fedml_tpu_torch.algorithms import FedOptAPI
+
+        japi = JaxFedOpt(jconf, jdata, jmodel)
+        tapi = FedOptAPI(
+            tconf, tdata, tmodel, device="cpu",
+            perm_fn=jax_round_perm_fn(SLICE["seed"], SLICE["per_round"]),
+        )
+    elif robust is None:
         japi = JaxFedAvg(jconf, jdata, jmodel)
         tapi = FedAvgAPI(
             tconf, tdata, tmodel, device="cpu",
@@ -109,7 +207,7 @@ def run_slice(robust: dict | None = None):
     return japi, tapi
 
 
-def assert_slice_close(japi, tapi, rtol=1e-4, atol=1e-5, row_tol=1e-4):
+def assert_slice_close(japi, tapi, rtol=1e-4, atol=1e-5, row_tol=1e-4, rounds=SLICE["rounds"]):
     """Global params allclose; every logged metric within ``row_tol``."""
     from fedml_tpu_torch.bridge import to_flax
 
@@ -122,7 +220,7 @@ def assert_slice_close(japi, tapi, rtol=1e-4, atol=1e-5, row_tol=1e-4):
                 got[layer][leaf], np.asarray(want[layer][leaf]),
                 rtol=rtol, atol=atol, err_msg=f"{layer}/{leaf}",
             )
-    assert len(tapi.history) == len(japi.history) == SLICE["rounds"]
+    assert len(tapi.history) == len(japi.history) == rounds
     for trow, jrow in zip(tapi.history, japi.history):
         keys = {k for k in jrow if k != "round_time_s"}
         assert keys <= trow.keys(), keys - trow.keys()
