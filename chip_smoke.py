@@ -13,17 +13,20 @@ Phases, each of which raises on failure:
 3. K1 (the rank-select trimmed mean / median) against its plain PyTorch
    version on the card: bit-equal over a grid of cohort sizes, widths and
    trim windows (every cohort of the register kernel, C = 2..16, and the
-   shared-memory kernel above), with integer ties, and at the per-leaf
-   shapes of a round; then its time for a round's 8 leaves and for one flat
-   launch beside the plain version, ``torch.quantile``, the sort-and-window
-   path, ``torch.median`` and the memory bound, each time's share of the
-   bound, and the registers and local memory of the kernel a cohort of 10
-   takes;
+   chunk kernel above it, up to C = 1000: the column in opted-in shared
+   memory up to C = 454, read from device memory above), with integer
+   ties, and at the per-leaf shapes of a round; then its time for a round's
+   8 leaves and for one flat launch beside the plain version,
+   ``torch.quantile``, the sort-and-window path, ``torch.median`` and the
+   bound, each time's share of the bound, the median of a [128, 1690046]
+   stack beside ``torch.sort`` and its bound, and each path's registers,
+   local memory, shared memory and blocks an SM;
 4. the main path: RobustFedAvgAPI on the FEMNIST north-star configuration
    (128 synthetic clients, 10 per round, batch 20, E=1, SGD lr 0.1, the
    62-class CNN at full width): 3 rounds with the coordinate median, 2 with
    the trimmed mean; the K1 launch count is zeroed just before and read just
-   after, and must be 8 per round;
+   after, and must be 8 per round; then one median round with 100 clients
+   a round (K1's chunk kernel), which must launch K1 exactly 8 times;
 5. where a warm median round's time goes (torch.profiler: device kernel
    time by name against the round's wall time);
 6. one median round on the card against the same round on the CPU, from
@@ -57,17 +60,29 @@ Phases, each of which raises on failure:
     actors' own minibatches (``actor_order_perm_fn``) against the same
     2 rounds as a loopback federation of 10 client actors in threads
     (TRANSPORT_SIM_TOL), and one round over shared memory bit-equal to one
-    over loopback, all with cuDNN's deterministic algorithms; then 2 rounds
-    of the flagship LM over loopback, 8 client actors on the card, with the
+    over loopback, and the same 2 FedAdam rounds over MQTT (``phase_mqtt``:
+    the embedded broker, then TCP to the port's MiniMqttBroker), each
+    bit-equal to loopback with the same model payload bytes and messages,
+    all with cuDNN's deterministic algorithms; then 2 rounds of the
+    flagship LM over loopback, 8 client actors on the card, with the
     K2/K3/K4 launch counts zeroed just before and read just after (they
-    must equal the counts the clients' shards give) and Train/Loss finite
-    and falling; and a ``[transport]`` JSON line with each run's warm round
-    time, wire bytes up and down a round (the port's CommMeter), the
-    seconds a round spends in to_bytes/from_bytes and its other host spans,
-    beside the card's name and power limit.
+    must equal the counts the clients' shards give) and the servers' train
+    loss finite and falling; and a ``[transport]`` JSON line with each
+    run's warm round time (MQTT's beside loopback's), wire bytes up and
+    down a round (the port's CommMeter), the seconds a round spends in
+    to_bytes/from_bytes and its other host spans, beside the card's name
+    and power limit. gRPC is not run here: the card's machine has no
+    grpcio (tests/test_torch_grpc.py holds it on the CPU);
+13. secure aggregation and fault plans (``phase_faults_secagg``): the
+    north-star CNN over loopback with ``secure_agg`` for 2 rounds of one
+    full-batch step a client, within SECAGG_TOL of the same rounds plain,
+    with the masking and unmasking host seconds a round; then 2 rounds at
+    batch 20 under a plan that drops one client of each cohort, with a
+    deadline and min_clients = 9: each round closes on 9 uploads, the
+    faults/* counters are exact and the losses finite.
 
-Then it prints the kernels' JSON line, the ``nvidia-smi`` line, and as its
-last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+Then it prints each phase's seconds (``phase_s``), the kernels' JSON line,
+the ``nvidia-smi`` line, and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
 printing any result."""
 
@@ -82,10 +97,17 @@ import subprocess
 import sys
 import time
 
-C_GRID = (3, 4, 10, 16, 33, 64)
+C_GRID = (3, 4, 10, 16, 17, 33, 64, 65, 128, 200, 1000)
 D_GRID = (1, 700, 1_690_046)
 COHORT = 10
 FULL_D = 1_690_046  # parameters of the 62-class CNN
+# K1 above 64 clients: every k is 33-500 windows, so a few of them; and at
+# C = 1000 a narrower D (the [1000, 100003] input is 0.4 GB)
+K1_LARGE_C = 64
+K1_D_AT_C = {1000: (100_003,)}
+LARGE_C = 128  # K1's time beside torch.sort at a cohort above the register kernel's
+# the robust round at a cohort above 64: 128 clients, 100 a round
+LARGE_COHORT = 100
 MEDIAN_ROUNDS, TRIMMED_ROUNDS = 3, 2
 # card vs CPU after one median round, by batch size: (rtol, atol). The
 # card's cuDNN/cuBLAS sum in another order than the CPU's kernels (both in
@@ -118,6 +140,13 @@ FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0**-7, 2.0**-8)}
 # 0.0 on the H100 and on the CPU.
 TRANSPORT_SIM_TOL = (0.0, 0.0)
 TRANSPORT_ROUNDS = 2
+# secure against plain aggregation after 2 rounds, (rtol, atol): the
+# reference's own bound (tests/test_secure_transport.py), the 2^-16
+# fixed-point grid of the masked sums
+SECAGG_TOL = (1e-3, 5e-4)
+SECAGG_ROUNDS = 2
+FAULT_ROUNDS = 2
+FAULT_DEADLINE_S = 1.0
 FLASH_S_GRID = (32, 128, 192, 512)
 FLASH_D_GRID = (16, 32, 64, 96, 128)
 FLASH_BH = 3
@@ -225,12 +254,15 @@ def phase_k1_parity(device="cuda", c_grid=C_GRID, d_grid=D_GRID):
     gen = torch.Generator(device=device).manual_seed(0)
     errs = []
     for C in c_grid:
-        for D in d_grid:
+        ks = (range((C - 1) // 2 + 1) if C <= K1_LARGE_C
+              else sorted({0, 1, C // 4, rs.median_trim_k(C)}))
+        for D in K1_D_AT_C.get(C, d_grid):
             x = torch.randn(C, D, generator=gen, device=device)
-            for k in range((C - 1) // 2 + 1):
+            for k in ks:
                 errs.append(_check_equal(
                     rs.trimmed_mean_1d(x, k), rs.trimmed_mean_plain(x, k), f"C={C} D={D} k={k}"
                 ))
+            del x
     # every cohort of the register kernel (C = 2..16) and the first C above it
     for C in range(2, 18):
         x = torch.randn(C, 700, generator=gen, device=device)
@@ -239,9 +271,9 @@ def phase_k1_parity(device="cuda", c_grid=C_GRID, d_grid=D_GRID):
                 rs.trimmed_mean_1d(x, k), rs.trimmed_mean_plain(x, k), f"C={C} D=700 k={k}"
             ))
     # integer-valued ties: only the kept multiset decides the result
-    for C in (6, COHORT):
+    for C in (6, COHORT, LARGE_C):
         x = torch.randint(-3, 4, (C, d_grid[-1]), generator=gen, device=device).float()
-        for k in range((C - 1) // 2 + 1):
+        for k in (range((C - 1) // 2 + 1) if C <= K1_LARGE_C else (0, 1, rs.median_trim_k(C))):
             got = rs.trimmed_mean_1d(x, k)
             errs.append(_check_equal(got, rs.trimmed_mean_plain(x, k), f"ties C={C} k={k}"))
             _check_equal(got, rs.trimmed_mean_sort(x, k), f"ties vs sort C={C} k={k}")
@@ -254,8 +286,8 @@ def phase_k1_parity(device="cuda", c_grid=C_GRID, d_grid=D_GRID):
                 rs.trimmed_mean_1d(x, k), rs.trimmed_mean_plain(x, k), f"{name} k={k}"
             ))
     log(f"[k1] bit-equal to the plain version in {len(errs)} cases "
-        f"(C in {list(c_grid)}, D in {list(d_grid)}, every k; C = 2..17 at D = 700; "
-        f"integer ties; round leaf shapes)")
+        f"(C in {list(c_grid)}, D in {list(d_grid)} (C = 1000: D = 100003), every k up to "
+        f"C = {K1_LARGE_C}, four k above; C = 2..17 at D = 700; integer ties; round leaf shapes)")
     return max(errs)
 
 
@@ -318,23 +350,62 @@ def phase_k1_timing(name: str, smi: str):
     t["k1_median_flat_c11"] = device_ms(lambda: rs.median_1d(x11))
     t["torch_median_flat_c11"] = device_ms(lambda: torch.median(x11, dim=0), iters=10)
 
-    nbytes = (COHORT * D + D) * 4  # each input read once, each output written once
-    ops = COHORT * (COHORT - 1) * D + COHORT * D + D  # compares, adds, one divide
-    bound_ms = max(nbytes / bw, ops / fp32_peak) * 1e3
-    bound_by = "bytes" if nbytes / bw >= ops / fp32_peak else "operations"
+    def bound(C, D):
+        nbytes = (C * D + D) * 4  # each input read once, each output written once
+        ops = C * (C - 1) * D + C * D + D  # compares, adds, one divide
+        return (nbytes, ops, max(nbytes / bw, ops / fp32_peak) * 1e3,
+                "bytes" if nbytes / bw >= ops / fp32_peak else "operations")
+
+    nbytes, ops, bound_ms, bound_by = bound(COHORT, D)
+    # a cohort above the register kernel's: the median of [128, D]
+    xl = torch.randn(LARGE_C, FULL_D, generator=gen, device="cuda")
+    k_l = rs.median_trim_k(LARGE_C)
+    torch.testing.assert_close(rs.median_1d(xl), rs.trimmed_mean_sort(xl, k_l), rtol=1e-6, atol=1e-6)
+    large = {
+        "C": LARGE_C, "D": FULL_D,
+        "k1_median_ms": device_ms(lambda: rs.median_1d(xl), iters=10),
+        "sort_window_median_ms": device_ms(
+            lambda: torch.sort(xl, dim=0).values[k_l : LARGE_C - k_l].mean(dim=0), iters=5),
+        "plain_median_ms": device_ms(lambda: rs.trimmed_mean_plain(xl, k_l), iters=2),
+    }
+    (large["bytes"], large["ops"], large["bound_ms"], large["bound_by"]) = bound(LARGE_C, FULL_D)
+    large["bound_share"] = large["bound_ms"] / large["k1_median_ms"]
+    del xl
+
+    def launch_host_us(C, calls=200):
+        """Host microseconds a call of the wrapper takes to enqueue its
+        launch (fewer calls than the launch queue holds, timed before the
+        card is waited for): the register kernel sets nothing up, the
+        chunk kernel's setup is worked out on its first call and kept."""
+        xs = torch.randn(C, 128, generator=gen, device="cuda")
+        k = rs.median_trim_k(C)
+        rs.trimmed_mean_1d(xs, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            rs.trimmed_mean_1d(xs, k)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return host_s / calls * 1e6
+
+    large["launch_host_us"] = {f"C={c}": launch_host_us(c) for c in (COHORT, LARGE_COHORT)}
     log(json.dumps({
         "k1_timing_ms": t, "C": COHORT, "D": D, "bytes": nbytes, "ops": ops,
         "bound_ms": bound_ms, "bound_by": bound_by,
         # a round's 8 leaves read and write the same bytes as one flat launch
         "bound_share": {key: bound_ms / t[key] for key in
                         ("k1_median_round", "k1_trimmed_round", "k1_median_flat", "k1_trimmed_flat")},
-        "kernel_info": {f"C={c}": rs.kernel_info(c) for c in (COHORT, 33)},
+        "large_c": large,
+        # the register kernel, the chunk kernel on its shared-memory tile
+        # (48 KB and more at C = 100 and 128: opted in), and from device memory
+        "kernel_info": {f"C={c}": rs.kernel_info(c) for c in (COHORT, 33, LARGE_COHORT,
+                                                              LARGE_C, 1000)},
         "rates": f"{card} data sheet: {bw / 1e12} TB/s, {fp32_peak / 1e12} TFLOP/s fp32",
         "card": smi,
         "notes": "torch.median is the lower median at even C (not the same function); "
                  "quantile(midpoint) and sort+window are the same function",
     }))
-    return t, bound_ms, bound_by
+    return t, bound_ms, bound_by, large
 
 
 def _north_star(rounds: int, num_clients: int = 128, per_round: int = COHORT):
@@ -383,6 +454,33 @@ def phase_main_path(device="cuda", num_clients=128, per_round=COHORT):
             raise AssertionError(f"{defense}: {launches_per_run[defense]} K1 launches, want {want}")
     launches = rs.LAUNCHES[rs.KERNEL_NAME]  # read just after
     log(json.dumps({"main_path_k1_launches": launches, "per_run": launches_per_run}))
+    return launches
+
+
+def phase_large_cohort(device="cuda", num_clients=128, per_round=LARGE_COHORT):
+    """RobustFedAvgAPI median on the north-star CNN with 100 clients a
+    round, 1 round: K1 on a cohort above the register kernel's (its chunk
+    kernel, the column in opted-in shared memory). Returns the launches."""
+    from fedml_tpu_torch.algorithms import RobustFedAvgAPI
+    from fedml_tpu_torch.ops import robust_stats as rs
+    from fedml_tpu_torch.robustness import RobustConfig
+
+    cfg, data, model = _north_star(1, num_clients, per_round)
+    api = RobustFedAvgAPI(cfg, data, model, robust=RobustConfig(defense_type="median"),
+                          device=device)
+    rs.LAUNCHES[rs.KERNEL_NAME] = 0  # zeroed just before
+    t0 = time.perf_counter()
+    api.train()
+    wall_s = time.perf_counter() - t0
+    launches = rs.LAUNCHES[rs.KERNEL_NAME]  # read just after
+    row = api.history[-1]
+    if not all(math.isfinite(row[k]) for k in ("Train/Loss", "Test/Loss")):
+        raise AssertionError(f"large cohort: non-finite loss in {row}")
+    want = 8 if device == "cuda" else 0
+    if launches != want:
+        raise AssertionError(f"large cohort: {launches} K1 launches, want {want}")
+    log(json.dumps({"large_cohort": {"clients_per_round": per_round, "k1_launches": launches,
+                                     "round_s": wall_s, "row": row}}))
     return launches
 
 
@@ -834,7 +932,8 @@ def _transport_report(fed, rounds: int, wall_s: float) -> dict:
     from fedml_tpu_torch.core.message import MessageType as MT
     from fedml_tpu_torch.telemetry import get_comm_meter, get_tracer
 
-    sent = get_comm_meter().snapshot()["bytes_sent"]
+    snap = get_comm_meter().snapshot()
+    sent = snap["bytes_sent"]
     spans, eval_s = {}, {}
     for ev in get_tracer().events():
         spans[ev.name] = spans.get(ev.name, 0.0) + ev.dur_us / 1e6
@@ -852,9 +951,13 @@ def _transport_report(fed, rounds: int, wall_s: float) -> dict:
         "wire_bytes_up_per_round": sent.get(MT.C2S_SEND_MODEL, 0) / rounds,
         "wire_bytes_down_per_round": (sent.get(MT.S2C_INIT_CONFIG, 0)
                                       + sent.get(MT.S2C_SYNC_MODEL, 0)) / rounds,
+        # the model payloads as shipped, without the envelopes' trace stamps
+        # and beacons (whose JSON carries clock times and so varies in length)
+        "payload_bytes": {"up": snap["uplink_payload_bytes"], "down": snap["downlink_payload_bytes"]},
+        "messages_sent": snap["messages_sent"],
         "host_s_per_round": {name: spans.get(name, 0.0) / rounds for name in
                              ("to_bytes", "from_bytes", "local_train", "broadcast", "aggregate",
-                              "eval")},
+                              "eval", "mask")},
         "notes": "to_bytes/from_bytes: every message's encode and decode; local_train sums the "
                  "client actors' concurrent spans; broadcast holds the server's to_bytes",
     }
@@ -874,6 +977,38 @@ def _traced_federation(run, *args, **kw):
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return fed, _transport_report(fed, len(fed.history), time.perf_counter() - t0)
+
+
+def phase_mqtt(cnn, loop, loop_report, dev) -> dict:
+    """The CNN's FedAdam federation of ``phase_transport`` over MQTT: the
+    embedded broker, then TCP to the port's MiniMqttBroker on 127.0.0.1.
+    Each must be bit-equal to the loopback run ``loop`` and ship the same
+    model payloads in the same messages. Returns their reports."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg_transport import run_mqtt_federation
+    from fedml_tpu_torch.core.mqtt_broker import MiniMqttBroker
+
+    report = {}
+    broker = MiniMqttBroker()
+    try:
+        for name, kw in (("cnn_mqtt_embedded", {}),
+                         ("cnn_mqtt_tcp", {"host": "127.0.0.1", "port": broker.port})):
+            fed, report[name] = _traced_federation(
+                run_mqtt_federation, *cnn(TRANSPORT_ROUNDS), server_opt=True, device=dev, **kw)
+            for k in loop.global_vars:
+                if not torch.equal(fed.global_vars[k].cpu(), loop.global_vars[k].cpu()):
+                    raise AssertionError(f"{name} differs from the loopback federation at {k}")
+            if fed.train_losses != loop.train_losses:
+                raise AssertionError(f"{name}: train losses {fed.train_losses} != loopback's")
+            for key in ("payload_bytes", "messages_sent"):
+                if report[name][key] != loop_report[key]:
+                    raise AssertionError(f"{name}: {key} {report[name][key]} != loopback's "
+                                         f"{loop_report[key]}")
+            report[name]["vs_loopback"] = "bit-equal, same payload bytes and messages"
+    finally:
+        broker.close()
+    return report
 
 
 def expected_transport_flash_launches(cfg, data, layers: int) -> dict:
@@ -936,9 +1071,9 @@ def phase_transport(smi: str, device="cuda", num_clients=128, per_round=COHORT,
             "round_time_s": [r["round_time_s"] for r in sim.history]}
         fed, report["cnn_loopback"] = _traced_federation(
             run_loopback_federation, *cnn(TRANSPORT_ROUNDS), server_opt=True, device=dev)
-        for row in fed.history:
-            if not all(math.isfinite(row[k]) for k in ("Train/Loss", "Test/Loss") if k in row):
-                raise AssertionError(f"transport CNN: non-finite loss in {row}")
+        for row, loss in zip(fed.history, fed.train_losses, strict=True):
+            if not (math.isfinite(loss) and math.isfinite(row.get("Test/Loss", 0.0))):
+                raise AssertionError(f"transport CNN: non-finite loss in {row}, train {loss}")
         rtol, atol = TRANSPORT_SIM_TOL
         want, got = host(sim.global_vars), host(fed.global_vars)
         err = max((got[k] - want[k]).abs().max().item() for k in want)
@@ -946,6 +1081,8 @@ def phase_transport(smi: str, device="cuda", num_clients=128, per_round=COHORT,
         for k in want:
             torch.testing.assert_close(got[k], want[k], rtol=rtol, atol=atol,
                                        msg=lambda m: f"sim vs loopback {k}: {m}")
+        # the same federation over MQTT, embedded and over TCP
+        report.update(phase_mqtt(cnn, fed, report["cnn_loopback"], dev))
         # one round over shared memory, bit-equal to one over loopback
         loop, _ = _traced_federation(run_loopback_federation, *cnn(1), server_opt=True,
                                      device=dev)
@@ -967,16 +1104,96 @@ def phase_transport(smi: str, device="cuda", num_clients=128, per_round=COHORT,
         run_loopback_federation, cfg, data, model, task="nwp", device=dev,
         log_fn=lambda row: log("[transport:lm] " + json.dumps(row)))
     launches = {name: fa.LAUNCHES[name] for name in fa.KERNEL_NAMES}  # read just after
-    losses = [row["Train/Loss"] for row in fed.history]
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+    losses = fed.train_losses
+    if not all(x is not None and math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"transport LM: Train/Loss not finite and falling: {losses}")
     for name in fa.KERNEL_NAMES:
         expect = want[name] if device == "cuda" else 0
         if launches[name] != expect:
             raise AssertionError(f"transport LM: {launches[name]} {name} launches, want {expect}")
     report["lm_loopback"].update(launches=launches, expected=want, train_loss=losses)
+    report["warm_round_s"] = {name: report[name]["warm_round_s"] for name in
+                              ("cnn_loopback", "cnn_mqtt_embedded", "cnn_mqtt_tcp", "lm_loopback")}
+    report["warm_round_s"]["cnn_sim"] = report["cnn_sim"]["warm_round_s"]
+    report["grpc"] = ("not run on the card: its machine has no grpcio; held on the CPU in "
+                      "tests/test_torch_grpc.py")
     log("[transport] " + json.dumps({**report, "device": device, "card": smi}))
     return launches
+
+
+def phase_faults_secagg(smi: str, device="cuda", num_clients=128, per_round=COHORT) -> dict:
+    """The north-star CNN over loopback (FedAvg, cuDNN deterministic):
+
+    1. with secure aggregation, 2 rounds, against the same 2 rounds plain,
+       within SECAGG_TOL; one full-batch step a client, since a batch-20
+       round is chaotic enough to blow the 2^-16 grid's error up past it;
+       the masking (key agreement and masks, summed over the client actors)
+       and unmasking (the server's secure aggregate) host seconds a round;
+    2. at the north star's batch 20 under a scripted plan that drops the
+       first client of each round's cohort, with a deadline and
+       min_clients = 9: every round closes on 9 uploads, the faults/*
+       counters are exact and the losses finite."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg_transport import run_loopback_federation
+    from fedml_tpu_torch.scheduler import ClientScheduler
+    from fedml_tpu_torch.telemetry import get_tracer
+
+    dev = None if device == "cuda" else device
+    report = {}
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {}
+        for secure in (False, True):
+            cfg, data, model = _north_star(SECAGG_ROUNDS, num_clients, per_round)
+            cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=-1),
+                              comm=dataclasses.replace(cfg.comm, secure_agg=secure))
+            name = "secure" if secure else "plain"
+            runs[name], report[name] = _traced_federation(run_loopback_federation, cfg, data,
+                                                          model, device=dev)
+        rtol, atol = SECAGG_TOL
+        want, got = runs["plain"].global_vars, runs["secure"].global_vars
+        err = max((got[k] - want[k]).abs().max().item() for k in want)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=rtol, atol=atol,
+                                       msg=lambda m: f"secure vs plain {k}: {m}")
+        sec = report["secure"]["host_s_per_round"]
+        report["secure_vs_plain"] = {"max_abs_err": err, "rtol": rtol, "atol": atol,
+                                     "mask_s_per_round": sec["mask"],
+                                     "unmask_s_per_round": sec["aggregate"]}
+
+        cfg, data, model = _north_star(FAULT_ROUNDS, num_clients, per_round)
+        sched = ClientScheduler.from_config(cfg, num_clients=num_clients)
+        dropped = {int(sched.select(r)[0]): r for r in range(FAULT_ROUNDS)}
+        if len(dropped) != FAULT_ROUNDS:
+            raise AssertionError(f"a client is first in two rounds' cohorts: {dropped}")
+        plan = {"scripted": {str(c): {str(r): {"drop": True}} for c, r in dropped.items()}}
+        cfg = cfg.replace(fed=dataclasses.replace(
+            cfg.fed, deadline_s=FAULT_DEADLINE_S, min_clients=per_round - 1,
+            fault_plan=json.dumps(plan)))
+        rows = []
+        fed, report["faults"] = _traced_federation(run_loopback_federation, cfg, data, model,
+                                                   device=dev, log_fn=rows.append)
+        uploads = [ev.attrs["n_uploads"] for ev in get_tracer().events() if ev.name == "aggregate"]
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    if uploads != [per_round - 1] * FAULT_ROUNDS:
+        raise AssertionError(f"faults: rounds closed on {uploads} uploads, want {per_round - 1}")
+    faults = rows[-1]
+    want_row = {"faults/dropouts": FAULT_ROUNDS, "faults/total": FAULT_ROUNDS,
+                "faults/crashes": 0, "faults/slowdowns": 0, "faults/flaky_uploads": 0}
+    if {k: faults.get(k) for k in want_row} != want_row:
+        raise AssertionError(f"faults: counters {faults}, want {want_row}")
+    if not all(x is not None and math.isfinite(x) for x in fed.train_losses) or not all(
+            math.isfinite(r["Test/Loss"]) for r in fed.history if "Test/Loss" in r):
+        raise AssertionError(f"faults: non-finite loss {fed.train_losses} {fed.history}")
+    report["faults"].update(uploads_per_round=uploads, counters=faults,
+                            dropped_uploads=fed.dropped_uploads, train_loss=fed.train_losses)
+    log("[faults_secagg] " + json.dumps({**report, "device": device, "card": smi}))
+    return report
 
 
 def main() -> int:
@@ -985,20 +1202,31 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    name, smi = phase_device()
-    phase_build()
-    max_err = phase_k1_parity()
-    t, bound_ms, bound_by = phase_k1_timing(name, smi)
-    launches = phase_main_path()
-    phase_profile_round()
-    phase_card_vs_cpu()
-    flash_err = phase_flash_parity()
-    ft, fplain, fbounds, flib = phase_flash_timing(name, smi)
-    phase_sass()
-    flash_launches = phase_lm_path()
-    phase_profile_lm_round()
-    phase_lm_card_vs_cpu()
-    transport_launches = phase_transport(smi)
+    phase_s = {}  # each phase's seconds, where the script's time goes
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[fn.__name__] = round(time.perf_counter() - t0, 3)
+        return out
+
+    name, smi = timed(phase_device)
+    timed(phase_build)
+    max_err = timed(phase_k1_parity)
+    t, bound_ms, bound_by, large = timed(phase_k1_timing, name, smi)
+    launches = timed(phase_main_path)
+    large_cohort_launches = timed(phase_large_cohort)
+    timed(phase_profile_round)
+    timed(phase_card_vs_cpu)
+    flash_err = timed(phase_flash_parity)
+    ft, fplain, fbounds, flib = timed(phase_flash_timing, name, smi)
+    timed(phase_sass)
+    flash_launches = timed(phase_lm_path)
+    timed(phase_profile_lm_round)
+    timed(phase_lm_card_vs_cpu)
+    transport_launches = timed(phase_transport, smi)
+    timed(phase_faults_secagg, smi)
+    log(json.dumps({"phase_s": phase_s}))
 
     from fedml_tpu_torch.ops import flash_attention as fa
     from fedml_tpu_torch.ops import robust_stats as rs
@@ -1032,6 +1260,13 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": t["sort_window_median_round"],
+        # the chunk kernel: a cohort of 128 over the whole model, and the
+        # launches of the robust round at 100 clients
+        "c128_ms": large["k1_median_ms"],
+        "c128_bound_ms": large["bound_ms"],
+        "c128_bound_by": large["bound_by"],
+        "c128_library_ms": large["sort_window_median_ms"],
+        "large_cohort_launches": large_cohort_launches,
     }] + flash_rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -141,7 +141,10 @@ class FedAvgAPI:
         self.device = resolve_device(device)
         fed = config.fed
         if fed.fault_plan:
-            raise NotImplementedError("fault injection is not ported yet (ROADMAP.md)")
+            raise NotImplementedError(
+                "fault plans in the simulator are not ported yet (ROADMAP.md); "
+                "the transport (fedavg_transport) takes them"
+            )
         if fed.eval_on_clients:
             raise NotImplementedError("eval_on_clients is not ported yet (ROADMAP.md)")
         self.config = config

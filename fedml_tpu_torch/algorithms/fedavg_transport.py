@@ -1,33 +1,46 @@
 """Distributed FedAvg over the Message/Observer transport — cross-silo
-federation (port of ``fedml_tpu/algorithms/fedavg_transport.py``, its plain
-synchronous path).
+federation (port of ``fedml_tpu/algorithms/fedavg_transport.py``).
 
-The server runs the round FSM (all uploads received → weighted average →
-optional FedOpt server step → eval → resample → broadcast); each client
-actor trains its assigned client's shard and uploads. Participants talk
-through any BaseCommManager (the in-process loopback hub, or shared memory
-between processes of one host).
+The server runs the round FSM (all uploads received, or a quorum once the
+straggler deadline has passed → weighted average → optional FedOpt server
+step → eval → resample → broadcast); each client actor trains its assigned
+client's shard and uploads. Participants talk through any BaseCommManager:
+the in-process loopback hub, shared memory between processes of one host,
+MQTT (an embedded broker, or any MQTT 3.1.1 broker over TCP) or gRPC.
 
 **Wire layout.** On the wire a model is the reference's: ``{"params":
 <nested flax tree of numpy arrays>}`` with conv kernels HWIO and dense
 kernels [in, out], keys sorted (:func:`wire_model`, built with
 ``bridge.to_flax``). Messages carry the reference's keys in the reference's
-order, and the codecs (core/compression.py) run on that tree, so a
-``fedml_tpu`` server takes a port client's uploads as they are, and the
-reverse.
+order, and the codecs (core/compression.py) and the secure-aggregation
+masks (secagg/) run on that tree, so a ``fedml_tpu`` server takes a port
+client's uploads as they are, and the reverse.
+
+**Rounds that lose clients.** ``fed.deadline_s`` arms a timer at each
+broadcast; once it passes, ``fed.min_clients`` uploads close the round and
+a late upload, tagged with a closed round, is dropped
+(``dropped_uploads``). A ``fed.fault_plan`` (scheduler/faults.py) is parsed
+once into one injector that the client actors (crash, dropout, slowdown,
+flaky upload) and the server's stall valve share: under a plan that can
+drop uploads, a round with no new upload over three deadlines is abandoned
+(``abandoned_rounds``). ``comm.secure_agg`` runs the pairwise-masked round
+(secagg/secure_aggregation.py): keys advertised, registry relayed, masked
+uploads, and survivors' recovery masks for parties that dropped after the
+registry went out.
 
 **Threads.** The client actors share the card. Each has its own copy of the
 model's ``nn.Module``: ``torch.func.functional_call`` swaps the weights
 into the module for the length of a call, so two threads calling it on one
 module would run on each other's weights.
 
-Beyond the reference's history row the server logs ``Train/Loss``, the
-uploads' mean train loss weighted by their sample counts — the
-simulator's ΣLoss/ΣCount. Not ported (each raises NotImplementedError
-naming ROADMAP.md): secure aggregation and its dropout recovery, the
-straggler deadline and quorum (``deadline_s``, ``min_clients``), fault
-plans, overprovisioning, AOT warmup, the client health registry and the
-flight recorder, and the gRPC and MQTT transports."""
+The history row holds the reference's keys: ``round``, ``t_s`` and, on eval
+rounds, ``Test/Loss`` and ``Test/Acc``. The uploads' train loss weighted by
+their sample counts (the simulator's ΣLoss/ΣCount; None for a round whose
+uploads carried none) goes to the server's ``train_losses``, one entry a
+round. Not ported (each raises NotImplementedError naming ROADMAP.md):
+overprovisioning and the selection policies beyond ``uniform`` (in the
+scheduler), AOT warmup, the client health registry and the flight
+recorder."""
 
 from __future__ import annotations
 
@@ -54,7 +67,8 @@ from fedml_tpu_torch.core.message import Message, MessageType as MT
 from fedml_tpu_torch.data.base import FederatedDataset, bucket_steps, stack_clients
 from fedml_tpu_torch.device import DeviceLike, fp32_math, resolve_device
 from fedml_tpu_torch.models import ModelDef
-from fedml_tpu_torch.scheduler import ClientScheduler
+from fedml_tpu_torch.scheduler import ClientScheduler, FaultInjector, FaultPlan
+from fedml_tpu_torch.secagg.secure_aggregation import ClientParty, ServerAggregator, tree_dim
 from fedml_tpu_torch.telemetry import get_comm_meter, get_tracer
 from fedml_tpu_torch.telemetry.wire import beacon_nbytes, build_beacon
 from fedml_tpu_torch.train.client import PermFn, make_local_train, seeded_perm_fn
@@ -63,22 +77,23 @@ from fedml_tpu_torch.train.evaluate import make_eval_fn, metrics_to_loss_acc, pa
 Variables = Dict[str, torch.Tensor]
 
 
-def _check_ported(config: RunConfig) -> None:
-    """Raise NotImplementedError for what the port's transport does not do
-    yet (selection policies and overprovisioning raise in the scheduler)."""
-    fed, comm = config.fed, config.comm
-    missing = {
-        "secure aggregation (comm.secure_agg) and its dropout recovery": comm.secure_agg,
-        "straggler deadlines and quorum rounds (fed.deadline_s, fed.min_clients)": fed.deadline_s,
-        "fault injection (fed.fault_plan)": fed.fault_plan,
-    }
-    for what, asked in missing.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
+def _check_config(config: RunConfig) -> None:
+    """The reference server's constructor checks. What the port does not
+    have yet raises NotImplementedError where it is reached: selection
+    policies and overprovisioning in the scheduler, AOT warmup in
+    :func:`run_federation`, the health registry at ``server.health``.
+    Without overprovisioning a server has exactly ``client_num_per_round``
+    workers, so the reference's check that ``secure_agg`` has no other
+    worker count holds by construction; it comes back with
+    overprovisioning (ROADMAP.md)."""
+    comm = config.comm
     if comm.downlink_compression not in ("none", "int8"):
         raise ValueError(
             f"downlink_compression supports 'none' or 'int8'; got {comm.downlink_compression!r}"
         )
+    if comm.secure_agg and comm.downlink_compression != "none":
+        # masked uploads are field vectors over the exact broadcast model
+        raise ValueError("secure_agg and downlink_compression are mutually exclusive")
 
 
 def wire_model(variables: Variables) -> dict:
@@ -237,7 +252,9 @@ def actor_order_perm_fn(config: RunConfig, data: FederatedDataset) -> PermFn:
 class FedAvgServerManager(ServerManager):
     """The round FSM. ``server_opt`` steps the FedOpt server optimizer
     (``config.server``) on each round's pseudo-gradient. ``init_vars``
-    (port variables) replaces the model's seeded init."""
+    (port variables) replaces the model's seeded init. ``faults`` is the
+    federation's one :class:`FaultInjector`: its plan arms the stall valve
+    (see the module docstring)."""
 
     def __init__(
         self,
@@ -250,8 +267,10 @@ class FedAvgServerManager(ServerManager):
         server_opt: bool = False,
         device: DeviceLike = None,
         init_vars: Optional[Variables] = None,
+        faults: Optional[FaultInjector] = None,
     ):
-        _check_ported(config)
+        _check_config(config)
+        self.worker_num = config.fed.client_num_per_round
         self.device = resolve_device(device)
         self.scheduler = ClientScheduler.from_config(config, num_clients=config.fed.client_num_in_total)
         super().__init__(comm, rank=0, config=config)
@@ -259,7 +278,6 @@ class FedAvgServerManager(ServerManager):
         self.model = _own_copy(model)
         self.data = data
         self.log_fn = log_fn or (lambda m: None)
-        self.worker_num = config.fed.client_num_per_round
         self.aggregator = FedAvgAggregator(self.worker_num)
         self._server_step = None
         self._server_opt_state = None
@@ -267,21 +285,47 @@ class FedAvgServerManager(ServerManager):
             self._server_optimizer = make_server_optimizer(config.server)
             self._server_step = make_server_step(self._server_optimizer)
         self.round_idx = 0
+        # the deadline timer races the comm receive loop: _round_lock
+        # serializes round completion
         self._round_lock = threading.Lock()
+        self._deadline_timer: Optional[threading.Timer] = None
+        self._deadline_passed = False
+        # the stall valve is armed only under a plan that can drop uploads:
+        # without one every sampled client eventually uploads, and the
+        # quorum-th upload closes the round whenever it arrives
+        self.faults = faults
+        plan = faults.plan if faults is not None else FaultPlan.from_config(config)
+        self._stall_valve = plan is not None and plan.has_participation_faults()
+        self._stall_last_count = -1
+        self._stall_strikes = 0
+        self.abandoned_rounds = 0
+        self.dropped_uploads = 0  # uploads tagged with a closed round
+        self._dead_workers: set = set()  # peers whose broadcasts failed
+        self.deadline_error: Optional[BaseException] = None
+        # secure aggregation: masked field vectors and sample counts by
+        # party (rank - 1), the round's public keys, and the recovery
+        # exchange for parties that dropped after the registry went out
+        self._masked_uploads: Dict[int, np.ndarray] = {}
+        self._masked_ns: Dict[int, float] = {}
+        self._round_pks: Dict[int, int] = {}
+        self._recovery_pending = False
+        self._recovery_vecs: Dict[int, np.ndarray] = {}
+        self._recovery_requested_for = None  # the dropped set last asked about
+        self._registry_sent = False
         if init_vars is None:
             init_vars = model.init(torch.Generator().manual_seed(config.seed))
         self.global_vars: Variables = {k: v.to(self.device) for k, v in init_vars.items()}
-        # the round's model as the clients received it: compressed uploads
-        # decode against it
+        # the round's model as the clients received it: compressed and
+        # masked uploads decode against it
         self._round_wire: Optional[dict] = None
         self._round_losses: Dict[int, tuple] = {}
         self.history: List[dict] = []
+        # the uploads' sample-weighted train loss, one entry a round
+        self.train_losses: List[Optional[float]] = []
         self._eval_fn = make_eval_fn(self.model, task) if data is not None else None
         self._test_dev = None
         self._tracer = get_tracer()
         self._round_span = None
-        self.dropped_uploads = 0  # uploads tagged with a closed round
-        self._dead_workers: set = set()
 
     @property
     def health(self):
@@ -290,7 +334,7 @@ class FedAvgServerManager(ServerManager):
     def _broadcast(self, msg: Message) -> bool:
         """Send a server->client message, tolerating a dead peer: a worker
         whose send failed is remembered and skipped until it is heard from
-        again."""
+        again (the deadline and quorum absorb its missing upload)."""
         worker = msg.get_receiver_id()
         if worker in self._dead_workers:
             logging.info("skipping broadcast to dead worker %d", worker)
@@ -300,7 +344,7 @@ class FedAvgServerManager(ServerManager):
             return True
         except Exception as e:  # noqa: BLE001 — transport errors vary by backend
             self._dead_workers.add(worker)
-            logging.warning("broadcast to worker %d failed (%s)", worker, e)
+            logging.warning("broadcast to worker %d failed (%s) — continuing on quorum", worker, e)
             return False
 
     def send_init_msg(self):
@@ -315,6 +359,7 @@ class FedAvgServerManager(ServerManager):
         self._round_span = self._tracer.start_span("round", round=r)
         with self._tracer.span("broadcast", round=r):
             self._broadcast_round(msg_type, r, sampled)
+        self._arm_deadline()
 
     def _broadcast_round(self, msg_type: str, round_idx: int, sampled):
         """Ship the round's model to the cohort, encoded ONCE per round:
@@ -348,6 +393,150 @@ class FedAvgServerManager(ServerManager):
 
     def register_message_receive_handlers(self):
         self.register_message_receive_handler(MT.C2S_SEND_MODEL, self._on_model_from_client)
+        self.register_message_receive_handler(MT.C2S_PUBKEY, self._on_pubkey)
+        self.register_message_receive_handler(MT.C2S_RECOVERY, self._on_recovery)
+
+    # -- secure aggregation: advertise keys -> masked input -> unmask; the
+    #    server relays public keys and never holds a party secret --
+    def _send_registry(self):
+        """Broadcast the public keys of the parties heard so far. Caller
+        holds _round_lock. A party that never advertised a key is not in
+        the round's mask algebra, so a client dead before its key cannot
+        deadlock the key phase."""
+        self._registry_sent = True
+        parties = sorted(self._round_pks)
+        for p in parties:
+            out = Message(MT.S2C_PUBKEYS, 0, p + 1)
+            out.add_params(MT.ARG_ROUND_IDX, self.round_idx)
+            out.add_params(MT.ARG_PUBKEY_REGISTRY,
+                           {"parties": parties, "pks": [self._round_pks[q] for q in parties]})
+            self._broadcast(out)
+
+    def _on_pubkey(self, msg: Message):
+        self._dead_workers.discard(msg.get_sender_id())
+        with self._round_lock:
+            if msg.get(MT.ARG_ROUND_IDX, -1) != self.round_idx:
+                return
+            if self._registry_sent:
+                # the registry is sealed: a late advertiser was never part
+                # of the mask algebra
+                self.dropped_uploads += 1
+                return
+            self._round_pks[msg.get_sender_id() - 1] = int(msg.get(MT.ARG_PUBKEY))
+            if len(self._round_pks) == self.worker_num or (
+                self._deadline_passed and len(self._round_pks) >= self._quorum()
+            ):
+                self._send_registry()
+
+    def _on_recovery(self, msg: Message):
+        self._dead_workers.discard(msg.get_sender_id())
+        with self._round_lock:
+            if msg.get(MT.ARG_ROUND_IDX, -1) != self.round_idx:
+                return
+            answered = set(map(int, msg.get(MT.ARG_DROPPED) or ()))
+            if self._recovery_requested_for is None or answered != set(self._recovery_requested_for):
+                # an answer for an earlier, smaller dropped set would leave
+                # the newly dropped parties' masks in the sum
+                return
+            self._recovery_vecs[msg.get_sender_id() - 1] = np.asarray(
+                msg.get(MT.ARG_RECOVERY_VEC), np.int64
+            )
+            if self._recovery_pending and set(self._recovery_vecs) >= set(self._masked_uploads):
+                self._complete_round()
+
+    def _on_recovery_deadline(self, armed_round: int):
+        """A survivor that never answered its recovery request (it died
+        after uploading) becomes a dropped party itself: its upload goes
+        and the exchange restarts with the rest. The survivors strictly
+        shrink, so this ends."""
+        try:
+            with self._round_lock:
+                if armed_round != self.round_idx or not self._recovery_pending:
+                    return
+                for p in set(self._masked_uploads) - set(self._recovery_vecs):
+                    self._masked_uploads.pop(p, None)
+                    self._masked_ns.pop(p, None)
+                self._recovery_requested_for = None  # force a new request
+                self._complete_round()
+        except BaseException as e:  # noqa: BLE001 — see _on_deadline
+            self.deadline_error = e
+            self.finish()
+
+    # -- straggler deadline (fed.deadline_s) and quorum (fed.min_clients) --
+    def _timer(self, fn, *args, delay: Optional[float] = None) -> threading.Timer:
+        t = threading.Timer(self.config.fed.deadline_s if delay is None else delay, fn, args=args)
+        t.daemon = True
+        t.start()
+        return t
+
+    def _arm_deadline(self):
+        if not self.config.fed.deadline_s:
+            return
+        self._deadline_passed = False
+        self._stall_last_count = -1
+        self._stall_strikes = 0
+        # the round is captured at arm time: cancel() cannot stop a callback
+        # already waiting on _round_lock, so a stale timer must see that
+        # its round has closed
+        self._deadline_timer = self._timer(self._on_deadline, self.round_idx)
+
+    def _disarm_deadline(self):
+        if self._deadline_timer is not None:
+            self._deadline_timer.cancel()
+            self._deadline_timer = None
+        self._deadline_passed = False
+
+    def _quorum(self) -> int:
+        return max(1, min(self.config.fed.min_clients, self.worker_num))
+
+    def _received_count(self) -> int:
+        if self.config.comm.secure_agg:
+            return len(self._masked_uploads)
+        return self.aggregator.received_count()
+
+    def _on_deadline(self, armed_round: int):
+        try:
+            with self._round_lock:
+                if armed_round != self.round_idx:
+                    return  # stale timer: its round already closed
+                self._deadline_passed = True
+                if (self.config.comm.secure_agg and not self._registry_sent
+                        and len(self._round_pks) >= self._quorum()):
+                    # the key phase waits on a client that died before its
+                    # key: go on with the parties heard so far
+                    self._send_registry()
+                    return
+                n = self._received_count()
+                if n >= self._quorum():
+                    self._complete_round()
+                    return
+                if not self._stall_valve:
+                    return  # the quorum-th upload closes the round on arrival
+                # below quorum under a plan that drops uploads: three
+                # deadlines in a row with no new upload abandon the round
+                # with what arrived (possibly nothing: the model carries
+                # over) rather than wedge the federation
+                if n == self._stall_last_count:
+                    self._stall_strikes += 1
+                else:
+                    self._stall_last_count, self._stall_strikes = n, 0
+                if self._stall_strikes >= 2:  # the third barren deadline
+                    logging.warning(
+                        "round %d stalled below quorum (%d/%d uploads after 3 deadlines) — "
+                        "abandoning with the partial set", self.round_idx, n, self._quorum(),
+                    )
+                    self.abandoned_rounds += 1
+                    self._complete_round()
+                    return
+                self._deadline_timer = self._timer(self._on_deadline, armed_round)
+        except BaseException as e:  # noqa: BLE001
+            # the timer thread would swallow this and leave the server
+            # parked on its inbox: surface it through finish()
+            self.deadline_error = e
+            self.finish()
+
+    def _quorum_reached(self, received: int) -> bool:
+        return received == self.worker_num or (self._deadline_passed and received >= self._quorum())
 
     def _on_model_from_client(self, msg: Message):
         self._dead_workers.discard(msg.get_sender_id())
@@ -356,6 +545,25 @@ class FedAvgServerManager(ServerManager):
             upload_round = msg.get(MT.ARG_ROUND_IDX, -1)
             if upload_round != self.round_idx:
                 self.dropped_uploads += 1
+                return
+            worker = msg.get_sender_id() - 1
+            n = msg.get(MT.ARG_NUM_SAMPLES)
+            if self.config.comm.secure_agg:
+                masked = msg.get(MT.ARG_MASKED_UPDATE)
+                if masked is None:
+                    raise ValueError(
+                        f"secure-agg server received an unmasked upload from sender "
+                        f"{msg.get_sender_id()} — was that client run without secure_agg?"
+                    )
+                if self._recovery_pending:
+                    # a "dropped" party racing the recovery exchange: its
+                    # masks are being unwound, so its upload must not count
+                    self.dropped_uploads += 1
+                    return
+                self._masked_uploads[worker] = masked
+                self._masked_ns[worker] = float(n)
+                if self._quorum_reached(len(self._masked_uploads)):
+                    self._complete_round()
                 return
             params = msg.get(MT.ARG_MODEL_PARAMS)
             if params is None:
@@ -368,16 +576,14 @@ class FedAvgServerManager(ServerManager):
                         "model_params nor a tagged compressed delta"
                     )
                 params = CZ.decode_update(payload, self._round_wire, method)
-            worker = msg.get_sender_id() - 1
-            n = msg.get(MT.ARG_NUM_SAMPLES)
             self.aggregator.add_local_trained_result(worker, model_vars(params, self.device), n)
             self._round_losses[worker] = (msg.get(MT.ARG_TRAIN_LOSS), float(n))
-            if self.aggregator.check_whether_all_receive():
+            if self._quorum_reached(self.aggregator.received_count()):
                 self._complete_round()
 
     def _train_loss(self) -> Optional[float]:
         """The uploads' train losses weighted by their sample counts (None
-        when an upload carried none)."""
+        when an upload carried none, or none arrived)."""
         pairs = list(self._round_losses.values())
         self._round_losses = {}
         if not pairs or any(loss is None for loss, _ in pairs):
@@ -390,25 +596,90 @@ class FedAvgServerManager(ServerManager):
             self._test_dev = tuple(torch.from_numpy(a).to(self.device) for a in (xb, yb, mb))
         return self._test_dev
 
+    def _secure_average(self) -> Optional[tuple]:
+        """(the masked round's weighted average, the uploads in it), or
+        None while the recovery exchange is open (a reply or its timer
+        closes the round). With every party lost the average is the current
+        model. Caller holds _round_lock."""
+        dropped = sorted(set(self._round_pks) - set(self._masked_uploads))
+        if dropped and self._recovery_requested_for != set(dropped):
+            # registry parties that never uploaded left uncancelled pair
+            # masks in the survivors' uploads: ask each survivor for its
+            # recovery masks. A survivor that cannot even be sent to is
+            # dropped too, and the exchange restarts with the larger set.
+            self._recovery_pending = True
+            self._recovery_requested_for = set(dropped)
+            self._recovery_vecs = {}
+            unreachable = []
+            for p in sorted(self._masked_uploads):
+                out = Message(MT.S2C_RECOVER, 0, p + 1)
+                out.add_params(MT.ARG_ROUND_IDX, self.round_idx)
+                out.add_params(MT.ARG_DROPPED, list(map(int, dropped)))
+                if not self._broadcast(out):
+                    unreachable.append(p)
+            if unreachable:
+                for p in unreachable:
+                    self._masked_uploads.pop(p, None)
+                    self._masked_ns.pop(p, None)
+                self._recovery_requested_for = None
+                return self._secure_average()
+            if self._masked_uploads:
+                # bounds the wait on survivors that died after uploading
+                self._timer(self._on_recovery_deadline, self.round_idx,
+                            delay=max(self.config.fed.deadline_s, 5.0))
+                return None
+        if dropped and set(self._recovery_vecs) < set(self._masked_uploads):
+            return None  # waiting on recovery masks (a timer bounds the wait)
+        avg, received = self.global_vars, len(self._masked_uploads)
+        if received:
+            srv = ServerAggregator(tree_dim(self._round_wire))
+            with self._tracer.span("aggregate", round=self.round_idx,
+                                   n_uploads=len(self._masked_uploads), secure_agg=True):
+                total = srv.masked_sum(self._masked_uploads)
+                if dropped:
+                    total = srv.remove_dropout_masks(total, self._recovery_vecs)
+                ns = {p: self._masked_ns[p] for p in self._masked_uploads}
+                avg = model_vars(srv.decode_average(total, ns, self._round_wire), self.device)
+        else:
+            logging.warning("secure-agg round %d lost every upload — model unchanged", self.round_idx)
+        self._masked_uploads, self._masked_ns = {}, {}
+        self._round_pks, self._recovery_vecs = {}, {}
+        self._recovery_pending = False
+        self._recovery_requested_for = None
+        self._registry_sent = False
+        return avg, received
+
     def _complete_round(self):
-        """Aggregate, step the server optimizer, eval, then broadcast the
-        next round or FINISH. Caller holds _round_lock."""
+        """Aggregate what has arrived, step the server optimizer, eval,
+        then broadcast the next round or FINISH. Caller holds _round_lock."""
+        self._disarm_deadline()
         r = self.round_idx
-        with self._tracer.span("aggregate", round=r, n_uploads=self.aggregator.received_count()):
-            with fp32_math():
-                avg = self.aggregator.aggregate()
-            if self._server_step is not None:
-                if self._server_opt_state is None:
-                    self._server_opt_state = self._server_optimizer.init(self.global_vars)
-                self.global_vars, self._server_opt_state = self._server_step(
-                    self.global_vars, avg, self._server_opt_state
-                )
+        if self.config.comm.secure_agg:
+            done = self._secure_average()
+            if done is None:
+                return  # the recovery exchange closes the round
+            avg, received = done
+        else:
+            received = self.aggregator.received_count()
+            if received:
+                with self._tracer.span("aggregate", round=r, n_uploads=received), fp32_math():
+                    avg = self.aggregator.aggregate()
             else:
-                self.global_vars = avg
+                # an abandoned round with no upload: the model carries over
+                logging.warning("round %d closed with no uploads — model unchanged", r)
+                avg = self.global_vars
+        # a round nobody trained in must not step the server optimizer: its
+        # moments from earlier rounds would still move the model
+        if self._server_step is not None and received:
+            if self._server_opt_state is None:
+                self._server_opt_state = self._server_optimizer.init(self.global_vars)
+            self.global_vars, self._server_opt_state = self._server_step(
+                self.global_vars, avg, self._server_opt_state
+            )
+        else:
+            self.global_vars = avg
         row = {"round": r, "t_s": round(time.monotonic() - self._t0, 3)}
-        train_loss = self._train_loss()
-        if train_loss is not None:
-            row["Train/Loss"] = train_loss
+        self.train_losses.append(self._train_loss())
         fed = self.config.fed
         if self.data is not None and (r % fed.frequency_of_the_test == 0 or r == fed.comm_round - 1):
             with self._tracer.span("eval", round=r), fp32_math():
@@ -429,24 +700,62 @@ class FedAvgServerManager(ServerManager):
 
 class FedAvgClientManager(ClientManager):
     """A client actor: train on each sync, upload the model (or its
-    compressed delta) with the sample count, round tag, train loss and a
-    telemetry beacon. ``ef`` is the error-feedback store, shared by all the
-    actors of a federation since residuals follow the client, not the
-    worker slot."""
+    compressed delta, or its masked update under secure aggregation) with
+    the sample count, round tag, train loss and a telemetry beacon. ``ef``
+    is the error-feedback store and ``faults`` the fault injector, both
+    shared by all the actors of a federation, since residuals and faults
+    follow the client, not the worker slot."""
 
     def __init__(self, config: RunConfig, comm: BaseCommManager, rank: int,
-                 trainer: LocalTrainer, ef=None):
+                 trainer: LocalTrainer, ef=None, faults: Optional[FaultInjector] = None):
         super().__init__(comm, rank, config=config)
         self.config = config
         self.trainer = trainer
         self._ef = ef if ef is not None else CZ.ErrorFeedback.maybe_from_config(config.comm)
+        self._faults = faults
+        # secure aggregation: the party holding this round's secret key
+        # (never sent), its round, and the upload waiting for the registry
+        self._secagg_party: Optional[ClientParty] = None
+        self._secagg_round = -1
+        self._secagg_pending = None
         # quantized-downlink decode template (leaf shapes and order only)
         self._downlink_template = None
 
     def register_message_receive_handlers(self):
         self.register_message_receive_handler(MT.S2C_INIT_CONFIG, self._on_sync)
         self.register_message_receive_handler(MT.S2C_SYNC_MODEL, self._on_sync)
+        self.register_message_receive_handler(MT.S2C_PUBKEYS, self._on_pubkeys)
+        self.register_message_receive_handler(MT.S2C_RECOVER, self._on_recover)
         self.register_message_receive_handler(MT.FINISH, lambda m: self.finish())
+
+    def _on_pubkeys(self, msg: Message):
+        """The round's registry arrived: agree the pair keys and upload the
+        masked update."""
+        if self._secagg_party is None or msg.get(MT.ARG_ROUND_IDX) != self._secagg_round:
+            return
+        reg = msg.get(MT.ARG_PUBKEY_REGISTRY)
+        weights, w_round, n = self._secagg_pending
+        out = Message(MT.C2S_SEND_MODEL, self.rank, 0)
+        # key agreement and masking, the client's share of the protocol's cost
+        with get_tracer().span("mask", round=self._secagg_round):
+            self._secagg_party.set_registry(
+                {int(p): int(pk) for p, pk in zip(reg["parties"], reg["pks"])})
+            out.add_params(MT.ARG_MASKED_UPDATE, self._secagg_party.masked_update(weights, w_round, n))
+        out.add_params(MT.ARG_NUM_SAMPLES, n)
+        out.add_params(MT.ARG_ROUND_IDX, self._secagg_round)
+        self.send_message(out)
+
+    def _on_recover(self, msg: Message):
+        """Some registry parties dropped before uploading: send the masks
+        this party applied toward them."""
+        if self._secagg_party is None or msg.get(MT.ARG_ROUND_IDX) != self._secagg_round:
+            return
+        dropped = msg.get(MT.ARG_DROPPED)
+        out = Message(MT.C2S_RECOVERY, self.rank, 0)
+        out.add_params(MT.ARG_ROUND_IDX, self._secagg_round)
+        out.add_params(MT.ARG_DROPPED, list(map(int, dropped)))
+        out.add_params(MT.ARG_RECOVERY_VEC, self._secagg_party.recovery_mask(dropped))
+        self.send_message(out)
 
     def _on_sync(self, msg: Message):
         trainer = self.trainer
@@ -465,10 +774,36 @@ class FedAvgClientManager(ClientManager):
                     trainer.model.init(torch.Generator().manual_seed(0))
                 )
             w_round = CZ.decode_delta(payload, self._downlink_template, codec)
+        fd = None
+        cid = trainer.client_index
+        if self._faults is not None:
+            fd = self._faults.decide(cid, int(round_idx))
+            # a crashed client is silent from crash_at_round on, a dropped
+            # one for this round: no training, no upload (the server's
+            # deadline and quorum absorb it); the worker slot stays alive
+            # for the clients later rounds assign it
+            if fd.crashed or fd.drop:
+                self._faults.record(cid, int(round_idx), "crash" if fd.crashed else "dropout")
+                return
         t_train = time.perf_counter()
         new_vars, n = trainer.train(round_idx, model_vars(w_round, trainer.device))
         weights = wire_model(new_vars)
+        if fd is not None and fd.slowdown_s:
+            self._faults.record(cid, int(round_idx), "slowdown", detail=fd.slowdown_s)
+            time.sleep(fd.slowdown_s)
+        # the beacon's train time includes an injected slowdown
         train_s = time.perf_counter() - t_train
+        if self.config.comm.secure_agg:
+            # advertise a fresh key pair; the masked upload waits for the
+            # registry (_on_pubkeys)
+            self._secagg_party = ClientParty(self.rank - 1, tree_dim(weights))
+            self._secagg_round = round_idx
+            self._secagg_pending = (weights, w_round, n)
+            adv = Message(MT.C2S_PUBKEY, self.rank, 0)
+            adv.add_params(MT.ARG_ROUND_IDX, round_idx)
+            adv.add_params(MT.ARG_PUBKEY, self._secagg_party.pk)
+            self.send_message(adv)
+            return
         comp = self.config.comm.compression
         meter = get_comm_meter()
         out = Message(MT.C2S_SEND_MODEL, self.rank, 0)
@@ -479,7 +814,7 @@ class FedAvgClientManager(ClientManager):
         if comp != "none":
             t_enc = time.perf_counter()
             if self._ef is not None:
-                payload = self._ef.encode(trainer.client_index, weights, w_round)
+                payload = self._ef.encode(cid, weights, w_round)
             else:
                 payload = CZ.encode_update(weights, w_round, comp, self.config.comm.topk_frac)
             encode_s = time.perf_counter() - t_enc
@@ -497,10 +832,19 @@ class FedAvgClientManager(ClientManager):
             beacon = build_beacon(
                 train_s=train_s, encode_s=encode_s,
                 retries=sum(meter.snapshot()["send_retries"].values()), codec=comp,
+                tier=self._faults.plan.tier_of(cid) if self._faults is not None else None,
             )
             out.add_params(MT.ARG_TELEMETRY, beacon)
             meter.on_beacon(beacon_nbytes(beacon))
         self.send_message(out)
+        if fd is not None and fd.flaky:
+            # a flaky upload is delivered twice; the server's worker slot
+            # absorbs the duplicate
+            self._faults.record(cid, int(round_idx), "flaky")
+            try:
+                self.send_message(out)
+            except Exception:  # noqa: BLE001 — the real upload already landed
+                pass
 
 
 def run_federation(
@@ -518,23 +862,39 @@ def run_federation(
 ) -> FedAvgServerManager:
     """One-process federation over any transport: a server and
     ``client_num_per_round`` client actors in threads, each on
-    ``comm_factory(rank)``. Blocks until the last round, re-raises an
-    error from any actor, and returns the server manager (``global_vars``,
-    ``history``). ``device=None`` runs every actor on the card."""
+    ``comm_factory(rank)``. A ``fed.fault_plan`` is parsed ONCE into one
+    injector that every client actor and the server's stall valve share;
+    after the last round its ``faults/*`` counters go to ``log_fn``.
+    Blocks until the last round, re-raises an error from any actor or the
+    server's timers, and returns the server manager (``global_vars``,
+    ``history``, ``train_losses``). ``device=None`` runs every actor on the
+    card."""
     if warmup:
         raise NotImplementedError("AOT warmup is not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
+    injector = FaultInjector.from_config(config, tracer=get_tracer())
+    if injector is not None and injector.plan.has_participation_faults() and not config.fed.deadline_s:
+        raise ValueError(
+            "fault_plan can drop uploads (dropout_p/crash_at_round) but deadline_s is 0: the "
+            "server's all-received barrier would wait forever — set FedConfig.deadline_s/min_clients"
+        )
+    shared_ef = CZ.ErrorFeedback.maybe_from_config(config.comm)
+    if shared_ef is not None and config.fed.deadline_s:
+        raise ValueError(
+            "error_feedback cannot be combined with deadline_s quorum rounds: a dropped late "
+            "upload loses residual-cleared mass"
+        )
     server = FedAvgServerManager(
         config, comm_factory(0), model, data=data, task=task, log_fn=log_fn,
-        server_opt=server_opt, device=dev, init_vars=init_vars,
+        server_opt=server_opt, device=dev, init_vars=init_vars, faults=injector,
     )
-    shared_ef = CZ.ErrorFeedback.maybe_from_config(config.comm)
     make_trainer = trainer_factory or (
         lambda rank: LocalTrainer(config, data, model, task, device=dev)
     )
     clients = [
-        FedAvgClientManager(config, comm_factory(rank), rank, make_trainer(rank), ef=shared_ef)
-        for rank in range(1, config.fed.client_num_per_round + 1)
+        FedAvgClientManager(config, comm_factory(rank), rank, make_trainer(rank), ef=shared_ef,
+                            faults=injector)
+        for rank in range(1, server.worker_num + 1)
     ]
     errors: List[BaseException] = []
 
@@ -559,14 +919,18 @@ def run_federation(
         for c in clients:
             c.finish()
         raise
-    if errors:
+    if server.deadline_error is not None or errors:
         for c in clients:
             c.finish()
+        if server.deadline_error is not None:
+            raise RuntimeError("server deadline path failed") from server.deadline_error
         raise RuntimeError("client actor failed") from errors[0]
     for t in threads:
         t.join(timeout=60)
         if t.is_alive():
             raise RuntimeError("client thread failed to finish")
+    if injector is not None:
+        server.log_fn(injector.summary_row())
     return server
 
 
@@ -601,6 +965,21 @@ def run_shm_federation(
         )
 
 
-def run_mqtt_federation(*args, **kwargs):
-    """The MQTT transport is not ported (ROADMAP.md)."""
-    raise NotImplementedError("the MQTT and gRPC transports are not ported yet (ROADMAP.md)")
+def run_mqtt_federation(
+    config: RunConfig, data: FederatedDataset, model: ModelDef, task: str = "classification",
+    log_fn=None, host: Optional[str] = None, port: int = 1883, server_opt: bool = False,
+    warmup: bool = False, **kw,
+) -> FedAvgServerManager:
+    """Federation over MQTT pub/sub: an in-process embedded broker by
+    default, a broker over TCP at ``host:port`` when ``host`` is given."""
+    from fedml_tpu_torch.core.mqtt_comm import EmbeddedBroker, MqttCommManager
+
+    if host is None:
+        broker = EmbeddedBroker()
+        factory = lambda rank: MqttCommManager(rank, broker=broker)  # noqa: E731
+    else:
+        factory = lambda rank: MqttCommManager(rank, host=host, port=port)  # noqa: E731
+    return run_federation(
+        config, data, model, factory, task=task, log_fn=log_fn, server_opt=server_opt,
+        warmup=warmup, **kw,
+    )

@@ -1,11 +1,14 @@
 """Backend-agnostic communication interface (port of
 ``fedml_tpu/core/comm.py``): the same Observer contract, so loopback
-(core/loopback.py) and shared memory (core/shm_comm.py) slot in identically.
+(core/loopback.py), shared memory (core/shm_comm.py), MQTT (core/mqtt_comm.py)
+and gRPC (core/grpc_comm.py) slot in identically.
 
 ``send_message`` is a template method: it stamps the ``_trace`` meta key
 (telemetry/wire.py) exactly as the reference does, so the port's envelopes
 are the reference's byte for byte; retries a failed ``_send`` under the
-installed :class:`~fedml_tpu_torch.core.retry.RetryPolicy`; and meters
+installed :class:`~fedml_tpu_torch.core.retry.RetryPolicy` (a
+:class:`~fedml_tpu_torch.core.retry.RemoteRefusal` is metered apart as
+``send_refused``); and meters
 messages and wire bytes (telemetry/comm.py). ``notify`` dispatches to the
 observers and meters what arrived. Wire sizes come from the envelope itself:
 ``Message.to_wire_parts``/``from_bytes`` stamp the serialized size on the
@@ -19,7 +22,7 @@ import time
 from typing import List, Optional
 
 from fedml_tpu_torch.core.message import Message, MessageType
-from fedml_tpu_torch.core.retry import InjectedSendFault, RetryPolicy
+from fedml_tpu_torch.core.retry import InjectedSendFault, RemoteRefusal, RetryPolicy
 from fedml_tpu_torch.telemetry.comm import get_comm_meter
 from fedml_tpu_torch.telemetry.spans import get_tracer
 from fedml_tpu_torch.telemetry.wire import TraceContext
@@ -142,7 +145,12 @@ class BaseCommManager(abc.ABC):
                 # Exception, not BaseException: KeyboardInterrupt/
                 # SystemExit must abort the send, not be retried N times
                 # under backoff
-                except Exception:  # noqa: BLE001 — transport boundary
+                except Exception as e:  # noqa: BLE001 — transport boundary
+                    if isinstance(e, RemoteRefusal):
+                        # the remote end shed this attempt at its budget:
+                        # metered apart from transport faults, then the
+                        # backoff schedule owns the redial
+                        self._meter.on_send_refused(mt)
                     attempt += 1
                     delay = policy.backoff_s(seq, attempt)
                     out_of_attempts = attempt >= policy.max_attempts

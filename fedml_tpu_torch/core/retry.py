@@ -25,6 +25,16 @@ class InjectedSendFault(ConnectionError):
     """A chaos-injected transient transport failure (``send_fault_p``)."""
 
 
+class RemoteRefusal(ConnectionError):
+    """The remote end shed this attempt at a connection or stream budget
+    (gRPC RESOURCE_EXHAUSTED from the receive-queue budget, MQTT CONNACK
+    0x03 from the broker's connection cap): deliberate backpressure, not a
+    dead peer. Transports raise this subclass so the send template
+    (core/comm.py) can meter refusals apart from transport faults; the
+    attempt still re-enters the normal backoff and retry schedule, which
+    is the redial the shedding end wants."""
+
+
 def _mix(*parts: int) -> int:
     """Order-sensitive integer mix — a stable stream key (int hashing is
     deterministic across processes, unlike str hashing)."""

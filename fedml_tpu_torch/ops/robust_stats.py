@@ -37,25 +37,13 @@ import torch
 
 from fedml_tpu_torch.ops._build import count_launch, load_kernel_library
 
-# The kernel keeps a column in registers for C <= 16 and in a per-thread
-# shared-memory tile above; C above this cap raises (csrc/robust_stats.cu
-# kMaxClients).
-MAX_CLIENTS = 64
 KERNEL_NAME = "robust_stats.trimmed_mean"
 LAUNCHES: Dict[str, int] = {KERNEL_NAME: 0}
-
-_BLOCK = 128  # threads per block (csrc kThreads)
-_BLOCKS_PER_SM = 16
 
 
 def _check(C: int, trim_k: int) -> None:
     if trim_k < 0 or 2 * trim_k >= C:
         raise ValueError(f"need 0 <= trim_k < C/2; got trim_k={trim_k}, C={C}")
-    if C > MAX_CLIENTS:
-        raise ValueError(
-            f"trimmed_mean_1d supports at most {MAX_CLIENTS} clients "
-            f"(the K1 kernel's cap); got C={C}"
-        )
 
 
 def trimmed_mean_plain(x: torch.Tensor, trim_k: int) -> torch.Tensor:
@@ -87,8 +75,6 @@ def trimmed_mean_sort(x: torch.Tensor, trim_k: int) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     """Build (at first use) and bind K1's C entry points."""
     lib = load_kernel_library("robust_stats")
-    if lib.fedml_robust_stats_max_clients() != MAX_CLIENTS:
-        raise RuntimeError("csrc/robust_stats.cu kMaxClients disagrees with MAX_CLIENTS")
     I = ctypes.c_int
     lib.fedml_trimmed_mean_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, I, ctypes.c_longlong, I, I, ctypes.c_void_p,
@@ -100,8 +86,10 @@ def _lib() -> ctypes.CDLL:
 
 
 def kernel_info(C: int) -> Dict[str, int]:
-    """The kernel that takes a cohort of C (in registers for C <= 16, in a
-    shared-memory tile above) and what the compiler made of it: threads a
+    """The kernel that takes a cohort of C (the column in registers for
+    C <= 16; above, ranks of 16 values at a time against the column held in
+    a shared-memory tile, or read from device memory where the tile would
+    not fit) and what the compiler made of it: threads a
     block, registers and local-memory bytes a thread (spills land there),
     dynamic shared memory a block, and the blocks one SM holds at once."""
     out = (ctypes.c_int * 5)()
@@ -119,10 +107,9 @@ def _launch(x: torch.Tensor, trim_k: int) -> torch.Tensor:
         return out
     fn = _lib().fedml_trimmed_mean_f32
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = min(-(-D // _BLOCK), sms * _BLOCKS_PER_SM)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), C, D, trim_k, grid, stream)
+        err = fn(x.data_ptr(), out.data_ptr(), C, D, trim_k, sms, stream)
     if err != 0:
         raise RuntimeError(f"K1 trimmed_mean kernel launch failed: cudaError {err}")
     count_launch(LAUNCHES, KERNEL_NAME)

@@ -4,8 +4,8 @@
 ``uniform`` is the reference-parity draw: ``np.random.seed(round_idx)`` then
 ``choice`` without replacement — it deliberately ignores the run seed, so
 the cohorts equal the reference's round for round. The weighted,
-power-of-choice and straggler-aware policies, overprovisioning and fault
-injection are still to port (ROADMAP.md)."""
+power-of-choice and straggler-aware policies and overprovisioning are
+still to port (ROADMAP.md); fault plans are in scheduler/faults.py."""
 
 from __future__ import annotations
 

@@ -3,7 +3,9 @@
 Wired ONCE into the ``BaseCommManager`` send/notify template (core/comm.py),
 so every transport backend gets per-message-type counters for free:
 messages and serialized wire bytes sent and received, send retries and
-give-ups, and the model payload bytes of each upload and broadcast as
+give-ups, connections and streams shed at a budget (``refused``, by kind, on
+the end that sheds; ``send_refused``, by message type, on the sender), and
+the model payload bytes of each upload and broadcast as
 shipped against their float32-equivalent size (``comm/uplink_*`` and
 ``comm/downlink_*``). The reference also feeds these observations into a
 Prometheus registry; the port keeps the plain totals only (``snapshot``),
@@ -14,11 +16,13 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional
 
-_PER_TYPE = ("messages_sent", "messages_received", "bytes_sent", "bytes_received",
-             "send_retries", "send_gave_up")
+_TRAFFIC = ("messages_sent", "messages_received", "bytes_sent", "bytes_received",
+            "send_retries", "send_gave_up")
 _TOTALS = ("uplink_payload_bytes", "uplink_raw_bytes", "uplink_updates",
            "downlink_payload_bytes", "downlink_raw_bytes", "downlink_updates",
            "beacons", "beacon_bytes")
+_REFUSALS = ("refused", "send_refused")
+_PER_TYPE = _TRAFFIC + _REFUSALS
 
 
 class CommMeter:
@@ -50,6 +54,17 @@ class CommMeter:
     def on_send_gave_up(self, msg_type: str) -> None:
         self._add("send_gave_up", msg_type)
 
+    def on_refused(self, kind: str) -> None:
+        """One inbound connection or stream shed at a server-side budget
+        (``grpc_stream`` queue budget, ``mqtt_conn`` connection cap),
+        metered where the refusal is decided."""
+        self._add("refused", kind)
+
+    def on_send_refused(self, msg_type: str) -> None:
+        """One send attempt the remote end refused at its budget (the
+        sender's mirror of :meth:`on_refused`)."""
+        self._add("send_refused", msg_type)
+
     def _add_totals(self, prefix: str, payload_bytes: int, raw_bytes: int) -> None:
         with self._lock:
             self._totals[f"{prefix}_payload_bytes"] += int(payload_bytes)
@@ -77,8 +92,9 @@ class CommMeter:
         """Plain-dict totals, keyed as the reference's ``snapshot``:
         ``{counter: {msg_type: value}}`` and the payload totals."""
         with self._lock:
-            out = {k: dict(v) for k, v in self._per_type.items()}
+            out = {k: dict(self._per_type[k]) for k in _TRAFFIC}
             out.update(self._totals)
+            out.update({k: dict(self._per_type[k]) for k in _REFUSALS})
             return out
 
     def reset(self) -> None:

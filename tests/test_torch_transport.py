@@ -6,8 +6,9 @@ not matter):
 - in the port, loopback equals the simulator for FedAvg, FedOpt (FedAdam)
   and FedProx (prox_mu 0.1, E=3), FedProx differs from FedAvg, and shared
   memory is bit-equal to loopback;
-- the port's loopback federation equals the reference's simulator in params
-  and in each history row's Train/Loss and Test/Acc, and with int8 up- and
+- the port's loopback federation equals the reference's simulator in params,
+  in each round's train loss (the port server's ``train_losses``) and in
+  each history row's Test/Acc, and with int8 up- and
   downlink it meters the reference's ``comm/uplink_*`` / ``comm/downlink_*``
   bytes;
 - a mixed federation — the reference's server on a ``fedml_tpu``
@@ -102,8 +103,8 @@ def test_loopback_matches_port_simulator(algo, train, epochs):
                                   device="cpu")
     assert fed.round_idx == LR["rounds"]
     _assert_vars_close(fed.global_vars, sim.global_vars)
-    for srow, frow in zip(sim.history, fed.history, strict=True):
-        assert abs(srow["Train/Loss"] - frow["Train/Loss"]) <= ATOL
+    for srow, frow, loss in zip(sim.history, fed.history, fed.train_losses, strict=True):
+        assert abs(srow["Train/Loss"] - loss) <= ATOL
         assert ("Test/Acc" in srow) == ("Test/Acc" in frow)
         if "Test/Acc" in srow:
             assert abs(srow["Test/Acc"] - frow["Test/Acc"]) <= ATOL
@@ -146,15 +147,15 @@ def test_shm_is_bit_equal_to_loopback(comm):
     shm = run_shm_federation(cfg, data, torch_lr_model(), server_opt=True, device="cpu")
     for k in loop.global_vars:
         assert torch.equal(loop.global_vars[k], shm.global_vars[k]), k
-    assert [r.get("Train/Loss") for r in loop.history] == [r.get("Train/Loss") for r in shm.history]
+    assert loop.train_losses == shm.train_losses
 
 
 @pytest.mark.parametrize("algo", ["fedavg", "fedopt"])
 def test_loopback_matches_reference_simulator(algo):
     """The port's federation from the reference simulator's init against
-    the reference simulator: params, and Train/Loss and Test/Acc row by
-    row (the port server's Train/Loss is the uploads' loss weighted by
-    their sample counts, the simulator's ΣLoss/ΣCount)."""
+    the reference simulator: params, the train loss and Test/Acc round by
+    round (the port server's ``train_losses`` hold the uploads' loss
+    weighted by their sample counts, the simulator's ΣLoss/ΣCount)."""
     from fedml_tpu.algorithms import FedAvgAPI as JaxFedAvg
     from fedml_tpu.algorithms.fedopt import FedOptAPI as JaxFedOpt
 
@@ -166,8 +167,8 @@ def test_loopback_matches_reference_simulator(algo):
     fed = run_loopback_federation(cfg, data, model, server_opt=algo == "fedopt", device="cpu",
                                   init_vars=init)
     _assert_ref_close(fed.global_vars, japi.global_vars)
-    for jrow, frow in zip(japi.history, fed.history, strict=True):
-        assert abs(jrow["Train/Loss"] - frow["Train/Loss"]) <= ATOL, (jrow, frow)
+    for jrow, frow, loss in zip(japi.history, fed.history, fed.train_losses, strict=True):
+        assert abs(jrow["Train/Loss"] - loss) <= ATOL, (jrow, loss)
         assert ("Test/Acc" in jrow) == ("Test/Acc" in frow)
         if "Test/Acc" in jrow:
             assert abs(jrow["Test/Acc"] - frow["Test/Acc"]) <= ATOL, (jrow, frow)
@@ -176,7 +177,8 @@ def test_loopback_matches_reference_simulator(algo):
 def test_compressed_wire_meters_the_reference_bytes():
     """int8 uplink deltas and int8 downlink broadcasts: the payload bytes
     as shipped and their float32 equivalents, metered by each package's
-    comm meter over the same 3-round federation, are equal."""
+    comm meter over the same 3-round federation, are equal; and the two
+    servers' history rows hold the same keys in the same order."""
     from fedml_tpu.algorithms.fedavg_transport import run_loopback_federation as jax_loopback
     from fedml_tpu.telemetry import get_comm_meter as jax_comm_meter
 
@@ -193,6 +195,7 @@ def test_compressed_wire_meters_the_reference_bytes():
                                   init_vars=from_flax(init["params"]))
     got = {k: get_comm_meter().snapshot()[k] for k in keys}
     assert got == want
+    assert [list(row) for row in fed.history] == [list(row) for row in jserver.history]
     assert want["uplink_updates"] == want["downlink_updates"] == LR["num_clients"] * LR["rounds"]
     assert want["uplink_payload_bytes"] < want["uplink_raw_bytes"]
     # and the two runs trained the same model within a quantization step
@@ -293,8 +296,7 @@ def test_local_trainer_takes_the_reference_clients_minibatches():
 
 @pytest.mark.parametrize(
     "section,field,value",
-    [("comm", "secure_agg", True), ("fed", "deadline_s", 1.0),
-     ("fed", "fault_plan", "plan.json"), ("fed", "overprovision_factor", 1.5)],
+    [("fed", "overprovision_factor", 1.5), ("fed", "selection", "power_of_choice")],
 )
 def test_unported_options_raise(section, field, value):
     cfg, data, model = _port()
@@ -305,10 +307,12 @@ def test_unported_options_raise(section, field, value):
 
 def test_unported_entry_points_raise():
     cfg, data, model = _port()
+    for run in (run_loopback_federation, run_mqtt_federation):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            run(cfg, data, model, device="cpu", warmup=True)
+    fed = run_loopback_federation(cfg, data, model, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_loopback_federation(cfg, data, model, device="cpu", warmup=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_mqtt_federation(cfg, data, model)
+        fed.health
 
 
 def test_federation_defaults_to_the_card_and_raises_without_one():

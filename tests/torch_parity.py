@@ -14,6 +14,10 @@ fedml_tpu/train/client.py ``masked_epoch_perm``)."""
 from __future__ import annotations
 
 import contextlib
+import functools
+import random
+import signal
+import socket
 
 import numpy as np
 import torch
@@ -67,6 +71,53 @@ def private_reference_programs(path):
             yield
     finally:
         restore()
+
+
+def time_limit(seconds: float):
+    """Fail the decorated test with TimeoutError once it has run
+    ``seconds`` (SIGALRM in the main thread, which interrupts a blocked
+    queue get, lock wait, join or socket read there): for tests that open a
+    socket or wait on a deadline, so a hang fails the test instead of the
+    suite."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            def on_alarm(signum, frame):
+                raise TimeoutError(f"{fn.__name__} ran past its {seconds} s limit")
+
+            old = signal.signal(signal.SIGALRM, on_alarm)
+            signal.setitimer(signal.ITIMER_REAL, seconds)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                signal.setitimer(signal.ITIMER_REAL, 0)
+                signal.signal(signal.SIGALRM, old)
+
+        return wrapper
+
+    return deco
+
+
+def free_port_block(n: int, tries: int = 200) -> int:
+    """A base port b such that b .. b+n-1 are free on 127.0.0.1 now (for
+    transports that bind ``base_port + rank``)."""
+    rng = random.Random()
+    for _ in range(tries):
+        base = rng.randrange(20000, 60000 - n)
+        socks = []
+        try:
+            for port in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no block of {n} free ports")
 
 
 # the transport tests' logistic-regression fixture
