@@ -79,7 +79,18 @@ Phases, each of which raises on failure:
     with the masking and unmasking host seconds a round; then 2 rounds at
     batch 20 under a plan that drops one client of each cohort, with a
     deadline and min_clients = 9: each round closes on 9 uploads, the
-    faults/* counters are exact and the losses finite.
+    faults/* counters are exact and the losses finite;
+14. the command line (``phase_cli``): ``python -m fedml_tpu_torch`` on the
+    north-star robust configuration (median, 2 rounds) as a subprocess,
+    exiting 0 with Test/Acc above chance, summary.json and the
+    checkpoint; then through ``cli.main`` in process, with cuDNN's
+    deterministic algorithms, 4 rounds straight against 2 rounds and
+    ``--resume`` to 4 — the resumed rows and final vars bit-equal, K1
+    launched exactly 8 times a round in each call (the count zeroed just
+    before the call and read just after); and a FedAdam loopback
+    federation through the CLI with finite losses. A ``[cli]`` JSON line
+    gives each run's warm round time beside phase 4's, a checkpoint
+    write's seconds and ``registry.load``'s.
 
 Then it prints each phase's seconds (``phase_s``), the kernels' JSON line,
 the ``nvidia-smi`` line, and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -96,6 +107,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 C_GRID = (3, 4, 10, 16, 17, 33, 64, 65, 128, 200, 1000)
 D_GRID = (1, 700, 1_690_046)
@@ -426,13 +438,14 @@ def _north_star(rounds: int, num_clients: int = 128, per_round: int = COHORT):
 
 
 def phase_main_path(device="cuda", num_clients=128, per_round=COHORT):
-    """RobustFedAvgAPI on the north-star config; returns the K1 launches."""
+    """RobustFedAvgAPI on the north-star config; returns the K1 launches
+    and each defense's warm round times (rounds after the first)."""
     from fedml_tpu_torch.algorithms import RobustFedAvgAPI
     from fedml_tpu_torch.ops import robust_stats as rs
     from fedml_tpu_torch.robustness import RobustConfig
 
     runs = (("median", MEDIAN_ROUNDS, {}), ("trimmed_mean", TRIMMED_ROUNDS, {"num_byzantine": 1}))
-    launches_per_run = {}
+    launches_per_run, warm_round_s = {}, {}
     rs.LAUNCHES[rs.KERNEL_NAME] = 0  # zeroed just before the main path
     for defense, rounds, extra in runs:
         cfg, data, model = _north_star(rounds, num_clients, per_round)
@@ -443,6 +456,7 @@ def phase_main_path(device="cuda", num_clients=128, per_round=COHORT):
         api.train()
         launches_per_run[defense] = rs.LAUNCHES[rs.KERNEL_NAME] - before
         rows = api.history
+        warm_round_s[defense] = [row["round_time_s"] for row in rows[1:]]
         for row in rows:
             for key in ("Train/Loss", "Test/Loss"):
                 if not math.isfinite(row[key]):
@@ -453,8 +467,9 @@ def phase_main_path(device="cuda", num_clients=128, per_round=COHORT):
         if launches_per_run[defense] != want:
             raise AssertionError(f"{defense}: {launches_per_run[defense]} K1 launches, want {want}")
     launches = rs.LAUNCHES[rs.KERNEL_NAME]  # read just after
-    log(json.dumps({"main_path_k1_launches": launches, "per_run": launches_per_run}))
-    return launches
+    log(json.dumps({"main_path_k1_launches": launches, "per_run": launches_per_run,
+                    "warm_round_s": warm_round_s}))
+    return launches, warm_round_s
 
 
 def phase_large_cohort(device="cuda", num_clients=128, per_round=LARGE_COHORT):
@@ -1196,6 +1211,166 @@ def phase_faults_secagg(smi: str, device="cuda", num_clients=128, per_round=COHO
     return report
 
 
+def _cli_argv(log_dir, checkpoint_path, rounds: int, num_clients: int, per_round: int,
+              *extra) -> list:
+    """python -m fedml_tpu_torch's options for the north-star robust run."""
+    return ["--algorithm", "fedavg_robust", "--defense", "median", "--model", "cnn",
+            "--dataset", "femnist_synth", "--client_num_in_total", str(num_clients),
+            "--client_num_per_round", str(per_round), "--batch_size", "20", "--epochs", "1",
+            "--lr", "0.1", "--comm_round", str(rounds), "--log_dir", str(log_dir),
+            "--checkpoint_path", str(checkpoint_path), *extra]
+
+
+def _rows(log_dir) -> list:
+    """The round rows of a run's metrics.jsonl."""
+    lines = (Path(log_dir) / "metrics.jsonl").read_text().splitlines()
+    return [row for row in map(json.loads, lines) if "Test/Acc" in row or "Train/Loss" in row]
+
+
+def phase_cli(smi: str, main_warm_s=None, device="cuda", num_clients=128,
+              per_round=COHORT) -> dict:
+    """python -m fedml_tpu_torch, the port's command line (phase 14):
+
+    1. the north-star robust run (median, 2 rounds) as a subprocess: exit
+       0, the final row as JSON on its last line, summary.json and the
+       checkpoint written, Test/Acc above chance;
+    2. in process through ``cli.main``, with cuDNN's deterministic
+       algorithms: 4 rounds straight, then 2 rounds and ``--resume`` to 4
+       from their checkpoint; the resumed rows of rounds 2-3 and final
+       vars bit-equal to the straight run's, and each call launching K1
+       exactly 8 times a round (the count zeroed just before each call and
+       read just after); the straight run's rows and final vars bit-equal
+       to phase 4's RobustFedAvgAPI built without the CLI for the same 4
+       rounds, so the entry point's defaults drive the same computation;
+    3. a FedAdam loopback federation through the CLI (server lr 0.05, the
+       same cohort, batch 20, 2 rounds), its losses finite.
+
+    Prints the ``[cli]`` line: each run's warm round time beside phase 4's,
+    a checkpoint write's seconds and registry.load's for femnist_synth.
+    ``device="cpu"`` rehearses it (step 1 in process, no K1 launches).
+    Returns the K1 launches of step 2's calls."""
+    import tempfile
+
+    import torch
+
+    from fedml_tpu_torch import cli
+    from fedml_tpu_torch.algorithms import RobustFedAvgAPI
+    from fedml_tpu_torch.data import registry
+    from fedml_tpu_torch.ops import robust_stats as rs
+    from fedml_tpu_torch.robustness import RobustConfig
+    from fedml_tpu_torch.utils import save_checkpoint
+
+    per_round_k1 = 8 if device == "cuda" else 0
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="fedml_cli_") as tmp:
+        tmp = Path(tmp)
+        argv = _cli_argv(tmp / "logs", tmp / "ck", 2, num_clients, per_round)
+        t0 = time.perf_counter()
+        if device == "cuda":
+            out = subprocess.run([sys.executable, "-m", "fedml_tpu_torch", *argv],
+                                 cwd=Path(__file__).resolve().parent, capture_output=True,
+                                 text=True, timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"python -m fedml_tpu_torch exited {out.returncode}: "
+                                     f"{out.stderr[-3000:]}")
+            final = json.loads(out.stdout.strip().splitlines()[-1])
+        else:
+            cli.main(argv, device=device)
+            final = _rows(tmp / "logs")[-1]
+        report["subprocess_s"] = time.perf_counter() - t0
+        if not ((tmp / "logs" / "summary.json").is_file() and (tmp / "ck.npz").is_file()):
+            raise AssertionError("python -m fedml_tpu_torch left no summary.json or ck.npz")
+        if not final.get("Test/Acc", 0.0) > 1.0 / 62:
+            raise AssertionError(f"python -m fedml_tpu_torch: Test/Acc not above chance: {final}")
+        report["subprocess_final_row"] = final
+
+        dev = None if device == "cuda" else device
+        launches, apis = {}, {}
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            for name, rounds, ck, extra in (("straight", 4, "ck_straight", ()),
+                                            ("first_2", 2, "ck_resume", ()),
+                                            ("resumed", 4, "ck_resume", ("--resume",))):
+                args = _cli_argv(tmp / name, tmp / ck, rounds, num_clients, per_round, *extra)
+                rs.LAUNCHES[rs.KERNEL_NAME] = 0  # zeroed just before the call
+                apis[name] = cli.main(args, device=dev)
+                launches[name] = rs.LAUNCHES[rs.KERNEL_NAME]  # read just after
+                want = per_round_k1 * (2 if name == "resumed" else rounds)
+                if launches[name] != want:
+                    raise AssertionError(f"cli {name}: {launches[name]} K1 launches, want {want}")
+            # phase 4's run, built without the CLI, for the same 4 rounds
+            cfg, data, model = _north_star(4, num_clients, per_round)
+            robust = RobustConfig(defense_type="median")
+            apis["api"] = RobustFedAvgAPI(cfg, data, model, robust=robust, device=dev)
+            apis["api"].train()
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        strip = lambda row: {k: v for k, v in row.items() if k != "round_time_s"}  # noqa: E731
+        straight, resumed, direct = apis["straight"], apis["resumed"], apis["api"]
+        # the entry point drives the computation phase 4 drives: its
+        # defaults build the north-star config, data, model and seed
+        if [strip(r) for r in straight.history] != [strip(r) for r in direct.history]:
+            raise AssertionError(f"cli: straight rows {straight.history} != RobustFedAvgAPI "
+                                 f"rows {direct.history}")
+        for k, v in direct.global_vars.items():
+            if not torch.equal(straight.global_vars[k], v):
+                raise AssertionError(f"cli: straight vars differ from RobustFedAvgAPI's at {k}")
+        report["cli_vs_api"] = "rows and final vars of 4 rounds bit-equal to RobustFedAvgAPI's"
+        if [strip(r) for r in resumed.history] != [strip(r) for r in straight.history[2:]]:
+            raise AssertionError(f"cli: resumed rows {resumed.history} != straight rows "
+                                 f"{straight.history[2:]}")
+        for k, v in straight.global_vars.items():
+            if not torch.equal(resumed.global_vars[k], v):
+                raise AssertionError(f"cli: resumed vars differ from the straight run's at {k}")
+        report["resume"] = "rows of rounds 2-3 and final vars bit-equal to 4 straight rounds"
+        report["k1_launches"] = launches
+
+        t0 = time.perf_counter()
+        cli.main(["--algorithm", "fedopt", "--server_optimizer", "adam", "--server_lr", "0.05",
+                  "--runtime", "loopback", "--model", "cnn", "--dataset", "femnist_synth",
+                  "--client_num_in_total", str(num_clients), "--client_num_per_round",
+                  str(per_round), "--batch_size", "20", "--lr", "0.1", "--comm_round", "2",
+                  "--log_dir", str(tmp / "loopback")], device=dev)
+        loop_s = time.perf_counter() - t0
+        loop_rows = _rows(tmp / "loopback")
+        if len(loop_rows) != 2 or not all(math.isfinite(r["Test/Loss"]) for r in loop_rows):
+            raise AssertionError(f"cli loopback: rows {loop_rows}")
+
+        cfg = straight.config
+        save_s = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            save_checkpoint(str(tmp / f"timed_{i}"), straight.global_vars, round_idx=4,
+                            sched_state=straight.scheduler.state_dict())
+            save_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        registry.load(cfg)
+        load_s = time.perf_counter() - t0
+        ck_bytes = (tmp / "timed_0.npz").stat().st_size
+
+    report.update({
+        "warm_round_s": {
+            "cli_straight": [r["round_time_s"] for r in straight.history[1:]],
+            "cli_resumed": [r["round_time_s"] for r in resumed.history],
+            "phase4_median_api": main_warm_s,
+            "cli_loopback_fedadam": loop_rows[1]["t_s"] - loop_rows[0]["t_s"],
+        },
+        "notes": "cli_loopback_fedadam is t_s of round 1 less round 0's: it holds round 0's "
+                 "eval; the other round times leave eval out",
+        "loopback_rows": loop_rows,
+        "loopback_wall_s": loop_s,
+        "checkpoint_write_s": save_s,
+        "checkpoint_bytes": ck_bytes,
+        "registry_load_femnist_synth_s": load_s,
+        "registry_clients": num_clients,
+        "device": device,
+        "card": smi,
+    })
+    log("[cli] " + json.dumps(report))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1214,7 +1389,7 @@ def main() -> int:
     timed(phase_build)
     max_err = timed(phase_k1_parity)
     t, bound_ms, bound_by, large = timed(phase_k1_timing, name, smi)
-    launches = timed(phase_main_path)
+    launches, main_warm_s = timed(phase_main_path)
     large_cohort_launches = timed(phase_large_cohort)
     timed(phase_profile_round)
     timed(phase_card_vs_cpu)
@@ -1226,6 +1401,7 @@ def main() -> int:
     timed(phase_lm_card_vs_cpu)
     transport_launches = timed(phase_transport, smi)
     timed(phase_faults_secagg, smi)
+    cli_launches = timed(phase_cli, smi, main_warm_s["median"])
     log(json.dumps({"phase_s": phase_s}))
 
     from fedml_tpu_torch.ops import flash_attention as fa
@@ -1267,6 +1443,8 @@ def main() -> int:
         "c128_bound_by": large["bound_by"],
         "c128_library_ms": large["sort_window_median_ms"],
         "large_cohort_launches": large_cohort_launches,
+        # launches through python -m fedml_tpu_torch's cli.main (phase 14)
+        "cli_launches": cli_launches,
     }] + flash_rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

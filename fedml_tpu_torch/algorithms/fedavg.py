@@ -158,8 +158,13 @@ class FedAvgAPI:
         self.round_fn = self._build_round_fn(local_train_fn)
         self.eval_fn = make_eval_fn(model, task)
         self.history: list = []
+        # --resume sets global_vars, start_round (and a FedOpt's
+        # server_opt_state) after construction; train() continues from there
         self.start_round = 0
-        self.scheduler = ClientScheduler.from_config(config, num_clients=data.num_clients)
+        # each fresh cohort goes to log_fn (summary.json's scheduler/* keys)
+        self.scheduler = ClientScheduler.from_config(
+            config, num_clients=data.num_clients, data=data, log_fn=self.log_fn
+        )
         self._store = None
         if config.data.device_cache:
             try:
@@ -219,7 +224,8 @@ class FedAvgAPI:
         with fp32_math():
             return metrics_to_loss_acc(self.eval_fn(self.global_vars, *self._eval_batches()))
 
-    def _log_round(self, round_idx: int, metrics: Dict[str, float], round_time_s: float) -> dict:
+    def _log_round(self, round_idx: int, sampled, metrics: Dict[str, float],
+                   round_time_s: float) -> dict:
         count = float(metrics["count"])
         row = {
             "round": round_idx,
@@ -227,6 +233,10 @@ class FedAvgAPI:
             "Train/Acc": float(metrics["correct"]) / max(count, 1e-9),
             "round_time_s": round_time_s,
         }
+        # the loss map of the checkpoint's sched slot: the cohort mean, as
+        # the reference's simulator reports it
+        for cid in sampled:
+            self.scheduler.report_loss(int(cid), row["Train/Loss"])
         if self._is_eval_round(round_idx):
             row["Test/Loss"], row["Test/Acc"] = self.evaluate_global()
         self.history.append(row)
@@ -247,8 +257,8 @@ class FedAvgAPI:
         final = {}
         for round_idx in range(self.start_round, self.config.fed.comm_round):
             t0 = time.perf_counter()
-            _, metrics = self.train_round(round_idx)
+            sampled, metrics = self.train_round(round_idx)
             host = torch.stack([metrics[k] for k in _METRIC_KEYS]).tolist()
             dt = time.perf_counter() - t0
-            final = self._log_round(round_idx, dict(zip(_METRIC_KEYS, host)), dt)
+            final = self._log_round(round_idx, sampled, dict(zip(_METRIC_KEYS, host)), dt)
         return final

@@ -37,10 +37,11 @@ The history row holds the reference's keys: ``round``, ``t_s`` and, on eval
 rounds, ``Test/Loss`` and ``Test/Acc``. The uploads' train loss weighted by
 their sample counts (the simulator's ΣLoss/ΣCount; None for a round whose
 uploads carried none) goes to the server's ``train_losses``, one entry a
-round. Not ported (each raises NotImplementedError naming ROADMAP.md):
-overprovisioning and the selection policies beyond ``uniform`` (in the
-scheduler), AOT warmup, the client health registry and the flight
-recorder."""
+round; each round's cohort goes to ``log_fn`` as the scheduler's
+``scheduler/policy``/``scheduler/selected`` row. Not ported (each raises
+NotImplementedError naming ROADMAP.md): overprovisioning and the
+power-of-choice and straggler-aware policies (in the scheduler), AOT
+warmup, the client health registry and the flight recorder."""
 
 from __future__ import annotations
 
@@ -79,8 +80,8 @@ Variables = Dict[str, torch.Tensor]
 
 def _check_config(config: RunConfig) -> None:
     """The reference server's constructor checks. What the port does not
-    have yet raises NotImplementedError where it is reached: selection
-    policies and overprovisioning in the scheduler, AOT warmup in
+    have yet raises NotImplementedError where it is reached: the adaptive
+    selection policies and overprovisioning in the scheduler, AOT warmup in
     :func:`run_federation`, the health registry at ``server.health``.
     Without overprovisioning a server has exactly ``client_num_per_round``
     workers, so the reference's check that ``secure_agg`` has no other
@@ -226,7 +227,7 @@ def actor_order_perm_fn(config: RunConfig, data: FederatedDataset) -> PermFn:
     (its stacked rows under :func:`seeded_perm_fn` keyed by the client
     index, the cohort taken from the scheduler) onto the simulator's
     stacked rows; padding follows, so both take the same steps."""
-    sched = ClientScheduler.from_config(config, num_clients=data.num_clients)
+    sched = ClientScheduler.from_config(config, num_clients=data.num_clients, data=data)
     actor_perm = seeded_perm_fn(config.seed)
     sizes = [len(y) for y in data.client_y]
 
@@ -272,12 +273,14 @@ class FedAvgServerManager(ServerManager):
         _check_config(config)
         self.worker_num = config.fed.client_num_per_round
         self.device = resolve_device(device)
-        self.scheduler = ClientScheduler.from_config(config, num_clients=config.fed.client_num_in_total)
+        self.log_fn = log_fn or (lambda m: None)
+        self.scheduler = ClientScheduler.from_config(
+            config, num_clients=config.fed.client_num_in_total, data=data, log_fn=self.log_fn
+        )
         super().__init__(comm, rank=0, config=config)
         self.config = config
         self.model = _own_copy(model)
         self.data = data
-        self.log_fn = log_fn or (lambda m: None)
         self.aggregator = FedAvgAggregator(self.worker_num)
         self._server_step = None
         self._server_opt_state = None

@@ -9,13 +9,22 @@ line: the same cohort gives the same [C, S, B] shapes in both packages."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
 
 def _ceil_to(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
+
+
+def concat_nonempty(parts: Sequence[np.ndarray], like: np.ndarray) -> np.ndarray:
+    """Concatenate, tolerating an all-empty list (returns a well-formed
+    (0, *feat) array shaped and typed like ``like``'s rows)."""
+    parts = [p for p in parts if len(p)]
+    if not parts:
+        return np.zeros((0,) + tuple(like.shape[1:]), like.dtype)
+    return np.concatenate(parts, axis=0)
 
 
 def _next_pow2(x: int) -> int:
@@ -60,7 +69,8 @@ class ClientBatch:
 @dataclasses.dataclass
 class FederatedDataset:
     """Host-side federated dataset: one (x, y) numpy shard per client plus a
-    central test set."""
+    central test set, and optionally one test shard per client (the file
+    loaders read them)."""
 
     name: str
     client_x: List[np.ndarray]
@@ -68,6 +78,8 @@ class FederatedDataset:
     test_x: np.ndarray
     test_y: np.ndarray
     num_classes: int
+    client_test_x: Optional[List[np.ndarray]] = None
+    client_test_y: Optional[List[np.ndarray]] = None
 
     @property
     def num_clients(self) -> int:

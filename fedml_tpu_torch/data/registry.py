@@ -1,0 +1,112 @@
+"""Dataset registry: name → FederatedDataset loader (port of
+``fedml_tpu/data/registry.py``).
+
+Ported: the synthetic datasets (``synthetic``, ``synthetic_<a>_<b>``,
+``femnist_synth``, ``shakespeare_synth``, ``shakespeare_synth_lm``) and the
+LEAF and TFF-h5 file loaders (``mnist``, ``shakespeare``, ``femnist``,
+``fed_shakespeare``, ``fed_cifar100``). The other names of ``TASKS`` raise
+NotImplementedError naming ROADMAP.md."""
+
+from __future__ import annotations
+
+import importlib
+
+from fedml_tpu_torch.data.base import FederatedDataset
+
+# dataset → training task (selects the loss and metrics)
+TASKS = {
+    "mnist": "classification",
+    "femnist": "classification",
+    "femnist_synth": "classification",
+    "shakespeare_synth": "classification",  # next-char from 80-char window
+    "shakespeare_synth_lm": "nwp",  # per-position next-char (transformer LM)
+    "shakespeare": "classification",  # next-char from 80-char window
+    "fed_shakespeare": "nwp",
+    "fed_cifar100": "classification",
+    "cifar10": "classification",
+    "cifar100": "classification",
+    "cinic10": "classification",
+    "stackoverflow_lr": "tag",
+    "stackoverflow_nwp": "nwp",
+    "synthetic": "classification",
+    "seg_synth": "segmentation",
+    "imagenet": "classification",
+    "landmarks": "classification",
+}
+
+# datasets read from files on disk: name -> (module, loader); every loader
+# takes (data_dir, max_clients=...)
+_FILE_LOADERS = {
+    "mnist": ("fedml_tpu_torch.data.leaf", "load_mnist"),
+    "femnist": ("fedml_tpu_torch.data.tff_h5", "load_femnist"),
+    "shakespeare": ("fedml_tpu_torch.data.leaf", "load_shakespeare"),
+    "fed_shakespeare": ("fedml_tpu_torch.data.tff_h5", "load_fed_shakespeare"),
+    "fed_cifar100": ("fedml_tpu_torch.data.tff_h5", "load_fed_cifar100"),
+}
+
+# the reference's other names, by the ROADMAP.md item that brings them
+_NOT_PORTED = {
+    "seg_synth": 3,  # the segmentation task
+    "cifar10": 7,
+    "cifar100": 7,
+    "cinic10": 7,
+    "stackoverflow_lr": 7,
+    "stackoverflow_nwp": 7,
+    "imagenet": 7,
+    "landmarks": 7,
+}
+
+
+def task_for_dataset(name: str) -> str:
+    base = name.lower()
+    if base.startswith("synthetic"):
+        return "classification"
+    return TASKS.get(base, "classification")
+
+
+def load(config) -> FederatedDataset:
+    """``config`` is a RunConfig (uses .data.*, .fed.client_num_in_total
+    and .seed)."""
+    d = config.data
+    name = d.dataset.lower()
+    n_clients = config.fed.client_num_in_total
+
+    if name == "synthetic":
+        from fedml_tpu_torch.data.synthetic import synthetic_classification
+
+        return synthetic_classification(
+            num_clients=n_clients,
+            partition_method=d.partition_method,
+            partition_alpha=d.partition_alpha,
+            seed=config.seed,
+        )
+    if name.startswith("synthetic_"):
+        # synthetic_<alpha>_<beta>, e.g. synthetic_1_1
+        from fedml_tpu_torch.data.synthetic import synthetic_fedprox
+
+        parts = name.split("_")
+        alpha, beta = float(parts[1]), float(parts[2])
+        return synthetic_fedprox(alpha=alpha, beta=beta, num_clients=n_clients, seed=config.seed)
+    if name == "femnist_synth":
+        from fedml_tpu_torch.data.femnist_synth import femnist_synthetic
+
+        return femnist_synthetic(num_clients=n_clients, seed=config.seed)
+    if name in ("shakespeare_synth", "shakespeare_synth_lm"):
+        from fedml_tpu_torch.data.synthetic import synthetic_shakespeare
+
+        return synthetic_shakespeare(
+            num_clients=n_clients, seed=config.seed, seq_targets=name.endswith("_lm")
+        )
+    if name in _FILE_LOADERS:
+        mod_name, fn_name = _FILE_LOADERS[name]
+        fn = getattr(importlib.import_module(mod_name), fn_name)
+        return fn(d.data_dir, max_clients=n_clients or None)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"dataset {d.dataset!r} is not ported yet (ROADMAP.md §1 item {_NOT_PORTED[name]})"
+        )
+    available = ", ".join(
+        ["synthetic", "synthetic_<a>_<b>", "femnist_synth", "shakespeare_synth",
+         "shakespeare_synth_lm"] + sorted(_FILE_LOADERS)
+    )
+    raise KeyError(f"unknown dataset {d.dataset!r}; available: {available}")

@@ -1,15 +1,18 @@
 """Synthetic federated datasets (port of ``fedml_tpu/data/synthetic.py``:
-``synthetic_classification`` with the IID partition, and
-``synthetic_shakespeare``).
+``synthetic_classification``, ``synthetic_shakespeare`` and the FedProx
+family ``synthetic_fedprox``; the segmentation data is still to port,
+ROADMAP.md).
 
-A copy of the reference's numpy generator: the same seed gives
-byte-identical arrays (tests/test_torch_fed_transformer.py)."""
+A copy of the reference's numpy generators, drawing in the reference's
+order: the same seed gives byte-identical arrays
+(tests/test_torch_partition.py, tests/test_torch_fed_transformer.py)."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from fedml_tpu_torch.data.base import FederatedDataset
+from fedml_tpu_torch.partition.noniid import homo_partition, lda_partition
 
 
 def synthetic_classification(
@@ -22,13 +25,12 @@ def synthetic_classification(
     seed: int = 0,
     ragged: bool = True,
 ) -> FederatedDataset:
-    """Gaussian-blob classification data, split IID across clients
-    (``partition_method="homo"``: shuffle, split evenly). With ``ragged``
-    each shard is trimmed to a client-specific 50-100% of its size."""
-    if partition_method != "homo":
-        raise NotImplementedError(
-            f"partition_method {partition_method!r} is not ported yet (ROADMAP.md); the port has 'homo'"
-        )
+    """Gaussian-blob classification data, split across clients:
+    ``partition_method="homo"`` shuffles and splits evenly, any other value
+    is the Dirichlet(``partition_alpha``) label-skew partition. With
+    ``ragged`` each IID shard is trimmed to a client-specific 50-100% of its
+    size (drawn from ``rng`` after the partition); the Dirichlet shards are
+    ragged already and are not trimmed."""
     rng = np.random.default_rng(seed)
     n_total = num_clients * samples_per_client
     dim = int(np.prod(feat_shape))
@@ -36,11 +38,14 @@ def synthetic_classification(
     y = rng.integers(0, num_classes, size=n_total).astype(np.int32)
     x = (means[y] + rng.normal(0.0, 1.0, size=(n_total, dim))).astype(np.float32)
     x = x.reshape((n_total,) + tuple(feat_shape))
-    parts = np.array_split(rng.permutation(n_total), num_clients)
+    if partition_method == "homo":
+        idx_map = homo_partition(n_total, num_clients, rng)
+    else:
+        idx_map = lda_partition(y, num_clients, partition_alpha, seed=seed)
     client_x, client_y = [], []
-    for part in parts:
-        idxs = np.sort(part)
-        if ragged:
+    for i in range(num_clients):
+        idxs = idx_map[i]
+        if ragged and partition_method == "homo":
             idxs = idxs[: max(2, int(len(idxs) * rng.uniform(0.5, 1.0)))]
         client_x.append(x[idxs])
         client_y.append(y[idxs])
@@ -104,4 +109,48 @@ def synthetic_shakespeare(
         test_x=xt,
         test_y=yt,
         num_classes=vocab_size,
+    )
+
+
+def synthetic_fedprox(
+    alpha: float = 1.0,
+    beta: float = 1.0,
+    num_clients: int = 30,
+    num_classes: int = 10,
+    dim: int = 60,
+    seed: int = 0,
+    min_samples: int = 10,
+    max_samples: int = 200,
+) -> FederatedDataset:
+    """FedProx-style synthetic(α, β): per-client logistic models drawn
+    around client-specific means. α controls model heterogeneity, β data
+    heterogeneity; client sizes are power-law, and each client's last 16
+    samples go to the central test set."""
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(
+        (rng.lognormal(4, 2, num_clients)).astype(int), min_samples, max_samples
+    )
+    B = rng.normal(0, beta, num_clients)
+    diag = np.array([(j + 1) ** -1.2 for j in range(dim)])
+    client_x, client_y = [], []
+    test_x, test_y = [], []
+    for i in range(num_clients):
+        u = rng.normal(B[i], 1.0, dim)
+        W = rng.normal(0, alpha, (dim, num_classes)) + rng.normal(0, 1) * alpha
+        b = rng.normal(0, alpha, num_classes)
+        n = int(sizes[i]) + 16
+        xx = rng.multivariate_normal(u, np.diag(diag), n).astype(np.float32)
+        logits = xx @ W + b
+        yy = np.argmax(logits, axis=1).astype(np.int32)
+        client_x.append(xx[:-16])
+        client_y.append(yy[:-16])
+        test_x.append(xx[-16:])
+        test_y.append(yy[-16:])
+    return FederatedDataset(
+        name=f"synthetic_{alpha}_{beta}",
+        client_x=client_x,
+        client_y=client_y,
+        test_x=np.concatenate(test_x),
+        test_y=np.concatenate(test_y),
+        num_classes=num_classes,
     )

@@ -1,0 +1,9 @@
+"""Non-IID partitioners (port of ``fedml_tpu/partition/``, the Dirichlet
+label-skew partition)."""
+
+from fedml_tpu_torch.partition.noniid import (  # noqa: F401
+    homo_partition,
+    lda_partition,
+    partition_class_samples_with_dirichlet,
+    record_data_stats,
+)

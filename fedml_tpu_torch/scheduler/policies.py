@@ -1,74 +1,258 @@
-"""Client selection (port of ``fedml_tpu/scheduler/policies.py``, the
-``uniform`` policy only).
+"""Client selection (port of ``fedml_tpu/scheduler/policies.py``: the
+``uniform`` and ``weighted`` policies, and :class:`ClientScheduler` with
+its selection memo and checkpoint state).
 
-``uniform`` is the reference-parity draw: ``np.random.seed(round_idx)`` then
-``choice`` without replacement — it deliberately ignores the run seed, so
-the cohorts equal the reference's round for round. The weighted,
-power-of-choice and straggler-aware policies and overprovisioning are
-still to port (ROADMAP.md); fault plans are in scheduler/faults.py."""
+- ``uniform`` is the reference-parity draw: ``np.random.seed(round_idx)``
+  then ``choice`` without replacement. It deliberately ignores the run
+  seed, so the cohorts equal the reference's round for round.
+- ``weighted`` draws inclusion proportional to local sample counts from a
+  per-round generator over (seed, round, salt): the reference's stream, so
+  its cohorts are the reference's too.
+
+Every policy is a pure function of (seed, round, policy inputs). The
+power-of-choice and straggler-aware policies, overprovisioning, and the
+population tier's O(cohort) draws at ``ocohort_threshold`` clients and
+above are still to port (ROADMAP.md) and raise; fault plans are in
+scheduler/faults.py."""
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
+
 import numpy as np
 
-POLICIES = ("uniform",)
+POLICIES = ("uniform", "weighted")
+_ROADMAP_ITEM = {"power_of_choice": 3, "straggler_aware": 3}
 
 
-def _uniform(round_idx: int, num_clients: int, k: int) -> np.ndarray:
-    if k > num_clients:
-        raise ValueError(
-            f"client_num_per_round={k} exceeds client_num_in_total={num_clients}"
-        )
-    if num_clients == k:
-        return np.arange(num_clients)
+class BoundedLossMap:
+    """Insertion-ordered {client id: last loss} bounded at ``capacity``
+    entries: setting a key refreshes its position, and past capacity the
+    entry written least recently is dropped (a copy of the reference's
+    ``population.active.BoundedLossMap``, the dict surface the policies
+    read)."""
+
+    def __init__(self, capacity: int = 65536):
+        if capacity < 1:
+            raise ValueError("BoundedLossMap capacity must be >= 1")
+        self.capacity = int(capacity)
+        self._d: Dict[int, float] = {}
+
+    def __setitem__(self, key: int, value: float) -> None:
+        k = int(key)
+        if k in self._d:
+            del self._d[k]  # re-insert at the fresh end
+        self._d[k] = float(value)
+        while len(self._d) > self.capacity:
+            self._d.pop(next(iter(self._d)))
+
+    def get(self, key: int, default=None):
+        return self._d.get(int(key), default)
+
+    def __iter__(self) -> Iterator[int]:
+        return iter(self._d)
+
+    def items(self):
+        return self._d.items()
+
+
+@dataclasses.dataclass
+class SelectionContext:
+    """What a policy may consult beyond (round, k)."""
+
+    seed: int = 0
+    num_clients: int = 0
+    # per-client local dataset sizes, indexed by client id (weighted)
+    sample_counts: Optional[np.ndarray] = None
+    # last reported local train loss per client id
+    losses: Optional[BoundedLossMap] = None
+
+
+def _rng(ctx: SelectionContext, round_idx: int, salt: int = 0) -> np.random.Generator:
+    """A policy's per-round generator: a SeedSequence over (seed, round,
+    salt), independent of call order."""
+    return np.random.default_rng([int(ctx.seed) & 0x7FFFFFFF, int(round_idx), int(salt)])
+
+
+def _size_probs(ctx: SelectionContext) -> Optional[np.ndarray]:
+    if ctx.sample_counts is None:
+        return None
+    c = np.asarray(ctx.sample_counts, np.float64)
+    if len(c) != ctx.num_clients or c.sum() <= 0:
+        return None
+    return c / c.sum()
+
+
+def _weighted_draw(rng, n: int, size: int, p: Optional[np.ndarray]) -> np.ndarray:
+    """``rng.choice(n, size, replace=False, p=p)`` that tolerates
+    zero-weight entries (a zero-sample shard of the Dirichlet partition):
+    when the request exceeds the non-zero support, every weighted client is
+    taken and the rest fill uniformly from the zero-weight ones."""
+    if p is None:
+        return rng.choice(n, size=size, replace=False)
+    nz = np.flatnonzero(p)
+    if size <= len(nz):
+        return rng.choice(n, size=size, replace=False, p=p)
+    zeros = np.setdiff1d(np.arange(n), nz)
+    fill = rng.choice(zeros, size=size - len(nz), replace=False)
+    return np.concatenate([rng.permutation(nz), fill])
+
+
+def _uniform(round_idx: int, k: int, ctx: SelectionContext) -> np.ndarray:
+    n = ctx.num_clients
+    if k > n:
+        raise ValueError(f"client_num_per_round={k} exceeds client_num_in_total={n}")
+    if n == k:
+        return np.arange(n)
     np.random.seed(round_idx)
-    return np.random.choice(range(num_clients), k, replace=False)
+    return np.random.choice(range(n), k, replace=False)
+
+
+def _weighted(round_idx: int, k: int, ctx: SelectionContext) -> np.ndarray:
+    n = ctx.num_clients
+    return _weighted_draw(_rng(ctx, round_idx, salt=1), n, min(k, n), _size_probs(ctx))
+
+
+_SELECT: Dict[str, Callable[[int, int, SelectionContext], np.ndarray]] = {
+    "uniform": _uniform,
+    "weighted": _weighted,
+}
 
 
 def _check_policy(policy: str) -> None:
-    if policy not in POLICIES:
+    if policy in _ROADMAP_ITEM:
         raise NotImplementedError(
-            f"selection policy {policy!r} is not ported yet (ROADMAP.md); "
-            f"the port has {POLICIES}"
+            f"selection policy {policy!r} is not ported yet (ROADMAP.md §1 item "
+            f"{_ROADMAP_ITEM[policy]}); the port has {POLICIES}"
         )
+    if policy not in POLICIES:
+        raise ValueError(f"unknown selection policy {policy!r}; the port has {POLICIES}")
 
 
 def select_clients(
     round_idx: int, num_clients: int, k: int, policy: str = "uniform"
 ) -> np.ndarray:
-    """One round's cohort through the named policy."""
+    """One round's cohort through the named policy (run seed 0, no sample
+    counts: ``weighted`` then draws uniformly from its own stream)."""
     _check_policy(policy)
-    return _uniform(int(round_idx), int(num_clients), int(k))
+    ctx = SelectionContext(num_clients=int(num_clients))
+    return _SELECT[policy](int(round_idx), int(k), ctx)
 
 
 class ClientScheduler:
-    """Per-run cohort selection: the configured policy over a fixed
-    population and cohort size. The uniform draw is a pure function of the
-    round, so no per-round memo is needed."""
+    """The per-run selection: the configured policy over a fixed
+    population and cohort size, a per-round memo and a bounded loss map.
 
-    def __init__(self, num_clients: int, k: int, policy: str = "uniform"):
+    ``select(r)`` is memoized, so the round loop and a checkpoint writer see
+    one decision a round, and each fresh decision goes to ``on_select``
+    (the ``scheduler/policy`` and ``scheduler/selected`` rows of
+    summary.json). The memo of the last ``selection_memo_rounds`` rounds
+    and the loss map are the checkpoint's ``sched`` slot
+    (:meth:`state_dict`), in the reference's layout."""
+
+    def __init__(
+        self,
+        num_clients: int,
+        k: int,
+        policy: str = "uniform",
+        seed: int = 0,
+        sample_counts: Optional[Sequence[int]] = None,
+        on_select: Optional[Callable[[int, np.ndarray], None]] = None,
+        loss_map_capacity: int = 65536,
+        selection_memo_rounds: int = 64,
+    ):
         _check_policy(policy)
         self.num_clients = int(num_clients)
         self.k = int(k)
         self.policy_name = policy
+        self._ctx = SelectionContext(
+            seed=int(seed),
+            num_clients=self.num_clients,
+            sample_counts=None if sample_counts is None else np.asarray(sample_counts, np.int64),
+            losses=BoundedLossMap(loss_map_capacity),
+        )
+        self._memo_rounds = int(selection_memo_rounds)
+        self._on_select = on_select
+        self._selections: Dict[int, np.ndarray] = {}
 
     @classmethod
-    def from_config(cls, config, num_clients: int) -> "ClientScheduler":
+    def from_config(cls, config, num_clients: int, data=None, log_fn=None) -> "ClientScheduler":
+        """Build from a RunConfig. ``data`` (a FederatedDataset) gives the
+        weighted policy its sample counts when its client count is the
+        federation's; ``log_fn`` receives each round's selection row."""
         if config.fed.overprovision_factor != 1.0:
-            raise NotImplementedError(
-                "overprovision_factor is not ported yet (ROADMAP.md)"
-            )
-        if num_clients >= config.population.ocohort_threshold:
+            raise NotImplementedError("overprovision_factor is not ported yet (ROADMAP.md §1 item 3)")
+        pop = config.population
+        if num_clients >= pop.ocohort_threshold:
             # the reference draws such populations through its packed
-            # population index, another stream than np.random.choice
+            # population index, another stream than these draws
             raise NotImplementedError(
-                f"populations of {config.population.ocohort_threshold}+ clients "
-                "(the population tier) are not ported yet (ROADMAP.md)"
+                f"populations of {pop.ocohort_threshold}+ clients (the population tier) are "
+                "not ported yet (ROADMAP.md §1 item 9)"
             )
-        return cls(num_clients, config.fed.client_num_per_round, config.fed.selection)
+        policy = config.fed.selection
+        counts = None
+        if data is not None and data.num_clients == num_clients:
+            counts = np.asarray(data.train_sample_counts, np.int64)
+        on_select = None
+        if log_fn is not None:
+            on_select = lambda r, sel: log_fn({  # noqa: E731
+                "round": int(r),
+                "scheduler/policy": policy,
+                "scheduler/selected": [int(c) for c in sel],
+            })
+        return cls(
+            num_clients, config.fed.client_num_per_round, policy=policy, seed=config.seed,
+            sample_counts=counts, on_select=on_select,
+            loss_map_capacity=pop.loss_map_capacity,
+            selection_memo_rounds=pop.selection_memo_rounds,
+        )
 
     def select(self, round_idx: int) -> np.ndarray:
-        return np.asarray(
-            select_clients(round_idx, self.num_clients, self.k, self.policy_name),
-            np.int64,
-        )
+        """This round's cohort (memoized; the live memo keeps the most recent
+        ``max(selection_memo_rounds, 64)`` rounds — evicted rounds re-derive,
+        every policy being a pure function of (seed, round))."""
+        r = int(round_idx)
+        if r in self._selections:
+            return self._selections[r]
+        sel = np.asarray(_SELECT[self.policy_name](r, self.k, self._ctx), np.int64)
+        self._selections[r] = sel
+        cap = max(self._memo_rounds, 64)
+        while len(self._selections) > cap:
+            del self._selections[next(iter(self._selections))]
+        if self._on_select is not None:
+            self._on_select(r, sel)
+        return sel
+
+    def report_loss(self, client_id: int, loss: float) -> None:
+        """Record a client's last observed local train loss."""
+        if loss is None or not np.isfinite(loss):
+            return
+        self._ctx.losses[int(client_id)] = float(loss)
+
+    def selections(self) -> Dict[int, List[int]]:
+        """Memoized decisions so far, {round: [ids]}."""
+        return {r: [int(c) for c in sel] for r, sel in sorted(self._selections.items())}
+
+    def state_dict(self) -> dict:
+        """The checkpoint's ``sched`` slot: the last ``selection_memo_rounds``
+        rounds' selections and the loss map, as numpy arrays."""
+        rounds = sorted(self._selections)[-self._memo_rounds:]
+        loss_ids = sorted(self._ctx.losses)
+        return {
+            "rounds": np.asarray(rounds, np.int64),
+            "selections": [np.asarray(self._selections[r], np.int64) for r in rounds],
+            "loss_ids": np.asarray(loss_ids, np.int64),
+            "loss_vals": np.asarray([self._ctx.losses.get(i) for i in loss_ids], np.float64),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        rounds = [int(r) for r in np.asarray(state["rounds"]).ravel()]
+        self._selections = {
+            r: np.asarray(sel, np.int64) for r, sel in zip(rounds, state["selections"])
+        }
+        losses = BoundedLossMap(self._ctx.losses.capacity)
+        for i, v in zip(np.asarray(state["loss_ids"]).ravel(), np.asarray(state["loss_vals"]).ravel()):
+            losses[int(i)] = float(v)
+        self._ctx.losses = losses

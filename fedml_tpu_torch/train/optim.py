@@ -31,32 +31,57 @@ class GradientTransformation(NamedTuple):
     update: Callable
 
 
+# The states have optax's layout (the same NamedTuples, fields and nesting),
+# so a checkpoint holds a server optimizer's state as the reference's
+# (utils/checkpoint.py).
+
+
+class EmptyState(NamedTuple):
+    """The state of a stateless transformation."""
+
+
+class TraceState(NamedTuple):
+    trace: Params
+
+
+class ScaleByRssState(NamedTuple):
+    sum_of_squares: Params
+
+
 def _zeros_like(params: Params) -> Params:
     return {k: torch.zeros_like(v) for k, v in params.items()}
+
+
+def _empty(params) -> EmptyState:
+    return EmptyState()
+
+
+def identity() -> GradientTransformation:
+    return GradientTransformation(_empty, lambda g, state, params=None: (g, state))
 
 
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     def update(g, state, params):
         return {k: g[k] + weight_decay * params[k] for k in g}, state
 
-    return GradientTransformation(lambda params: (), update)
+    return GradientTransformation(_empty, update)
 
 
 def trace(decay: float) -> GradientTransformation:
     """Heavy-ball momentum: ``t = g + decay·t``; the update is ``t``."""
 
     def update(g, state, params=None):
-        new = {k: g[k] + decay * state[k] for k in g}
-        return new, new
+        new = {k: g[k] + decay * state.trace[k] for k in g}
+        return new, TraceState(new)
 
-    return GradientTransformation(_zeros_like, update)
+    return GradientTransformation(lambda params: TraceState(_zeros_like(params)), update)
 
 
 def scale(step_size: float) -> GradientTransformation:
     def update(g, state, params=None):
         return {k: step_size * v for k, v in g.items()}, state
 
-    return GradientTransformation(lambda params: (), update)
+    return GradientTransformation(_empty, update)
 
 
 def _full_like(params: Params, value: float) -> Params:
@@ -151,15 +176,15 @@ def scale_by_rss(initial_accumulator_value: float = 0.1, eps: float = 1e-7) -> G
     ``g · rsqrt(t + eps)`` where t > 0, else 0."""
 
     def init(params):
-        return _full_like(params, initial_accumulator_value)
+        return ScaleByRssState(_full_like(params, initial_accumulator_value))
 
     def update(g, state, params=None):
-        t = {k: g[k] * g[k] + state[k] for k in g}
+        t = {k: g[k] * g[k] + state.sum_of_squares[k] for k in g}
         updates = {
             k: torch.where(t[k] > 0, torch.rsqrt(t[k] + eps), torch.zeros_like(t[k])) * g[k]
             for k in g
         }
-        return updates, t
+        return updates, ScaleByRssState(t)
 
     return GradientTransformation(init, update)
 
@@ -202,8 +227,7 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 
 
 def sgd(lr: float, momentum: Optional[float] = None) -> GradientTransformation:
-    parts = [trace(momentum)] if momentum is not None else []
-    return chain(*parts, scale(-lr))
+    return chain(trace(momentum) if momentum is not None else identity(), scale(-lr))
 
 
 def amsgrad(lr: float) -> GradientTransformation:

@@ -1,0 +1,482 @@
+"""``python -m fedml_tpu_torch`` against ``python -m fedml_tpu`` on the CPU.
+
+(a) the parser knows every option of the reference's ``main`` with the
+    same name, default, type and choices; (b) the reference's usage errors
+    are usage errors (exit code 2), and what is not ported raises
+    NotImplementedError naming ROADMAP.md; (c) from one checkpoint (the
+    reference's init, written by the reference at round 0) both CLIs
+    ``--resume`` for 3 rounds and write summary.json files with the same
+    keys and values within ROW_TOL; (d) the port's kill-and-resume equals
+    its uninterrupted run bit for bit; (e) a reference run of 2 rounds,
+    resumed by the port for rounds 2-3, matches the reference's 4 straight
+    rounds; (f) ``--selection weighted`` draws the reference's cohorts;
+    (g) the entry point runs ``--help`` here and refuses to train without a
+    card; (h) a loopback FedAdam run writes the reference's transport row
+    keys. Besides: ``--enable_wandb`` names and feeds a wandb run as the
+    reference does, and the CLI's north-star run equals the Python API's
+    bit for bit.
+
+The port's rounds take the reference's shuffles where the two are
+compared: ``seeded_perm_fn``, the port's default shuffle source, is
+patched to ``torch_parity.jax_round_perm_fn``."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+click = pytest.importorskip("click")
+
+from click.testing import CliRunner  # noqa: E402
+
+from fedml_tpu import cli as jcli  # noqa: E402
+from fedml_tpu.models import create_model as jax_create_model  # noqa: E402
+from fedml_tpu.utils.checkpoint import load_checkpoint as jax_load  # noqa: E402
+from fedml_tpu.utils.checkpoint import save_checkpoint as jax_save  # noqa: E402
+
+import fedml_tpu_torch.__main__ as tmain  # noqa: E402
+import fedml_tpu_torch.algorithms.fedavg as tfedavg  # noqa: E402
+from fedml_tpu_torch import cli as tcli  # noqa: E402
+from fedml_tpu_torch.bridge import to_flax  # noqa: E402
+
+from torch_parity import (  # noqa: E402
+    flat_params, jax_round_perm_fn, private_reference_programs, time_limit,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+# |port - reference| <= ROW_TOL·max(1, |reference|) for every number of the
+# rows: the same float32 steps, summed in another order by another
+# library, over 3-4 rounds (measured: ≤ 5e-7 relative on these cases)
+ROW_TOL = 1e-5
+# summary.json keys only the reference writes, each with its reason:
+# compile/* are its XLA program-cache counters (the port compiles nothing;
+# its counterpart is ROADMAP.md §1 item 4), and fed/pipeline_rounds counts
+# rounds its round pipeline prepared ahead (the port runs every --pipeline
+# value serially; the reference's pipeline is byte-identical to serial)
+REFERENCE_ONLY_PREFIXES = ("compile/", "fed/pipeline_rounds")
+LR = ["--model", "lr", "--dataset", "synthetic"]
+# the CNN slice on synthetic_classification's ten 64-sample clients: the
+# registry's femnist_synth has ~226 samples a client, whose batch-20 rounds
+# are chaotic (the two packages' last-bit differences reach ~1e-3 of
+# Test/Loss by round 2) and whose full-batch rounds take the reference
+# minutes on the CPU
+CNN = ["--model", "cnn", "--dataset", "synthetic", "--client_num_per_round", "4",
+       "--batch_size", "20", "--lr", "0.01"]
+ALGOS = {
+    "fedavg": ["--algorithm", "fedavg"],
+    "fedadam": ["--algorithm", "fedopt", "--server_optimizer", "adam", "--server_lr", "0.05"],
+    "median": ["--algorithm", "fedavg_robust", "--defense", "median"],
+    "trimmed_mean": ["--algorithm", "fedavg_robust", "--defense", "trimmed_mean"],
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _private_programs(tmp_path_factory):
+    with private_reference_programs(tmp_path_factory.mktemp("exec_cache")):
+        yield
+
+
+def _ref(args):
+    result = CliRunner().invoke(jcli.main, [str(a) for a in args], catch_exceptions=False)
+    assert result.exit_code == 0, result.output
+    return result
+
+
+def _port(args):
+    return tcli.main([str(a) for a in args], device="cpu")
+
+
+def _arg(args, name, default):
+    return type(default)(args[args.index(name) + 1]) if name in args else default
+
+
+def _reference_shuffles(monkeypatch, args):
+    cohort = _arg(args, "--client_num_per_round", 10)
+    monkeypatch.setattr(tfedavg, "seeded_perm_fn", lambda seed: jax_round_perm_fn(seed, cohort))
+
+
+def _reference_init_checkpoint(path: Path, args) -> None:
+    """The reference's init for the run's model, as a round-0 checkpoint."""
+    classes = 10  # synthetic_classification's
+    model = jax_create_model(_arg(args, "--model", "lr"), "synthetic", (28, 28, 1), classes)
+    init = jax.device_get(model.init(jax.random.fold_in(jax.random.PRNGKey(0), 0)))
+    jax_save(str(path), init, round_idx=0)
+
+
+def _summary(log_dir: Path) -> dict:
+    return json.loads((log_dir / "summary.json").read_text())
+
+
+def _round_rows(log_dir: Path) -> list:
+    rows = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    return [{k: v for k, v in r.items() if k not in ("_ts", "round_time_s", "t_s")}
+            for r in rows if "Train/Loss" in r or "t_s" in r]
+
+
+def _assert_close_rows(got: dict, want: dict) -> None:
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, (int, float)) and not isinstance(w, bool):
+            assert abs(g - w) <= ROW_TOL * max(1.0, abs(w)), (k, g, w)
+        else:
+            assert g == w, (k, g, w)
+
+
+# --------------------------------------------------------------- (a)
+
+
+def test_flag_surface_equals_the_reference():
+    parser = tcli.build_parser()
+    actions = {s: a for a in parser._actions for s in a.option_strings}
+    types = {"integer": int, "float": float, "text": str, "path": Path}
+    seen = {"-h", "--help"}
+    for p in jcli.main.params:
+        for name in p.opts + p.secondary_opts:
+            assert actions[name].dest == p.name, name
+            seen.add(name)
+        action = actions[p.opts[0]]
+        assert action.default == p.default, p.name
+        choices = getattr(p.type, "choices", None)
+        assert (tuple(action.choices) if action.choices else None) == (
+            tuple(choices) if choices else None), p.name
+        if not p.is_flag and choices is None:
+            assert (action.type or str) is types[p.type.name], p.name  # argparse: None is str
+    assert set(actions) == seen  # no option of the port's own
+    assert tcli.ALGORITHMS == jcli.ALGORITHMS and tcli.RUNTIMES == jcli.RUNTIMES
+
+
+# --------------------------------------------------------------- (b)
+
+REFUSED = {
+    "secure_agg_on_vmap": ["--secure_agg", "--runtime", "vmap"],
+    "min_clients_on_vmap": ["--min_clients", "3"],
+    "min_clients_without_deadline": ["--min_clients", "3", "--runtime", "loopback"],
+    "compression_on_vmap": ["--compression", "int8", "--runtime", "vmap"],
+    "resume_without_checkpoint": ["--resume", "--comm_round", "1"],
+    "error_feedback_without_lossy_codec": ["--error_feedback", "--runtime", "loopback"],
+    "send_fault_without_retries": ["--send_fault_p", "0.1", "--runtime", "loopback"],
+    "retries_on_vmap": ["--send_retries", "2"],
+    "robust_over_transport": ["--algorithm", "fedavg_robust", "--runtime", "loopback"],
+    "overprovision_below_one": ["--overprovision_factor", "0.5"],
+    "variant_without_meaning": ["--variant", "dsgd"],
+    "dropping_plan_without_deadline": ["--runtime", "loopback", "--fault_plan",
+                                       '{"default": {"dropout_p": 0.5}}'],
+    "bad_fault_plan": ["--fault_plan", "{not json"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_reference_usage_errors_are_usage_errors(case, tmp_path):
+    args = REFUSED[case] + ["--log_dir", tmp_path / "log"]
+    assert CliRunner().invoke(jcli.main, [str(a) for a in args]).exit_code == 2
+    with pytest.raises(SystemExit) as e:
+        _port(args)
+    assert e.value.code == 2
+
+
+def test_resume_over_a_transport_is_refused(tmp_path):
+    args = ["--runtime", "loopback", "--resume", "--checkpoint_path", tmp_path / "ck",
+            "--comm_round", "1"]
+    with pytest.raises(SystemExit) as e:
+        _port(args)
+    assert e.value.code == 2
+
+
+UNPORTED = {
+    "mesh": ["--runtime", "mesh"],
+    "grpc": ["--runtime", "grpc", "--rank", "0"],
+    "scaffold": ["--algorithm", "scaffold"],
+    "fedbuff_over_loopback": ["--algorithm", "fedbuff", "--runtime", "loopback"],
+    "dp_fedavg": ["--algorithm", "dp_fedavg"],
+    "eval_on_clients": ["--eval_on_clients"],
+    "augment": ["--augment", "cifar"],
+    "warmup": ["--warmup"],
+    "fused_rounds": ["--fused_rounds", "2"],
+    "client_parallelism_vmap": ["--client_parallelism", "vmap"],
+    "power_of_choice": ["--selection", "power_of_choice"],
+    "straggler_aware": ["--selection", "straggler_aware"],
+    "overprovision": ["--overprovision_factor", "1.5"],
+    "krum": ["--algorithm", "fedavg_robust", "--defense", "krum"],
+    "weak_dp": ["--algorithm", "fedavg_robust", "--defense", "weak_dp"],
+    "backdoor": ["--algorithm", "fedavg_robust", "--attack", "backdoor"],
+    "telemetry_dir": ["--telemetry_dir", "telemetry"],
+    "prom_port": ["--prom_port", "0"],
+    "recompile_budget": ["--recompile_budget", "10"],
+    "model_zoo": ["--model", "resnet56"],
+    "dataset": ["--dataset", "cifar10"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_what_is_not_ported_raises(case, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _port(UNPORTED[case] + ["--comm_round", "1", "--log_dir", tmp_path])
+
+
+@pytest.mark.parametrize("sub", ["serve", "status", "fleet", "trace"])
+def test_subcommands_are_recognized_and_not_ported(sub, monkeypatch):
+    monkeypatch.setattr(sys, "argv", ["fedml_tpu_torch", sub, "--port", "0"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tmain._entry()
+
+
+# --------------------------------------------------------------- (c)
+
+
+@pytest.mark.parametrize("model,algo", [
+    ("lr", "fedavg"), ("lr", "fedadam"), ("lr", "median"), ("lr", "trimmed_mean"),
+    ("cnn", "median"), ("cnn", "fedadam"),
+])
+def test_summary_rows_match_the_reference(model, algo, tmp_path, monkeypatch):
+    args = (LR if model == "lr" else CNN) + ALGOS[algo] + ["--comm_round", "3", "--resume"]
+    _reference_init_checkpoint(tmp_path / "init", args)
+    for side in ("ref", "port"):
+        for ext in (".npz", ".json"):
+            shutil.copy(tmp_path / f"init{ext}", tmp_path / f"{side}{ext}")
+    _ref(args + ["--log_dir", tmp_path / "ref_log", "--checkpoint_path", tmp_path / "ref"])
+    _reference_shuffles(monkeypatch, args)
+    _port(args + ["--log_dir", tmp_path / "port_log", "--checkpoint_path", tmp_path / "port"])
+
+    want, got = _summary(tmp_path / "ref_log"), _summary(tmp_path / "port_log")
+    only_ref = set(want) - set(got)
+    assert only_ref and all(k.startswith(REFERENCE_ONLY_PREFIXES) for k in only_ref), only_ref
+    assert set(got) <= set(want)
+    _assert_close_rows({k: got[k] for k in got if k != "round_time_s"},
+                       {k: want[k] for k in got if k != "round_time_s"})
+    ref_rows, port_rows = _round_rows(tmp_path / "ref_log"), _round_rows(tmp_path / "port_log")
+    assert [r["round"] for r in port_rows] == [0, 1, 2]
+    for g, w in zip(port_rows, ref_rows, strict=True):
+        _assert_close_rows(g, w)
+    # the end-of-run checkpoints, both read by the reference: vars and
+    # server state within the rows' tolerance, the same cohorts and loss map
+    ref_ck, port_ck = jax_load(str(tmp_path / "ref")), jax_load(str(tmp_path / "port"))
+    assert ref_ck[1] == port_ck[1] == 3
+    for slot in (0, 3):  # vars, opt
+        want_leaves = jax.tree_util.tree_leaves(ref_ck[slot])
+        got_leaves = jax.tree_util.tree_leaves(port_ck[slot])
+        assert len(got_leaves) == len(want_leaves)
+        for g, w in zip(got_leaves, want_leaves):
+            np.testing.assert_allclose(g, w, rtol=ROW_TOL, atol=ROW_TOL)
+    ref_sched, port_sched = ref_ck[5], port_ck[5]
+    for key in ("rounds", "loss_ids"):
+        np.testing.assert_array_equal(port_sched[key], ref_sched[key])
+    assert [list(c) for c in port_sched["selections"]] == [list(c) for c in ref_sched["selections"]]
+    np.testing.assert_allclose(port_sched["loss_vals"], ref_sched["loss_vals"], rtol=ROW_TOL)
+
+
+# --------------------------------------------------------------- (d)
+
+
+@pytest.mark.parametrize("model,algo", [("lr", "fedadam"), ("cnn", "median")])
+def test_port_resume_is_bit_equal_to_its_uninterrupted_run(model, algo, tmp_path):
+    common = (LR if model == "lr" else CNN) + ALGOS[algo]
+    full = _port(common + ["--comm_round", "4", "--log_dir", tmp_path / "full"])
+    ck = tmp_path / "ck"
+    _port(common + ["--comm_round", "2", "--checkpoint_path", ck])
+    resumed = _port(common + ["--comm_round", "4", "--checkpoint_path", ck, "--resume",
+                              "--log_dir", tmp_path / "resumed"])
+    assert [r["round"] for r in resumed.history] == [2, 3]
+    strip = lambda r: {k: v for k, v in r.items() if k != "round_time_s"}  # noqa: E731
+    assert [strip(r) for r in resumed.history] == [strip(r) for r in full.history[2:]]
+    for k, v in full.global_vars.items():
+        assert torch.equal(resumed.global_vars[k], v), k
+    if algo == "fedadam":
+        assert resumed.server_opt_state[0].count == full.server_opt_state[0].count == 4
+        for k, v in full.server_opt_state[0].nu.items():
+            assert torch.equal(resumed.server_opt_state[0].nu[k], v), k
+
+
+# --------------------------------------------------------------- (e)
+
+
+@pytest.mark.parametrize("algo", ["fedavg", "fedadam"])
+def test_port_continues_a_reference_run(algo, tmp_path, monkeypatch):
+    common = LR + ALGOS[algo] + ["--client_num_per_round", "5"]
+    _ref(common + ["--comm_round", "4", "--log_dir", tmp_path / "straight",
+                   "--checkpoint_path", tmp_path / "straight_ck"])
+    _ref(common + ["--comm_round", "2", "--checkpoint_path", tmp_path / "ck"])
+    _reference_shuffles(monkeypatch, common)
+    api = _port(common + ["--comm_round", "4", "--resume", "--checkpoint_path", tmp_path / "ck",
+                          "--log_dir", tmp_path / "resumed"])
+    want = [r for r in _round_rows(tmp_path / "straight") if r["round"] >= 2]
+    got = _round_rows(tmp_path / "resumed")
+    assert [r["round"] for r in got] == [2, 3]
+    for g, w in zip(got, want, strict=True):
+        _assert_close_rows(g, w)
+    ref_final = flat_params(jax_load(str(tmp_path / "straight_ck"))[0]["params"])
+    port_final = flat_params(to_flax(api.global_vars))
+    assert port_final.keys() == ref_final.keys()
+    for k in ref_final:
+        np.testing.assert_allclose(port_final[k], ref_final[k], rtol=ROW_TOL, atol=ROW_TOL, err_msg=k)
+
+
+# --------------------------------------------------------------- (f)
+
+
+def test_weighted_selection_draws_the_reference_cohorts(tmp_path):
+    args = LR + ["--selection", "weighted", "--client_num_in_total", "12",
+                 "--client_num_per_round", "3", "--comm_round", "6",
+                 "--frequency_of_the_test", "6"]
+    _ref(args + ["--log_dir", tmp_path / "ref"])
+    _port(args + ["--log_dir", tmp_path / "port"])
+
+    def cohorts(log_dir):
+        rows = [json.loads(x) for x in (log_dir / "metrics.jsonl").read_text().splitlines()]
+        sel = {r["round"]: r["scheduler/selected"] for r in rows if "scheduler/selected" in r}
+        assert {r["scheduler/policy"] for r in rows if "scheduler/policy" in r} == {"weighted"}
+        return sel
+
+    want = cohorts(tmp_path / "ref")
+    assert cohorts(tmp_path / "port") == want and sorted(want) == list(range(6))
+    assert len({tuple(c) for c in want.values()}) > 1
+
+
+# --------------------------------------------------------------- (g)
+
+
+@time_limit(60)
+def test_entry_point_has_no_cpu_fallback(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")  # no card, wherever this runs
+    run = lambda *a: subprocess.run(  # noqa: E731
+        [sys.executable, "-m", "fedml_tpu_torch", *a], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=50)
+    help_ = run("--help")
+    assert help_.returncode == 0 and "--algorithm" in help_.stdout
+    train = run("--comm_round", "1", "--log_dir", str(tmp_path / "log"))
+    assert train.returncode != 0
+    assert "runs on a CUDA device by default and none is available" in train.stderr
+    assert train.stdout.strip() == "" and not (tmp_path / "log").exists()
+
+
+# --------------------------------------------------------------- (h)
+
+
+@time_limit(90)
+def test_loopback_fedadam_writes_the_reference_transport_rows(tmp_path):
+    args = LR + ALGOS["fedadam"] + ["--runtime", "loopback", "--comm_round", "2",
+                                    "--client_num_per_round", "4"]
+    _ref(args + ["--log_dir", tmp_path / "ref"])
+    api = _port(args + ["--log_dir", tmp_path / "port", "--checkpoint_path", tmp_path / "ck"])
+    want, got = _summary(tmp_path / "ref"), _summary(tmp_path / "port")
+    only_ref = set(want) - set(got)
+    assert all(k.startswith(REFERENCE_ONLY_PREFIXES) for k in only_ref), only_ref
+    assert set(got) <= set(want) and {"t_s", "Test/Acc", "scheduler/selected"} <= set(got)
+    assert [r["round"] for r in _round_rows(tmp_path / "port")] == [0, 1]
+    assert all(np.isfinite(r["Test/Loss"]) for r in _round_rows(tmp_path / "port"))
+    # the end-of-run checkpoint holds the server's FedAdam moments
+    _, round_idx, _, opt_state, _, sched = jax_load(str(tmp_path / "ck"))
+    assert round_idx == 2 and sched is None and int(opt_state[0][0]) == 2
+    assert api.server_opt_state[0].count == 2
+
+
+# --------------------------------------------------------------- wandb
+
+
+def _fake_wandb(calls: dict) -> types.ModuleType:
+    """A stand-in for the wandb module: records init's arguments and the
+    logged rows."""
+    mod = types.ModuleType("wandb")
+    mod.run = None
+
+    def init(project, name, config):
+        calls["init"] = {"project": project, "name": name, "config_keys": sorted(config)}
+        mod.run = object()
+        return mod.run
+
+    mod.init = init
+    mod.log = lambda row: calls.setdefault("rows", []).append(row)
+    return mod
+
+
+@pytest.mark.parametrize("installed", [True, False])
+def test_enable_wandb_mirrors_the_rows_as_the_reference(installed, tmp_path, monkeypatch):
+    """--enable_wandb starts a run named as the reference names it and
+    mirrors every row to it; without wandb it changes nothing."""
+    args = LR + ["--comm_round", "2", "--enable_wandb"]
+    calls = {"ref": {}, "port": {}}
+    for side in ("ref", "port"):
+        monkeypatch.setitem(sys.modules, "wandb", _fake_wandb(calls[side]) if installed else None)
+        log_dir = tmp_path / side
+        (_ref if side == "ref" else _port)(args + ["--log_dir", log_dir])
+        assert [r["round"] for r in _round_rows(log_dir)] == [0, 1]
+    if not installed:
+        assert calls == {"ref": {}, "port": {}}
+        return
+    assert calls["port"]["init"] == calls["ref"]["init"]
+    lines = (tmp_path / "port" / "metrics.jsonl").read_text().splitlines()
+    rows = [{k: v for k, v in json.loads(x).items() if not k.startswith("_")} for x in lines]
+    assert calls["port"]["rows"] == rows and len(rows) >= 2
+
+
+# ------------------------------------------------ the CLI drives the API
+
+
+@pytest.mark.parametrize("algo", ["median", "fedadam"])
+def test_cli_runs_what_the_python_api_runs(algo, tmp_path):
+    """The north-star options (chip_smoke.py's phase_cli), at 12 clients:
+    the CLI's rows and final vars equal, bit for bit, those of the API built
+    by hand from RunConfig's defaults, so no default of build_config drifts
+    from the Python API's."""
+    from fedml_tpu_torch.algorithms import FedOptAPI, RobustFedAvgAPI
+    from fedml_tpu_torch.config import DataConfig, FedConfig, RunConfig, ServerConfig, TrainConfig
+    from fedml_tpu_torch.data.femnist_synth import femnist_synthetic
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.robustness import RobustConfig
+
+    clients, per_round, rounds = 12, 4, 2
+    cfg = RunConfig(
+        data=DataConfig(batch_size=20),
+        fed=FedConfig(client_num_in_total=clients, client_num_per_round=per_round,
+                      comm_round=rounds, epochs=1),
+        train=TrainConfig(lr=0.1), model="cnn", seed=0,
+    )
+    data = femnist_synthetic(num_clients=clients, seed=0)
+    model = create_model("cnn", "femnist", (28, 28, 1), 62)
+    if algo == "median":
+        direct = RobustFedAvgAPI(cfg, data, model, robust=RobustConfig(defense_type="median"),
+                                 device="cpu")
+    else:
+        cfg = cfg.replace(server=ServerConfig(server_optimizer="adam", server_lr=0.05))
+        direct = FedOptAPI(cfg, data, model, device="cpu")
+    direct.train()
+    via_cli = _port(ALGOS[algo] + [
+        "--model", "cnn", "--dataset", "femnist_synth", "--client_num_in_total", clients,
+        "--client_num_per_round", per_round, "--batch_size", "20", "--epochs", "1",
+        "--lr", "0.1", "--comm_round", rounds, "--log_dir", tmp_path])
+    strip = lambda r: {k: v for k, v in r.items() if k != "round_time_s"}  # noqa: E731
+    assert [strip(r) for r in via_cli.history] == [strip(r) for r in direct.history]
+    assert len(direct.history) == rounds
+    for k, v in direct.global_vars.items():
+        assert torch.equal(via_cli.global_vars[k], v), k
+
+
+# --------------------------------------------------------------- imports
+
+
+def test_no_port_module_imports_click_or_h5py():
+    """click and h5py are absent on the card's machine: importing any module
+    of the port loads neither (the TFF loaders import h5py when they open a
+    file)."""
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import fedml_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(fedml_tpu_torch.__path__, "
+        "'fedml_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps([len(mods), 'fedml_tpu_torch.cli' in mods, "
+        "[m for m in sys.modules if m.split('.')[0] in ('click', 'h5py')]]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True)
+    n, has_cli, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert n > 50 and has_cli and loaded == []

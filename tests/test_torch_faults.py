@@ -165,12 +165,17 @@ def test_faulted_federation_matches_the_reference(tmp_path):
     def strip(rows):
         return [{k: v for k, v in r.items() if k != "t_s"} for r in rows]
 
-    # the run's faults/* row is the last one logged (the reference also logs
-    # its scheduler's rows, which the port's uniform-only scheduler has not)
+    # the run's faults/* row is the last one logged; before it, each round's
+    # scheduler row and history row, as the reference logs them
     jfault, tfault = jrows[-1], trows[-1]
     assert tfault == jfault and tfault["faults/dropouts"] == sum(len(x) for x in lost) - 2
     assert tfault["faults/crashes"] == 1
-    assert trows[:-1] == tserver.history
+
+    def sched_rows(rows):
+        return [r for r in rows if "scheduler/policy" in r]
+
+    assert [r for r in trows[:-1] if "scheduler/policy" not in r] == tserver.history
+    assert sched_rows(trows) == sched_rows(jrows) and len(sched_rows(trows)) == LR["rounds"]
     assert [list(r) for r in tserver.history] == [list(r) for r in jserver.history]
     for t, j in zip(strip(tserver.history), strip(jserver.history), strict=True):
         assert t.keys() == j.keys()
