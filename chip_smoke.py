@@ -90,7 +90,21 @@ Phases, each of which raises on failure:
     before the call and read just after); and a FedAdam loopback
     federation through the CLI with finite losses. A ``[cli]`` JSON line
     gives each run's warm round time beside phase 4's, a checkpoint
-    write's seconds and ``registry.load``'s.
+    write's seconds and ``registry.load``'s;
+15. the CIFAR model family (``phase_resnet``) on the cross-silo row
+    (synthetic CIFAR geometry, 10 silos of 512, batch 64, E=1, SGD lr
+    0.1): FedAvgAPI on ResNet-56 (591,322 params, 8,992 running
+    statistics) in float32 then bfloat16, 3 rounds each without eval
+    (round 0 the warm-up; bfloat16's round 2 under the profiler, tracing
+    the device only); RobustFedAvgAPI median, 2
+    rounds, with K1's launches zeroed just before and read just after
+    (one a parameter leaf a round: 176; the running statistics take the
+    sample-weighted mean, as in the reference) and the last aggregate
+    bit-equal to K1's plain version; one float32 round on the card
+    against the CPU (RESNET_CARD_VS_CPU); the trained ResNet-56 fixture's
+    eval logits on the card against the CPU and its test accuracy (1.0);
+    and a warm bfloat16 round of ResNet-18-GN (4 silos of 512, 100
+    classes, batch 256). A ``[resnet]`` JSON line gives the readings.
 
 Then it prints each phase's seconds (``phase_s``), the kernels' JSON line,
 the ``nvidia-smi`` line, and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -99,6 +113,7 @@ printing any result."""
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -166,6 +181,28 @@ FLASH_BH = 3
 LM = dict(layers=6, heads=8, width=768, vocab=1024, seq=256, clients=8,
           samples=512, batch=32, lr=1e-3)
 LM_ROUNDS = 3
+
+# the cross-silo ResNet-56 row (bench.py:617-690) and the ResNet-18-GN row
+# (bench.py:895-938)
+RESNET = dict(clients=10, classes=10, shape=(32, 32, 3), samples=512, batch=64, lr=0.1)
+RESNET_ROUNDS = 3
+RESNET_GN = dict(clients=4, classes=100, samples=512, batch=256)
+RESNET_FIXTURE = "fedml_tpu/models/pretrained_weights/resnet56_cifar10_synth.npz"
+# card vs CPU after one fp32 ResNet-56 round of one full-batch step (512
+# samples) for each of RESNET_CPU_CLIENTS clients, by kind: (rtol, atol).
+# A round at batch 64 cannot be held: on the CPU alone a 1e-7 relative
+# nudge of the init moves the mean loss of a 2-client round from 9.78 to
+# 8.65. One full-batch step is tighter but still steep: the nudge moves
+# the params by up to 1.6e-3 (lr 0.1 times the gradient of 56 layers of
+# BatchNorm and ReLU), the running statistics (the EMA of the one forward
+# at the init) by 1.2e-6, 9.3e-7 of their scale; each bound is ~6-10x
+# its own.
+RESNET_CPU_CLIENTS = 1
+RESNET_CARD_VS_CPU = {"params": (0.0, 1e-2), "stats": (1e-5, 1e-5)}
+# the fixture's eval logits, card vs CPU: |err| <= tol * max(1, max|logit|);
+# the two float32 forwards sum in other orders (port vs reference on the
+# CPU: 2.3e-7 of the scale)
+RESNET_FIXTURE_TOL = 1e-5
 
 # data-sheet HBM bandwidth (bytes/s), fp32 non-tensor peak and dense bf16
 # tensor-core peak (FLOP/s)
@@ -1371,6 +1408,247 @@ def phase_cli(smi: str, main_warm_s=None, device="cuda", num_clients=128,
     return launches
 
 
+# ------------------------------------------------------- the CIFAR family
+
+
+@functools.lru_cache(maxsize=2)
+def _cifar_geometry(clients: int, classes: int, samples: int):
+    from fedml_tpu_torch.data.synthetic import synthetic_classification
+
+    return synthetic_classification(num_clients=clients, num_classes=classes,
+                                    feat_shape=RESNET["shape"], samples_per_client=samples,
+                                    partition_method="homo", ragged=False, seed=0)
+
+
+def _cross_silo(rounds: int, dtype: str = "float32", clients: int = RESNET["clients"],
+                per_round=None, samples: int = RESNET["samples"], batch: int = RESNET["batch"],
+                model: str = "resnet56", classes: int = RESNET["classes"], pad_bucket=None):
+    """The cross-silo row (bench.py:617-690): synthetic CIFAR-geometry data,
+    ``clients`` silos of ``samples`` each, all in every round, batch 64,
+    E=1, SGD lr 0.1, ``dtype`` compute, eval left out of the rounds."""
+    from fedml_tpu_torch.config import DataConfig, FedConfig, RunConfig, TrainConfig
+    from fedml_tpu_torch.models import create_model
+
+    data = _cifar_geometry(clients, classes, samples)
+    dkw = {} if pad_bucket is None else {"pad_bucket": pad_bucket}
+    cfg = RunConfig(
+        data=DataConfig(batch_size=batch, **dkw),
+        fed=FedConfig(client_num_in_total=clients, client_num_per_round=per_round or clients,
+                      comm_round=rounds, epochs=1, frequency_of_the_test=10_000),
+        train=TrainConfig(client_optimizer="sgd", lr=RESNET["lr"], compute_dtype=dtype),
+        model=model,
+        seed=0,
+    )
+    return cfg, data, create_model(model, "cifar10", RESNET["shape"], classes)
+
+
+def _profile_round(api, round_idx: int) -> dict:
+    """One warm round under torch.profiler, tracing the device only (the
+    host-side events of ~300k launches would cost minutes to collect):
+    device kernel time against the round's wall time, launches, the top
+    kernels, and the round's train loss."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, mets = api.train_round(round_idx)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "train_loss": float(mets["loss_sum"]) / float(mets["count"]),
+        "wall_ms_profiled": wall_ms,
+        "kernel_launches": sum(e.count for e in kernels),
+        "device_kernel_ms": device_ms if kernels else "not measured",
+        "device_busy_share": device_ms / wall_ms if kernels else "not measured",
+        "top_kernels_ms_calls": {e.key[:70]: [e.self_device_time_total / 1e3, e.count] for e in top},
+    }
+
+
+def _timed_rounds(api, rounds) -> tuple:
+    """(train losses, seconds) of ``api.train_round`` over ``rounds``; each
+    round's loss comes to the host, which waits for the device."""
+    losses, secs = [], []
+    for r in rounds:
+        t0 = time.perf_counter()
+        _, mets = api.train_round(r)
+        losses.append(float(mets["loss_sum"]) / float(mets["count"]))
+        secs.append(time.perf_counter() - t0)
+    return losses, secs
+
+
+def phase_resnet(smi: str, device="cuda", rounds=RESNET_ROUNDS, **smaller) -> int:
+    """The CIFAR model family on the cross-silo ResNet-56 row (phase 15);
+    returns K1's launches in the robust ResNet-56 run. ``smaller`` cuts
+    the data and the ResNet-18-GN cell for a rehearsal on the CPU
+    (``clients``, ``samples``, ``gn_clients``, ``gn_samples``,
+    ``cpu_clients``)."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI, RobustFedAvgAPI
+    from fedml_tpu_torch.algorithms.fedavg import make_fedavg_round
+    from fedml_tpu_torch.algorithms.fedavg_robust import make_defense_hooks
+    from fedml_tpu_torch.models import create_model, split_stats
+    from fedml_tpu_torch.ops import robust_stats as rs
+    from fedml_tpu_torch.robustness import RobustConfig
+
+    data_kw = {k: smaller[k] for k in ("clients", "samples") if k in smaller}
+    report = {"device": device, "card": smi}
+
+    # 1. FedAvgAPI, fp32 then bf16: 3 rounds each without eval (as the
+    # bench row times them), round 0 the warm-up; on the card, bf16's round
+    # 2 under the profiler (the row's headline dtype; collecting a
+    # profile of ~300k launches takes ~50 s, so one)
+    for dtype in ("float32", "bfloat16"):
+        cfg, data, model = _cross_silo(rounds, dtype, **data_kw)
+        api = FedAvgAPI(cfg, data, model, device=device)
+        profiled = device == "cuda" and rounds > 2 and dtype == "bfloat16"
+        losses, secs = _timed_rounds(api, range(rounds - 1 if profiled else rounds))
+        if profiled:
+            prof = _profile_round(api, rounds - 1)
+            losses.append(prof.pop("train_loss"))
+            # busy share also against the unprofiled warm round
+            prof["device_busy_share_of_round_1"] = prof["device_kernel_ms"] / (secs[1] * 1e3)
+            report[f"profile_{dtype}_round_2"] = prof
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"resnet56 {dtype}: train loss {losses}")
+        report[f"{dtype}_train_loss"] = losses
+        report[f"{dtype}_round_s"] = secs
+    params, stats = split_stats(api.global_vars)
+    report["params_stats"] = [sum(v.numel() for v in params.values()),
+                              sum(v.numel() for v in stats.values())]
+    if report["params_stats"] != [591_322, 8_992]:
+        raise AssertionError(f"resnet56 has {report['params_stats']} params and stats")
+
+    # 3. RobustFedAvgAPI median, 2 rounds: K1 over every parameter leaf (the
+    # statistics take the sample-weighted mean, as the reference's
+    # _byzantine_reduce gives them); the last round's aggregate held
+    # bit-equal to K1's plain version on the same stack
+    class Captured(RobustFedAvgAPI):
+        def _build_round_fn(self, local_train_fn):
+            post_train, _, aggregate = make_defense_hooks(self.robust)
+
+            def capture(cv, ns, g=None):
+                self.stack = ({k: v.clone() for k, v in cv.items()}, ns.clone())
+                return aggregate(cv, ns, g)
+
+            return make_fedavg_round(self.model, self.config, task=self.task,
+                                     local_train_fn=local_train_fn, post_train=post_train,
+                                     aggregate_fn=capture)
+
+    cfg, data, model = _cross_silo(2, **data_kw)
+    robust = Captured(cfg, data, model, robust=RobustConfig(defense_type="median"), device=device)
+    leaves = len(split_stats(robust.global_vars)[0])
+    rs.LAUNCHES[rs.KERNEL_NAME] = 0  # zeroed just before
+    robust.train()
+    launches = rs.LAUNCHES[rs.KERNEL_NAME]  # read just after
+    for row in robust.history:
+        if not all(math.isfinite(row[k]) for k in ("Train/Loss", "Test/Loss")):
+            raise AssertionError(f"resnet56 median: non-finite loss in {row}")
+    want = 2 * leaves if device == "cuda" else 0
+    if launches != want:
+        raise AssertionError(f"resnet56 median: {launches} K1 launches, want {want}")
+    stack, ns = robust.stack
+    C = ns.shape[0]
+    for k, v in stack.items():
+        if k.startswith("batch_stats."):
+            plain = torch.tensordot(ns / torch.clamp(ns.sum(), min=1e-12), v.float(), dims=1)
+        else:
+            plain = rs.trimmed_mean_plain(v.float().reshape(C, -1), rs.median_trim_k(C)).reshape(v.shape[1:])
+        if not torch.equal(robust.global_vars[k], plain):
+            err = (robust.global_vars[k] - plain).abs().max().item()
+            raise AssertionError(f"resnet56 median: {k} differs from the plain aggregate by {err}")
+    report["median"] = {"k1_launches": launches, "k1_launches_per_round": launches // 2,
+                        "param_leaves": leaves, "stat_leaves": len(stack) - leaves,
+                        "warm_round_s": [r["round_time_s"] for r in robust.history[1:]],
+                        "bit_equal_to_plain": True}
+    if device == "cuda":
+        report["median"]["k1_ms_a_round"] = device_ms(
+            lambda: [rs.median_1d(v.reshape(C, -1)) for k, v in stack.items()
+                     if not k.startswith("batch_stats.")], iters=10)
+        rs.LAUNCHES[rs.KERNEL_NAME] = launches  # the timing's launches do not count
+
+    # 4. one fp32 round on the card against the CPU, TF32 off, cuDNN
+    # deterministic: one full-batch step a client (RESNET_CARD_VS_CPU)
+    if device == "cuda":
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            out = {}
+            per = smaller.get("cpu_clients", RESNET_CPU_CLIENTS)
+            for dev in ("cpu", "cuda"):
+                cfg, data, model = _cross_silo(1, per_round=per, batch=-1, **data_kw)
+                api = FedAvgAPI(cfg, data, model, device=dev)
+                t0 = time.perf_counter()
+                api.train_round(0)
+                out[dev] = ({k: v.cpu() for k, v in api.global_vars.items()}, time.perf_counter() - t0)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        (cpu, cpu_s), (card, card_s) = out["cpu"], out["cuda"]
+        errs = {"params": 0.0, "stats": 0.0}
+        for k in cpu:
+            kind = "stats" if k.startswith("batch_stats.") else "params"
+            errs[kind] = max(errs[kind], (card[k] - cpu[k]).abs().max().item())
+            rtol, atol = RESNET_CARD_VS_CPU[kind]
+            torch.testing.assert_close(card[k], cpu[k], rtol=rtol, atol=atol,
+                                       msg=lambda m, k=k: f"resnet56 card vs cpu, {k}: {m}")
+        report["card_vs_cpu"] = {"clients": per, "max_abs_err": errs, "tol": RESNET_CARD_VS_CPU,
+                                 "cpu_round_s": cpu_s, "cuda_round_s": card_s}
+
+    # 5. the trained fixture: eval logits on the card against the CPU's,
+    # and its test accuracy on the row's data (at the row's size: the test
+    # set is drawn after the clients' shards)
+    cfg, data, _ = _cross_silo(1)
+    fixture = create_model("resnet56", "cifar10", RESNET["shape"], RESNET["classes"],
+                           pretrained=RESNET_FIXTURE)
+    fvars = fixture.init(torch.Generator())
+    x = torch.from_numpy(data.test_x[:8])
+    from fedml_tpu_torch.device import fp32_math
+
+    with torch.no_grad(), fp32_math():
+        cpu_logits = fixture.apply(fvars, x, train=False)[0]
+        card_logits = fixture.apply({k: v.to(device) for k, v in fvars.items()}, x.to(device),
+                                    train=False)[0].cpu()
+    ferr = (card_logits - cpu_logits).abs().max().item()
+    scale = cpu_logits.abs().max().item()
+    if ferr > RESNET_FIXTURE_TOL * max(1.0, scale):
+        raise AssertionError(f"fixture logits: card vs cpu max |err| {ferr} at scale {scale}")
+    fapi = FedAvgAPI(cfg, data, fixture, device=device)
+    _, facc = fapi.evaluate_global()
+    if facc != 1.0:
+        raise AssertionError(f"fixture Test/Acc {facc} on its own data, want 1.0")
+    report["fixture"] = {"max_abs_err": ferr, "logit_scale": scale, "tol": RESNET_FIXTURE_TOL,
+                         "test_acc": facc}
+
+    # 6. ResNet-18-GN in bf16 (bench.py:931-938): a warm-up round and a
+    # warm one, without eval, as the bench row times them. (Its eval after
+    # a round at lr 0.1 gives NaN in both packages: E[x²]−E[x]² of a group
+    # of a zero-padded eval row cancels below −eps.)
+    gn = dict(clients=smaller.get("gn_clients", RESNET_GN["clients"]),
+              samples=smaller.get("gn_samples", RESNET_GN["samples"]))
+    cfg, data, model = _cross_silo(2, "bfloat16", model="resnet18_gn", classes=RESNET_GN["classes"],
+                                   batch=RESNET_GN["batch"], pad_bucket=1, **gn)
+    gapi = FedAvgAPI(cfg, data, model, device=device)
+    gn_s, gn_loss = [], []
+    for r in range(2):
+        t0 = time.perf_counter()
+        _, mets = gapi.train_round(r)
+        gn_loss.append(float(mets["loss_sum"]) / float(mets["count"]))  # waits for the device
+        gn_s.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v) for v in gn_loss):
+        raise AssertionError(f"resnet18_gn bf16: train loss {gn_loss}")
+    report["resnet18_gn_bf16"] = {"params": model.num_params(), "round_s": gn_s,
+                                  "train_loss": gn_loss}
+    log("[resnet] " + json.dumps(report))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1402,6 +1680,7 @@ def main() -> int:
     transport_launches = timed(phase_transport, smi)
     timed(phase_faults_secagg, smi)
     cli_launches = timed(phase_cli, smi, main_warm_s["median"])
+    resnet_launches = timed(phase_resnet, smi)
     log(json.dumps({"phase_s": phase_s}))
 
     from fedml_tpu_torch.ops import flash_attention as fa
@@ -1445,6 +1724,9 @@ def main() -> int:
         "large_cohort_launches": large_cohort_launches,
         # launches through python -m fedml_tpu_torch's cli.main (phase 14)
         "cli_launches": cli_launches,
+        # launches of 2 robust median rounds of the cross-silo ResNet-56
+        # (phase 15): one a parameter leaf a round
+        "resnet_launches": resnet_launches,
     }] + flash_rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

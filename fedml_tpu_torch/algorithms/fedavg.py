@@ -28,7 +28,9 @@ from fedml_tpu_torch.data.device_store import DeviceDataStore
 from fedml_tpu_torch.device import DeviceLike, fp32_math, resolve_device
 from fedml_tpu_torch.models import ModelDef
 from fedml_tpu_torch.scheduler import ClientScheduler, select_clients
-from fedml_tpu_torch.train.client import EpochPerm, PermFn, make_local_train, seeded_perm_fn
+from fedml_tpu_torch.train.client import (
+    EpochPerm, PermFn, client_step_seed, make_local_train, seeded_perm_fn,
+)
 from fedml_tpu_torch.train.evaluate import make_eval_fn, metrics_to_loss_acc, pad_to_batches
 
 Tree = Dict[str, torch.Tensor]
@@ -71,12 +73,14 @@ def make_fedavg_round(
     robust=None,
 ):
     """The round function ``(global_vars, x, y, mask, num_samples,
-    client_perms, *extra) -> (global_vars', metric sums)``.
+    client_perms, step_seeds=None) -> (global_vars', metric sums)``;
+    ``step_seeds[j]`` seeds client j's dropout and augmentation.
 
-    ``post_train(client_vars, global_vars, *extra)`` transforms the stacked
+    ``post_train(client_vars, global_vars)`` transforms the stacked
     per-client results before aggregation, ``aggregate_fn(client_vars,
-    num_samples, global_vars)`` replaces the weighted average and
-    ``post_aggregate(new_global, *extra)`` transforms the result.
+    num_samples, global_vars)`` replaces the weighted average (of the
+    parameters and the running statistics alike) and
+    ``post_aggregate(new_global)`` transforms the result.
     ``robust`` (a RobustConfig) derives the three hooks from the defense
     config; it excludes passing hooks directly."""
     if robust is not None:
@@ -92,14 +96,15 @@ def make_fedavg_round(
         model, config.train, config.fed.epochs, task=task
     )
 
-    def round_fn(global_vars, x, y, mask, num_samples, client_perms, *extra):
+    def round_fn(global_vars, x, y, mask, num_samples, client_perms, step_seeds=None):
         C = x.shape[0]
         mask_host = mask.cpu()  # which steps hold data is decided on the host
         client_vars: Tree = {}
         sums = None
         for j in range(C):
             new_vars, mets = local_train(
-                global_vars, x[j], y[j], mask[j], client_perms[j], mask_host=mask_host[j]
+                global_vars, x[j], y[j], mask[j], client_perms[j], mask_host=mask_host[j],
+                step_seed=0 if step_seeds is None else step_seeds[j],
             )
             for k, v in new_vars.items():
                 if k not in client_vars:
@@ -108,13 +113,13 @@ def make_fedavg_round(
             vec = torch.stack([mets[k] for k in _METRIC_KEYS])
             sums = vec if sums is None else sums + vec
         if post_train is not None:
-            client_vars = post_train(client_vars, global_vars, *extra)
+            client_vars = post_train(client_vars, global_vars)
         if aggregate_fn is not None:
             new_global = aggregate_fn(client_vars, num_samples, global_vars)
         else:
             new_global = weighted_average(client_vars, num_samples)
         if post_aggregate is not None:
-            new_global = post_aggregate(new_global, *extra)
+            new_global = post_aggregate(new_global)
         return new_global, dict(zip(_METRIC_KEYS, sums))
 
     return round_fn
@@ -209,6 +214,8 @@ class FedAvgAPI:
             torch.as_tensor(batch.mask).to(dev),
             torch.as_tensor(batch.num_samples).to(dev),
             round_client_perms(self.perm_fn, round_idx, batch.num_clients),
+            # each slot's dropout and augmentation stream
+            [client_step_seed(self.config.seed, round_idx, j) for j in range(batch.num_clients)],
         )
 
     def _eval_batches(self):

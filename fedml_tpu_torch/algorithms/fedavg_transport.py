@@ -10,11 +10,12 @@ MQTT (an embedded broker, or any MQTT 3.1.1 broker over TCP) or gRPC.
 
 **Wire layout.** On the wire a model is the reference's: ``{"params":
 <nested flax tree of numpy arrays>}`` with conv kernels HWIO and dense
-kernels [in, out], keys sorted (:func:`wire_model`, built with
-``bridge.to_flax``). Messages carry the reference's keys in the reference's
-order, and the codecs (core/compression.py) and the secure-aggregation
-masks (secagg/) run on that tree, so a ``fedml_tpu`` server takes a port
-client's uploads as they are, and the reverse.
+kernels [in, out], and a BatchNorm model's ``"batch_stats"`` beside it,
+keys sorted (:func:`wire_model`, built with ``bridge.to_flax_variables``).
+Messages carry the reference's keys in the reference's order, and the
+codecs (core/compression.py) and the secure-aggregation masks (secagg/)
+run on that tree, so a ``fedml_tpu`` server takes a port client's uploads
+as they are, and the reverse.
 
 **Rounds that lose clients.** ``fed.deadline_s`` arms a timer at each
 broadcast; once it passes, ``fed.min_clients`` uploads close the round and
@@ -58,7 +59,7 @@ import torch
 
 from fedml_tpu_torch.algorithms.fedavg import weighted_average
 from fedml_tpu_torch.algorithms.fedopt import make_server_optimizer, make_server_step
-from fedml_tpu_torch.bridge import from_flax, to_flax
+from fedml_tpu_torch.bridge import from_flax, to_flax_variables
 from fedml_tpu_torch.config import RunConfig
 from fedml_tpu_torch.core import compression as CZ
 from fedml_tpu_torch.core.comm import BaseCommManager
@@ -67,12 +68,12 @@ from fedml_tpu_torch.core.managers import ClientManager, ServerManager
 from fedml_tpu_torch.core.message import Message, MessageType as MT
 from fedml_tpu_torch.data.base import FederatedDataset, bucket_steps, stack_clients
 from fedml_tpu_torch.device import DeviceLike, fp32_math, resolve_device
-from fedml_tpu_torch.models import ModelDef
+from fedml_tpu_torch.models import ModelDef, split_stats
 from fedml_tpu_torch.scheduler import ClientScheduler, FaultInjector, FaultPlan
 from fedml_tpu_torch.secagg.secure_aggregation import ClientParty, ServerAggregator, tree_dim
 from fedml_tpu_torch.telemetry import get_comm_meter, get_tracer
 from fedml_tpu_torch.telemetry.wire import beacon_nbytes, build_beacon
-from fedml_tpu_torch.train.client import PermFn, make_local_train, seeded_perm_fn
+from fedml_tpu_torch.train.client import PermFn, client_step_seed, make_local_train, seeded_perm_fn
 from fedml_tpu_torch.train.evaluate import make_eval_fn, metrics_to_loss_acc, pad_to_batches
 
 Variables = Dict[str, torch.Tensor]
@@ -99,12 +100,12 @@ def _check_config(config: RunConfig) -> None:
 
 def wire_model(variables: Variables) -> dict:
     """Port variables → the model as it goes on the wire."""
-    return {"params": to_flax(variables)}
+    return to_flax_variables(variables)
 
 
 def model_vars(wire: dict, device: torch.device) -> Variables:
     """The model from the wire → port variables on ``device``."""
-    return {k: v.to(device) for k, v in from_flax(wire["params"]).items()}
+    return {k: v.to(device) for k, v in from_flax(wire).items()}
 
 
 def _own_copy(model: ModelDef) -> ModelDef:
@@ -208,6 +209,7 @@ class LocalTrainer:
                 mask_host.to(dev),
                 epoch_perm,
                 mask_host=mask_host,
+                step_seed=client_step_seed(cfg.seed, round_idx, ci),
             )
         count = float(m["count"])
         # a zero-sample shard has no loss signal: None, as the reference
@@ -675,7 +677,9 @@ class FedAvgServerManager(ServerManager):
         # moments from earlier rounds would still move the model
         if self._server_step is not None and received:
             if self._server_opt_state is None:
-                self._server_opt_state = self._server_optimizer.init(self.global_vars)
+                self._server_opt_state = self._server_optimizer.init(
+                    split_stats(self.global_vars)[0]
+                )
             self.global_vars, self._server_opt_state = self._server_step(
                 self.global_vars, avg, self._server_opt_state
             )

@@ -10,9 +10,9 @@ moments starting at 1e-6, Adagrad's accumulator at 0.1. The server state
 simulator below and the transport server (algorithms/fedavg_transport.py),
 so the pseudo-gradient math lives once.
 
-The reference sends only the ``params`` collection through the server
-optimizer and averages the others (batch statistics) plainly; the port's
-models have only parameters."""
+Only the parameters go through the server optimizer, and its state covers
+them alone; the running statistics of a BatchNorm model keep the plain
+weighted average, as the reference's non-param collections do."""
 
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import Callable
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
 from fedml_tpu_torch.config import RunConfig, ServerConfig
 from fedml_tpu_torch.data.base import FederatedDataset
-from fedml_tpu_torch.models import ModelDef
+from fedml_tpu_torch.models import ModelDef, split_stats
 from fedml_tpu_torch.train import optim
 
 
@@ -44,12 +44,14 @@ def make_server_optimizer(sc: ServerConfig) -> optim.GradientTransformation:
 
 def make_server_step(opt: optim.GradientTransformation) -> Callable:
     """``(old_vars, avg_vars, opt_state) -> (new_vars, new_state)``: the
-    FedOpt server move on the pseudo-gradient ``old − avg``."""
+    FedOpt server move on the parameters' pseudo-gradient ``old − avg``;
+    the running statistics are ``avg_vars``'."""
 
     def server_step(old_vars, avg_vars, opt_state):
-        pseudo_grad = {k: old_vars[k] - avg_vars[k] for k in old_vars}
-        updates, new_state = opt.update(pseudo_grad, opt_state, old_vars)
-        return optim.apply_updates(old_vars, updates), new_state
+        old, _ = split_stats(old_vars)
+        pseudo_grad = {k: old[k] - avg_vars[k] for k in old}
+        updates, new_state = opt.update(pseudo_grad, opt_state, old)
+        return {**avg_vars, **optim.apply_updates(old, updates)}, new_state
 
     return server_step
 
@@ -62,7 +64,7 @@ class FedOptAPI(FedAvgAPI):
         super().__init__(config, data, model, **kw)
         self.server_opt = make_server_optimizer(config.server)
         self._server_step = make_server_step(self.server_opt)
-        self.server_opt_state = self.server_opt.init(self.global_vars)
+        self.server_opt_state = self.server_opt.init(split_stats(self.global_vars)[0])
 
     def train_round(self, round_idx: int):
         old_vars = self.global_vars

@@ -415,7 +415,6 @@ def _validate_variant(opt) -> None:
 # that ports it)
 _UNPORTED_OPTIONS = {
     "eval_on_clients": (False, 3),
-    "augment": ("none", 3),
     "telemetry_dir": (None, 1),
     "prom_port": (None, 1),
     "straggle_ms": (0.0, 1),

@@ -2,9 +2,10 @@
 ``fedml_tpu/data/registry.py``).
 
 Ported: the synthetic datasets (``synthetic``, ``synthetic_<a>_<b>``,
-``femnist_synth``, ``shakespeare_synth``, ``shakespeare_synth_lm``) and the
+``femnist_synth``, ``shakespeare_synth``, ``shakespeare_synth_lm``), the
 LEAF and TFF-h5 file loaders (``mnist``, ``shakespeare``, ``femnist``,
-``fed_shakespeare``, ``fed_cifar100``). The other names of ``TASKS`` raise
+``fed_shakespeare``, ``fed_cifar100``) and the centralised image sets with
+their LDA/homo split (``cifar10``, ``cifar100``, ``cinic10``). The other names of ``TASKS`` raise
 NotImplementedError naming ROADMAP.md."""
 
 from __future__ import annotations
@@ -47,9 +48,6 @@ _FILE_LOADERS = {
 # the reference's other names, by the ROADMAP.md item that brings them
 _NOT_PORTED = {
     "seg_synth": 3,  # the segmentation task
-    "cifar10": 7,
-    "cifar100": 7,
-    "cinic10": 7,
     "stackoverflow_lr": 7,
     "stackoverflow_nwp": 7,
     "imagenet": 7,
@@ -101,12 +99,23 @@ def load(config) -> FederatedDataset:
         mod_name, fn_name = _FILE_LOADERS[name]
         fn = getattr(importlib.import_module(mod_name), fn_name)
         return fn(d.data_dir, max_clients=n_clients or None)
+    if name in ("cifar10", "cifar100", "cinic10"):
+        from fedml_tpu_torch.data.cifar import load_cifar_family
+
+        return load_cifar_family(
+            name,
+            d.data_dir,
+            num_clients=n_clients,
+            partition_method=d.partition_method,
+            partition_alpha=d.partition_alpha,
+            seed=config.seed,
+        )
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"dataset {d.dataset!r} is not ported yet (ROADMAP.md §1 item {_NOT_PORTED[name]})"
         )
     available = ", ".join(
         ["synthetic", "synthetic_<a>_<b>", "femnist_synth", "shakespeare_synth",
-         "shakespeare_synth_lm"] + sorted(_FILE_LOADERS)
+         "shakespeare_synth_lm"] + sorted(_FILE_LOADERS) + ["cifar10", "cifar100", "cinic10"]
     )
     raise KeyError(f"unknown dataset {d.dataset!r}; available: {available}")

@@ -1,14 +1,33 @@
 """Model registry: model-name × dataset → ModelDef (port of
-``fedml_tpu/models/registry.py``; ``lr``, ``cnn`` and ``transformer`` are
-ported so far)."""
+``fedml_tpu/models/registry.py``).
+
+Ported: ``lr``, ``cnn``, ``cnn_dropout``, ``transformer``, ``resnet56``,
+``resnet110``, ``resnet18_gn`` … ``resnet152_gn``, ``mobilenet`` and
+``mobilenet_v3``, each with the reference's ``has_batch_stats`` and
+``has_dropout``; ``pretrained=`` pours a ``.pth`` or ``.npz`` checkpoint
+over the init (models/pretrained.py). The reference's other names raise
+NotImplementedError naming ROADMAP.md."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
 
 from fedml_tpu_torch.models import ModelDef
+
+# the reference's other models, each waiting on ROADMAP.md §1 item 7
+_NOT_PORTED = (
+    "rnn", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn", "vgg16_bn", "vgg19_bn",
+    "efficientnet", "segnet", "darts", "mnistgan", "gkt_resnet", "vfl",
+)
+_RESNET_GN = ("resnet18_gn", "resnet34_gn", "resnet50_gn", "resnet101_gn", "resnet152_gn")
+
+
+def _no_options(name: str, kw: dict) -> None:
+    if kw:
+        raise TypeError(f"the {name} model takes no options; got {sorted(kw)}")
 
 
 def create(
@@ -16,27 +35,33 @@ def create(
     dataset_name: str,
     input_shape: Tuple[int, ...],
     num_classes: int,
+    pretrained: str | None = None,
     **kw,
 ) -> ModelDef:
     name = model_name.lower()
+    shape = tuple(input_shape)
+    if pretrained is not None:
+        # the reference's resnet56(pretrained=True, path=...): build the
+        # model, then pour the checkpoint over its init
+        return _with_pretrained(create(model_name, dataset_name, shape, num_classes, **kw),
+                                pretrained)
     if name == "lr":
-        if kw:
-            raise TypeError(f"the lr model takes no options; got {sorted(kw)}")
+        _no_options(name, kw)
         from fedml_tpu_torch.models.linear import LogisticRegression
 
-        return ModelDef(
-            LogisticRegression(num_classes=num_classes, input_shape=tuple(input_shape)),
-            tuple(input_shape), num_classes, name="lr",
-        )
+        return ModelDef(LogisticRegression(num_classes=num_classes, input_shape=shape),
+                        shape, num_classes, name="lr")
     if name == "cnn":
-        if kw:
-            raise TypeError(f"the cnn model takes no options; got {sorted(kw)}")
+        _no_options(name, kw)
         from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
 
-        return ModelDef(
-            CNNOriginalFedAvg(num_classes=num_classes, input_shape=tuple(input_shape)),
-            tuple(input_shape), num_classes, name="cnn",
-        )
+        return ModelDef(CNNOriginalFedAvg(num_classes=num_classes, input_shape=shape),
+                        shape, num_classes, name="cnn")
+    if name == "cnn_dropout":
+        from fedml_tpu_torch.models.cnn import CNNDropOut
+
+        return ModelDef(CNNDropOut(num_classes=num_classes, input_shape=shape, **kw),
+                        shape, num_classes, has_dropout=True, name=name)
     if name == "transformer":
         # the federated causal LM: num_classes is the vocabulary; it trains
         # under task="nwp". Options (num_layers, num_heads, embed_dim,
@@ -49,11 +74,57 @@ def create(
                 "MoE transformers return (logits, aux) and train through "
                 "expert parallelism, not the federated ModelDef path"
             )
-        kw.setdefault("max_len", int(input_shape[0]))
-        return ModelDef(
-            TransformerLM(vocab_size=num_classes, **kw),
-            tuple(input_shape), num_classes, name="transformer", input_dtype=torch.int32,
+        kw.setdefault("max_len", int(shape[0]))
+        return ModelDef(TransformerLM(vocab_size=num_classes, **kw),
+                        shape, num_classes, name="transformer", input_dtype=torch.int32)
+    in_ch = int(shape[-1])
+    if name in ("resnet56", "resnet110"):
+        _no_options(name, kw)
+        from fedml_tpu_torch.models import resnet
+
+        return ModelDef(getattr(resnet, name)(num_classes, in_ch=in_ch),
+                        shape, num_classes, has_batch_stats=True, name=name)
+    if name in _RESNET_GN:
+        from fedml_tpu_torch.models import resnet_gn
+
+        ctor = getattr(resnet_gn, name[: -len("_gn")])
+        cpg = kw.pop("channels_per_group", 2)
+        return ModelDef(ctor(num_classes, channels_per_group=cpg, in_ch=in_ch, **kw),
+                        shape, num_classes, has_batch_stats=(cpg == 0), name=name)
+    if name == "mobilenet":
+        from fedml_tpu_torch.models.mobilenet import MobileNet
+
+        return ModelDef(MobileNet(num_classes=num_classes, in_ch=in_ch, **kw),
+                        shape, num_classes, has_batch_stats=True, name=name)
+    if name == "mobilenet_v3":
+        from fedml_tpu_torch.models.mobilenet import MobileNetV3
+
+        return ModelDef(MobileNetV3(num_classes=num_classes, in_ch=in_ch, **kw),
+                        shape, num_classes, has_batch_stats=True, has_dropout=True, name=name)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model {model_name!r} is not ported yet (ROADMAP.md §1 item 7)"
         )
-    raise NotImplementedError(
-        f"model {model_name!r} is not ported yet (ROADMAP.md); the port has: lr, cnn, transformer"
+    raise KeyError(
+        f"unknown model {model_name!r}; the port has: lr, cnn, cnn_dropout, transformer, "
+        "resnet56, resnet110, resnet18_gn..resnet152_gn, mobilenet, mobilenet_v3"
     )
+
+
+def _with_pretrained(model: ModelDef, path: str) -> ModelDef:
+    """``model`` whose ``init`` returns the checkpoint's weights: ``.pth``
+    through the torch-checkpoint importer, ``.npz`` through the
+    save_pretrained recipe (models/pretrained.py)."""
+    from fedml_tpu_torch.models import pretrained as P
+
+    inner_init = model.init
+
+    def init(generator):
+        template = inner_init(generator)
+        if str(path).endswith(".pth"):
+            return P.load_torch_checkpoint(str(path), template)
+        return P.load_pretrained(str(path), template)
+
+    loaded = dataclasses.replace(model)
+    loaded.init = init  # type: ignore[method-assign]
+    return loaded

@@ -24,8 +24,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from fedml_tpu_torch.models import ModelDef
-from fedml_tpu_torch.models.norms import LayerNorm
+from fedml_tpu_torch.models import ModelDef, split_stats
+from fedml_tpu_torch.models.norms import AFFINE_NORMS
 from fedml_tpu_torch.train import losses as L
 from fedml_tpu_torch.train.optim import apply_updates, build_client_optimizer
 
@@ -96,43 +96,85 @@ class _RoundTo(torch.autograd.Function):
         return g, None
 
 
-def make_mixed_forward(model: ModelDef, tc) -> Callable:
-    """``fwd(params, xb) -> logits`` in float32. The float32 master params
-    and any float inputs are cast to ``tc.compute_dtype`` inside the
-    differentiated function (the cast is linear, so the gradients come
-    back in float32 on the master params); integer tokens are not cast;
-    the logits are widened back to float32. In float32 every cast is a
-    no-op. Augmentation is not ported.
+def client_step_seed(seed: int, round_idx: int, key: int) -> int:
+    """The ``step_seed`` of one client's local train in a round: ``key`` is
+    its cohort slot in the simulator and its client index in the
+    transport, as the reference keys its round keys."""
+    return int(np.random.SeedSequence([seed, round_idx, key, 1]).generate_state(1)[0])
 
-    LayerNorm's ``scale`` and ``bias`` are rounded to the compute type's
-    values but stay float32: its custom backward returns float32 dγ and
-    dβ, which the reference hands to the master params unrounded, while
-    autograd would round them to the type of a cast γ and β."""
-    if tc.augment != "none":
-        raise NotImplementedError("augmentation is not ported yet (ROADMAP.md)")
-    cdt = getattr(torch, tc.compute_dtype, None)
-    if not isinstance(cdt, torch.dtype) or not cdt.is_floating_point:
-        raise ValueError(f"unknown compute_dtype {tc.compute_dtype!r}")
 
-    ln_affine = set()
-    if cdt != torch.float32:
-        for name, mod in model.module.named_modules():
-            if isinstance(mod, LayerNorm):
-                ln_affine.update(f"{name}.{leaf}" if name else leaf for leaf in ("scale", "bias"))
+def step_generator(step_seed: int, stream: int, device=None) -> torch.Generator:
+    """The generator of one local step's ``stream`` (0: dropout masks, on
+    the data's device; 1: augmentation offsets, on the CPU)."""
+    key = np.random.SeedSequence([step_seed, stream]).generate_state(1)[0]
+    return torch.Generator(device=device if device is not None else "cpu").manual_seed(int(key))
 
-    def fwd(params, xb):
+
+class MixedForward:
+    """The shared mixed-precision forward. The float32 master params and
+    any float inputs are cast to ``tc.compute_dtype`` inside the
+    differentiated function (the cast is linear, so the gradients come back
+    in float32 on the master params); integer tokens are not cast; the
+    logits are widened back to float32. The running statistics are never
+    cast down: the norms take float32 statistics, and an EMA rounded to
+    bf16 each step would lose its increments. In float32 every cast is a
+    no-op. With ``tc.augment`` set, each step's batch is augmented first
+    (train/augment.py), with offsets from the step's generator.
+
+    The scale and bias of every BatchNorm, GroupNorm and LayerNorm are
+    rounded to the compute type's values but stay float32: their custom
+    backwards return float32 dγ and dβ, which the reference hands to the
+    master params unrounded, while autograd would round them to the type of
+    a cast γ and β.
+
+    ``fwd(params, xb) -> logits`` for a model without running statistics
+    or dropout; :meth:`train` is the whole step's forward."""
+
+    def __init__(self, model: ModelDef, tc):
+        from fedml_tpu_torch.train.augment import resolve_augment
+
+        cdt = getattr(torch, tc.compute_dtype, None)
+        if not isinstance(cdt, torch.dtype) or not cdt.is_floating_point:
+            raise ValueError(f"unknown compute_dtype {tc.compute_dtype!r}")
+        self.model, self.cdt = model, cdt
+        self.augment = resolve_augment(getattr(tc, "augment", "none"))
+        self.affine = set()
+        if cdt != torch.float32:
+            for name, mod in model.module.named_modules():
+                if isinstance(mod, AFFINE_NORMS):
+                    self.affine.update(f"{name}.{leaf}" if name else leaf for leaf in ("scale", "bias"))
+
+    def __call__(self, params, xb):
+        return self.train(params, {}, xb)[0]
+
+    def train(self, params, stats, xb, step_seed: int = 0):
+        """→ (float32 logits, new running statistics)."""
+        cdt = self.cdt
+        if self.augment is not None:
+            xb = self.augment(step_generator(step_seed, 1), xb)
         xb_c = xb.to(cdt) if xb.is_floating_point() else xb
-        params_c = cast_floats({k: v for k, v in params.items() if k not in ln_affine}, cdt)
-        params_c.update({k: _RoundTo.apply(params[k], cdt) for k in ln_affine})
-        return model.apply(params_c, xb_c, train=True)[0].float()
+        params_c = cast_floats({k: v for k, v in params.items() if k not in self.affine}, cdt)
+        params_c.update({k: _RoundTo.apply(params[k], cdt) for k in self.affine if k in params})
+        gen = step_generator(step_seed, 0, xb.device) if self.model.has_dropout else None
+        logits, new_vars = self.model.apply({**params_c, **stats}, xb_c, train=True, rng=gen)
+        return logits.float(), {k: new_vars[k] for k in stats}
 
-    return fwd
+
+def make_mixed_forward(model: ModelDef, tc) -> MixedForward:
+    """The forward of a local step (see :class:`MixedForward`)."""
+    return MixedForward(model, tc)
 
 
 class LocalTrain:
     """The per-client training function (see the module docstring).
     :meth:`run_epochs` is the same loop with the optimizer state in and
-    out, for callers that carry it."""
+    out, for callers that carry it.
+
+    Only the parameters are differentiated and stepped by the optimizer;
+    after each real step the model's new running statistics replace the
+    old, and an all-padding step keeps both. Each step's dropout masks and
+    augmentation offsets come from generators of its own, seeded from the
+    client's ``step_seed``, the epoch and the step."""
 
     def __init__(self, model: ModelDef, tc, epochs: int, task: str = "classification"):
         self.tc = tc
@@ -140,11 +182,12 @@ class LocalTrain:
         self.opt = build_client_optimizer(tc)
         self.task_loss = make_task_loss(task)
         self.fwd = make_mixed_forward(model, tc)
+        self._random_steps = model.has_dropout or self.fwd.augment is not None
 
-    def _step(self, params, opt_state, xb, yb, mb, prox_ref):
+    def _step(self, params, stats, opt_state, xb, yb, mb, prox_ref, step_seed):
         tc = self.tc
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        logits = self.fwd(p, xb)
+        logits, new_stats = self.fwd.train(p, stats, xb, step_seed)
         task_l, correct, total = self.task_loss(logits, yb, mb)
         loss = task_l
         if tc.prox_mu:
@@ -155,21 +198,24 @@ class LocalTrain:
             new_params = apply_updates(params, updates)
             # task_l (not loss) feeds the metrics, as in the reference
             mets = torch.stack([task_l * total, correct, total, torch.ones_like(total)])
-        return new_params, opt_state, mets
+        return new_params, new_stats, opt_state, mets
 
     def run_epochs(
         self,
-        params: Dict[str, torch.Tensor],
+        variables: Dict[str, torch.Tensor],
         opt_state,
         x: torch.Tensor,
         y: torch.Tensor,
         mask: torch.Tensor,
         epoch_perm: EpochPerm,
         mask_host: Optional[torch.Tensor] = None,
+        step_seed: int = 0,
     ):
-        """→ (params', opt_state', mets [4] = loss_sum, correct, count,
-        steps). ``mask_host`` is ``mask`` on the CPU when the caller has it
-        (it decides, with the permutation, which steps hold data)."""
+        """→ (variables', opt_state', mets [4] = loss_sum, correct, count,
+        steps). ``opt_state`` is over the parameters only. ``mask_host``
+        is ``mask`` on the CPU when the caller has it (it decides, with the
+        permutation, which steps hold data)."""
+        params, stats = split_stats(variables)
         S, B = mask.shape[0], mask.shape[1]
         n_flat = S * B
         x_flat = x.reshape((n_flat,) + tuple(x.shape[2:]))
@@ -188,15 +234,21 @@ class LocalTrain:
             for s in range(S):
                 if not has_data[s]:
                     continue  # all-padding step: a complete no-op
-                params, opt_state, step_mets = self._step(
-                    params, opt_state, xe[s], ye[s], me[s], prox_ref
+                seed = (
+                    int(np.random.SeedSequence([step_seed, epoch, s]).generate_state(1)[0])
+                    if self._random_steps else 0
+                )
+                params, stats, opt_state, step_mets = self._step(
+                    params, stats, opt_state, xe[s], ye[s], me[s], prox_ref, seed
                 )
                 mets = mets + step_mets
-        return params, opt_state, mets
+        return {**params, **stats}, opt_state, mets
 
-    def __call__(self, variables, x, y, mask, epoch_perm: EpochPerm, mask_host=None):
-        params, _, mets = self.run_epochs(
-            variables, self.opt.init(variables), x, y, mask, epoch_perm, mask_host
+    def __call__(self, variables, x, y, mask, epoch_perm: EpochPerm, mask_host=None,
+                 step_seed: int = 0):
+        params, _ = split_stats(variables)
+        new_vars, _, mets = self.run_epochs(
+            variables, self.opt.init(params), x, y, mask, epoch_perm, mask_host, step_seed
         )
         # "steps" = effective local optimizer steps (all-padding steps are
         # skipped and not counted) — FedNova's τ_i normalizer
@@ -206,7 +258,7 @@ class LocalTrain:
             "count": mets[2],
             "steps": mets[3],
         }
-        return params, metrics
+        return new_vars, metrics
 
 
 def make_local_train(model: ModelDef, tc, epochs: int, task: str = "classification") -> LocalTrain:

@@ -29,7 +29,9 @@ def pad_to_batches(x: np.ndarray, y: np.ndarray, batch_size: int):
 
 def make_eval_fn(model: ModelDef, task: str = "classification"):
     """``eval_fn(variables, x, y, mask) -> {loss_sum, correct, count}`` over
-    batched inputs x [S, B, ...]; sums stay on the inputs' device."""
+    batched inputs x [S, B, ...]; sums stay on the inputs' device. The
+    model runs with ``train=False``: BatchNorm on the variables' running
+    statistics, dropout off."""
     task_loss = make_task_loss(task)
 
     @torch.no_grad()

@@ -12,9 +12,9 @@ Dicts flatten by sorted key, lists and tuples to ``#0``, ``#1``, … plus
 
 The trees are the reference's:
 
-- ``vars`` holds ``{"params": <flax tree>}`` (``bridge.to_flax``: conv
-  kernels HWIO, dense kernels [in, out]), read back through
-  ``bridge.from_flax``;
+- ``vars`` holds ``{"params": <flax tree>}``, and a BatchNorm model's
+  ``"batch_stats"`` beside it (``bridge.to_flax_variables``: conv kernels
+  HWIO, dense kernels [in, out]), read back through ``bridge.from_flax``;
 - ``opt`` holds optax's state layout, which the port's optimizers share
   (train/optim.py): NamedTuples as lists, ``count`` as an int32 scalar,
   an ``EmptyState`` as an empty list, and every per-parameter tree (Adam's
@@ -30,7 +30,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from fedml_tpu_torch.bridge import from_flax, to_flax
+from fedml_tpu_torch.bridge import from_flax, to_flax, to_flax_variables
 
 _SEP = "/"
 
@@ -113,7 +113,7 @@ def save_checkpoint(
         return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     flat: Dict[str, np.ndarray] = {}
-    _flatten("vars", {"params": to_flax(global_vars)}, flat)
+    _flatten("vars", to_flax_variables(global_vars), flat)
     if server_opt_state is not None:
         _flatten("opt", _to_reference(server_opt_state), flat)
     if sched_state is not None:
@@ -148,11 +148,12 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int, Any, Any, 
         return _unflatten({k[len(pre):]: v for k, v in flat.items() if k.startswith(pre)})
 
     variables = slot("vars")
-    if set(variables) != {"params"}:
+    if set(variables) not in ({"params"}, {"params", "batch_stats"}):
         raise ValueError(
-            f"checkpoint vars hold {sorted(variables)}; the port's models have only 'params'"
+            f"checkpoint vars hold {sorted(variables)}; the port's models have 'params' "
+            "and, with BatchNorm, 'batch_stats'"
         )
-    global_vars = from_flax(variables["params"])
+    global_vars = from_flax(variables)
     opt_state = slot("opt") if meta.get("has_opt") else None
     algo_state = slot("algo") if meta.get("has_algo") else None
     sched_state = slot("sched") if meta.get("has_sched") else None

@@ -198,7 +198,6 @@ UNPORTED = {
     "fedbuff_over_loopback": ["--algorithm", "fedbuff", "--runtime", "loopback"],
     "dp_fedavg": ["--algorithm", "dp_fedavg"],
     "eval_on_clients": ["--eval_on_clients"],
-    "augment": ["--augment", "cifar"],
     "warmup": ["--warmup"],
     "fused_rounds": ["--fused_rounds", "2"],
     "client_parallelism_vmap": ["--client_parallelism", "vmap"],
@@ -211,8 +210,8 @@ UNPORTED = {
     "telemetry_dir": ["--telemetry_dir", "telemetry"],
     "prom_port": ["--prom_port", "0"],
     "recompile_budget": ["--recompile_budget", "10"],
-    "model_zoo": ["--model", "resnet56"],
-    "dataset": ["--dataset", "cifar10"],
+    "model_zoo": ["--model", "vgg11"],
+    "dataset": ["--dataset", "stackoverflow_lr"],
 }
 
 
