@@ -104,7 +104,26 @@ Phases, each of which raises on failure:
     against the CPU (RESNET_CARD_VS_CPU); the trained ResNet-56 fixture's
     eval logits on the card against the CPU and its test accuracy (1.0);
     and a warm bfloat16 round of ResNet-18-GN (4 silos of 512, 100
-    classes, batch 256). A ``[resnet]`` JSON line gives the readings.
+    classes, batch 256). A ``[resnet]`` JSON line gives the readings;
+16. the defended and private rounds (``phase_defenses``) on the north
+    star: BackdoorFedAvgAPI with one attacker of round 0's cohort boosted
+    γ = 10, 2 median rounds and 1 trimmed-mean round, K1's launches
+    zeroed just before each run and read just after (8 a round), the
+    last aggregate bit-equal to K1's plain version on the round's boosted
+    stack, and the attack success rate; Krum (f = 1) and Multi-Krum
+    (m = 3), 2 rounds each, then one round of one full-batch step a
+    client on the card and on the CPU, whose captured stacks must select
+    the same client ids (the score gap to the next-best client and
+    Krum's device ms reported); weak DP for 2 rounds with one fixed noise
+    stream (CPU draws) on both devices, its full-batch round on the card
+    within CARD_VS_CPU of the CPU's; DPFedAvgAPI for 3 rounds with an
+    explicit secret, its cohorts equal to ``poisson_client_sampling``'s
+    and its epsilon to a fresh host accountant's; power-of-choice
+    overprovisioned ×1.4 under a dropout plan with eval on every client,
+    3 rounds, its cohorts equal to a replay of the policy on the losses
+    the run reported and its ``faults/*`` counters to the plan's, the
+    eval timed apart from ``round_time_s`` (which ends before it). Every
+    loss finite; a ``[defenses]`` JSON line gives the readings.
 
 Then it prints each phase's seconds (``phase_s``), the kernels' JSON line,
 the ``nvidia-smi`` line, and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -1649,6 +1668,258 @@ def phase_resnet(smi: str, device="cuda", rounds=RESNET_ROUNDS, **smaller) -> in
     return launches
 
 
+# ---------------------------------------------------------------- phase 16
+
+# the defended and private rounds on the north star (phase_defenses)
+ATTACK_BOOST = 10.0
+KRUM_M = 3
+DP_SECRET = (1 << 100) + 12345  # explicit, so the cohorts can be checked
+DP_ROUNDS = 3
+# the update clip S: noise z·S/m̂ = 0.01 a coordinate at z = 1, m̂ = 10 (at
+# S = 1 the 0.1 a coordinate on the CNN's 1.69M weights sends the next
+# round's loss to NaN, in the reference as in the port: tests/dp_clip_probe.py)
+DP_CLIP = 0.1
+POC_ROUNDS = 3
+POC_OVERPROVISION = 1.4
+POC_PLAN = {"seed": 7, "default": {"dropout_p": 0.2}}
+WEAK_DP_NOISE_SEED = 5
+
+
+def _with_fed(cfg, **fed):
+    import dataclasses
+
+    return cfg.replace(fed=dataclasses.replace(cfg.fed, **fed))
+
+
+def _full_batch(cfg):
+    import dataclasses
+
+    return cfg.replace(data=dataclasses.replace(cfg.data, batch_size=-1))
+
+
+def _finite_rows(rows, what):
+    for row in rows:
+        for key in ("Train/Loss", "Test/Loss"):
+            if key in row and not math.isfinite(row[key]):
+                raise AssertionError(f"{what}: non-finite {key} in {row}")
+
+
+def _capturing(api_cls, hooks):
+    """``api_cls`` whose round keeps the stack its aggregate is given
+    (``self.stack``); ``hooks(api)`` gives the API's hook triple."""
+    from fedml_tpu_torch.algorithms.fedavg import make_fedavg_round
+
+    class Captured(api_cls):
+        def _build_round_fn(self, local_train_fn):
+            post_train, post_aggregate, aggregate = hooks(self)
+
+            def capture(cv, ns, g=None):
+                self.stack = {k: v.clone() for k, v in cv.items()}
+                return aggregate(cv, ns, g)
+
+            return make_fedavg_round(self.model, self.config, task=self.task,
+                                     local_train_fn=local_train_fn, post_train=post_train,
+                                     post_aggregate=post_aggregate, aggregate_fn=capture)
+
+    return Captured
+
+
+def phase_defenses(smi: str, device="cuda", num_clients=128, per_round=COHORT) -> int:
+    """The defended and private rounds on the north star (phase 16);
+    returns K1's launches in the attacked median and trimmed-mean runs."""
+    import torch
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI, RobustFedAvgAPI
+    from fedml_tpu_torch.algorithms.fedavg import seeded_noise_fn
+    from fedml_tpu_torch.algorithms.fedavg_robust import make_defense_hooks
+    from fedml_tpu_torch.data.edge_cases import PoisonSpec, attack_success_rate, poison_clients
+    from fedml_tpu_torch.ops import robust_stats as rs
+    from fedml_tpu_torch.privacy import DpConfig, DPFedAvgAPI, RdpAccountant
+    from fedml_tpu_torch.privacy.dp_fedavg import poisson_client_sampling
+    from fedml_tpu_torch.robustness import RobustConfig, krum_aggregate, krum_scores, krum_select
+    from fedml_tpu_torch.robustness.backdoor import (
+        AttackConfig, BackdoorFedAvgAPI, make_attack_hooks,
+    )
+    from fedml_tpu_torch.scheduler import ClientScheduler, FaultPlan, select_clients
+
+    on_card = device == "cuda"
+    cfg0, data, model = _north_star(1, num_clients, per_round)
+    report = {"device": device, "card": smi}
+    round_s = lambda api: [r["round_time_s"] for r in api.history]  # noqa: E731
+
+    # (a) the backdoor harness: one attacker of round 0's cohort, boost γ;
+    # K1 once a weight leaf a round, the last aggregate bit-equal to K1's
+    # plain version on the round's boosted stack
+    attacker = int(select_clients(0, num_clients, per_round)[0])
+    spec = PoisonSpec()
+    poisoned = poison_clients(data, [attacker], spec, seed=0)
+    attack = AttackConfig(attacker_ids=(attacker,), boost=ATTACK_BOOST)
+    Backdoor = _capturing(BackdoorFedAvgAPI, lambda api: make_attack_hooks(api.robust, api.attack))
+    launches, report["backdoor"] = 0, {"attacker": attacker, "boost": ATTACK_BOOST}
+    for defense, rounds, trim_k in (("median", 2, None), ("trimmed_mean", 1, 1)):
+        api = Backdoor(_with_fed(cfg0, comm_round=rounds), poisoned, model, attack=attack,
+                       robust=RobustConfig(defense_type=defense, num_byzantine=1), device=device)
+        rs.LAUNCHES[rs.KERNEL_NAME] = 0  # zeroed just before
+        api.train()
+        n = rs.LAUNCHES[rs.KERNEL_NAME]  # read just after
+        if n != (8 * rounds if on_card else 0):
+            raise AssertionError(f"backdoor {defense}: {n} K1 launches, want {8 * rounds}")
+        launches += n
+        _finite_rows(api.history, f"backdoor {defense}")
+        if attacker not in api._round_plan(0):
+            raise AssertionError(f"attacker {attacker} not in round 0's cohort")
+        C = len(api._round_plan(rounds - 1))
+        k = rs.median_trim_k(C) if trim_k is None else trim_k
+        for name, v in api.stack.items():
+            plain = rs.trimmed_mean_plain(v.float().reshape(C, -1), k).reshape(v.shape[1:])
+            if not torch.equal(api.global_vars[name], plain):
+                err = (api.global_vars[name] - plain).abs().max().item()
+                raise AssertionError(f"backdoor {defense}: {name} differs from the plain "
+                                     f"aggregate by {err}")
+        report["backdoor"][defense] = {
+            "k1_launches": n, "round_s": round_s(api), "bit_equal_to_plain": True,
+            "Backdoor/ASR": attack_success_rate(model, api.global_vars, poisoned, spec,
+                                                eval_fn=api.eval_fn),
+        }
+
+    # (b) Krum (f = 1) and Multi-Krum (m = 3), 2 rounds each; then the
+    # selection after one full-batch step a client, card against CPU
+    report["krum"] = {}
+    for defense in ("krum", "multi_krum"):
+        robust = RobustConfig(defense_type=defense, num_byzantine=1, multi_krum_m=KRUM_M)
+        api = RobustFedAvgAPI(_with_fed(cfg0, comm_round=2), data, model, robust=robust,
+                              device=device)
+        api.train()
+        _finite_rows(api.history, defense)
+        report["krum"][defense] = {"round_s": round_s(api)}
+    Krum = _capturing(RobustFedAvgAPI, lambda api: make_defense_hooks(api.robust))
+    stacks = {}
+    for dev in dict.fromkeys(("cpu", device)):
+        api = Krum(_full_batch(cfg0), data, model, device=dev,
+                   robust=RobustConfig(defense_type="krum", num_byzantine=1))
+        api.train_round(0)
+        stacks[dev] = api.stack
+    for defense, m in (("krum", 1), ("multi_krum", KRUM_M)):
+        picked = {dev: krum_select(stacks[dev], 1, m).tolist() for dev in stacks}
+        if picked[device] != picked["cpu"]:
+            raise AssertionError(f"{defense}: the card selects {picked[device]}, "
+                                 f"the CPU {picked['cpu']}")
+        scores = torch.sort(krum_scores(stacks[device], 1)).values.tolist()
+        entry = report["krum"][defense]
+        entry.update(selected=picked[device], cpu_selected=picked["cpu"],
+                     score_gap_rel=(scores[m] - scores[m - 1]) / scores[m - 1])
+        if on_card:
+            entry["ms_a_round"] = device_ms(lambda m=m: krum_aggregate(stacks[device], 1, m),
+                                            iters=10)
+
+    # (c) weak DP, 2 rounds, with one fixed noise stream (CPU draws) on both
+    # devices; a full-batch round on the card within CARD_VS_CPU of the CPU's
+    noise = seeded_noise_fn(WEAK_DP_NOISE_SEED, torch.device("cpu"))
+    robust = RobustConfig(defense_type="weak_dp", norm_bound=5.0, stddev=0.025)
+    api = RobustFedAvgAPI(_with_fed(cfg0, comm_round=2), data, model, robust=robust,
+                          device=device, noise_fn=noise)
+    api.train()
+    _finite_rows(api.history, "weak_dp")
+    out = {}
+    for dev in dict.fromkeys(("cpu", device)):
+        one = RobustFedAvgAPI(_full_batch(cfg0), data, model, robust=robust, device=dev,
+                              noise_fn=noise)
+        one.train_round(0)
+        out[dev] = {k: v.cpu() for k, v in one.global_vars.items()}
+    rtol, atol = CARD_VS_CPU[-1]
+    for k in out["cpu"]:
+        torch.testing.assert_close(out[device][k], out["cpu"][k], rtol=rtol, atol=atol,
+                                   msg=lambda msg, k=k: f"weak_dp card vs cpu, {k}: {msg}")
+    report["weak_dp"] = {"round_s": round_s(api), "card_vs_cpu_max_abs_err": max(
+        (out[device][k] - out["cpu"][k]).abs().max().item() for k in out["cpu"]),
+        "tol": [rtol, atol]}
+
+    # (d) DP-FedAvg, 3 rounds, explicit secret: the Poisson cohorts and the
+    # epsilon of a fresh host accountant
+    dp = DpConfig(clip_norm=DP_CLIP, noise_multiplier=1.0, delta=1e-5, sample_secret=DP_SECRET)
+    api = DPFedAvgAPI(_with_fed(cfg0, comm_round=DP_ROUNDS), data, model, dp=dp, device=device)
+    final = api.train()
+    _finite_rows(api.history, "dp_fedavg")
+    q = per_round / num_clients
+    cohorts = [api._round_plan(r).tolist() for r in range(DP_ROUNDS)]
+    want = [poisson_client_sampling(DP_SECRET, r, num_clients, q).tolist() for r in range(DP_ROUNDS)]
+    if cohorts != want:
+        raise AssertionError(f"dp cohorts {cohorts}, poisson_client_sampling gives {want}")
+    acct = RdpAccountant()
+    for _ in range(DP_ROUNDS):
+        acct.step(q, dp.noise_multiplier)
+    if api.accountant.epsilon(dp.delta) != acct.epsilon(dp.delta):
+        raise AssertionError(f"dp epsilon {api.accountant.epsilon(dp.delta)}, "
+                             f"host accountant {acct.epsilon(dp.delta)}")
+    report["dp_fedavg"] = {"round_s": round_s(api), "cohort_sizes": [len(c) for c in cohorts],
+                           "epsilon": final["DP/epsilon"], "rdp_order": final["DP/rdp_order"]}
+
+    # (e) power-of-choice, overprovisioned, under a dropout plan, evaluated
+    # on every client: the cohorts replayed from the losses the run
+    # reported, the faults/* counters from the plan
+    cfg = _with_fed(cfg0, comm_round=POC_ROUNDS, selection="power_of_choice",
+                    overprovision_factor=POC_OVERPROVISION, fault_plan=json.dumps(POC_PLAN),
+                    eval_on_clients=True)
+    api = FedAvgAPI(cfg, data, model, device=device)
+    reported, marks = [], []
+    report_loss, log_round = api.scheduler.report_loss, api._log_round
+    api.scheduler.report_loss = lambda cid, loss: (reported.append((cid, loss)),
+                                                   report_loss(cid, loss))
+    api._log_round = lambda *a: (log_round(*a), marks.append(len(reported)))[0]
+    # round_time_s ends before the round's eval: the eval over every
+    # client's shards is timed on its own (its metrics come to the host)
+    eval_s, local_test = [], api.local_test_on_all_clients
+
+    def timed_local_test(*a):
+        t0 = time.perf_counter()
+        row = local_test(*a)
+        eval_s.append(time.perf_counter() - t0)
+        return row
+
+    api.local_test_on_all_clients = timed_local_test
+    api.train()
+    _finite_rows(api.history, "power_of_choice")
+    replay = ClientScheduler.from_config(cfg, num_clients=num_clients, data=data)
+    plan, counts, crashed, start = FaultPlan.from_config(cfg), {"dropout": 0, "crash": 0}, set(), 0
+    for r in range(POC_ROUNDS):
+        sel = [int(c) for c in replay.select(r)]
+        if sel != api.scheduler.select(r).tolist() or len(sel) != replay.cohort_size():
+            raise AssertionError(f"round {r}: cohort {api.scheduler.select(r)}, replay {sel}")
+        decisions = [(c, plan.decide(c, r)) for c in sel]
+        survivors = [c for c, d in decisions if d.participates] or sel[:1]
+        if survivors != api._round_plan(r).tolist():
+            raise AssertionError(f"round {r}: survivors {api._round_plan(r)}, replay {survivors}")
+        for c, d in decisions:
+            if c in survivors:
+                continue
+            if d.crashed:
+                counts["crash"] += c not in crashed
+                crashed.add(c)
+            else:
+                counts["dropout"] += 1
+        for cid, loss in reported[start:marks[r]]:
+            replay.report_loss(cid, loss)
+        start = marks[r]
+    want_row = {"faults/dropouts": counts["dropout"], "faults/crashes": counts["crash"],
+                "faults/slowdowns": 0, "faults/flaky_uploads": 0,
+                "faults/total": counts["dropout"] + counts["crash"]}
+    if api.faults.summary_row() != want_row:
+        raise AssertionError(f"faults row {api.faults.summary_row()}, want {want_row}")
+    keys = {"round", "Train/Loss", "Train/Acc", "Test/Loss", "Test/Acc", "round_time_s"}
+    if any(set(row) != keys for row in api.history):
+        raise AssertionError(f"power_of_choice rows {[sorted(r) for r in api.history]}")
+    if len(eval_s) != POC_ROUNDS:
+        raise AssertionError(f"power_of_choice: {len(eval_s)} evals on all clients in "
+                             f"{POC_ROUNDS} rounds")
+    report["power_of_choice"] = {"round_s": round_s(api), "eval_s": eval_s,
+                                 "cohort": replay.cohort_size(),
+                                 "survivors": [len(api._round_plan(r)) for r in range(POC_ROUNDS)],
+                                 "faults": want_row, "last_row": api.history[-1]}
+    report["k1_launches"] = launches
+    log("[defenses] " + json.dumps(report))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1681,6 +1952,7 @@ def main() -> int:
     timed(phase_faults_secagg, smi)
     cli_launches = timed(phase_cli, smi, main_warm_s["median"])
     resnet_launches = timed(phase_resnet, smi)
+    defense_launches = timed(phase_defenses, smi)
     log(json.dumps({"phase_s": phase_s}))
 
     from fedml_tpu_torch.ops import flash_attention as fa
@@ -1727,6 +1999,9 @@ def main() -> int:
         # launches of 2 robust median rounds of the cross-silo ResNet-56
         # (phase 15): one a parameter leaf a round
         "resnet_launches": resnet_launches,
+        # launches of the attacked median (2 rounds) and trimmed-mean (1)
+        # runs of phase 16: 8 a round
+        "defense_launches": defense_launches,
     }] + flash_rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,21 +1,28 @@
 """FedAvg — the main path (port of ``fedml_tpu/algorithms/fedavg.py``, its
 eager parts).
 
-One round: a uniform cohort draw, the sampled shards gathered from the
-device store into a padded [C, S, B] batch, each client's local train from
-the global model, then the sample-weighted float32 average (or a defense's
-aggregate). The reference lifts the local train over the clients with
-``vmap`` or ``lax.scan`` and proves the two schedules compute the same
-thing; the port runs every ``client_parallelism`` mode as the sequential
-loop — the schedule ``resolve_client_parallelism`` picks for the FEMNIST
-CNN, and the "scan" schedule the flagship LM runs. ``task`` is
-"classification" or "nwp" (next-word prediction, the transformer LM). Knobs that in the reference change only the schedule, never the
-numbers (``client_parallelism``, ``fused_rounds``, ``fused_plan``,
-``pipeline``, ``compile.*``), are not read here. Knobs that would change
-the numbers and are not ported yet raise."""
+One round: the cohort (the scheduler's policy, less the clients a fault
+plan drops), the sampled shards gathered from the device store into a
+padded [C, S, B] batch, each client's local train from the global model,
+then the sample-weighted float32 average (or a defense's aggregate). The
+reference lifts the local train over the clients with ``vmap`` or
+``lax.scan`` and proves the two schedules compute the same thing; the port
+runs every ``client_parallelism`` mode as the sequential loop — the
+schedule ``resolve_client_parallelism`` picks for the FEMNIST CNN, and the
+"scan" schedule the flagship LM runs. ``task`` is "classification" or
+"nwp" (next-word prediction, the transformer LM). Knobs that in the
+reference change only the schedule, never the numbers
+(``client_parallelism``, ``fused_rounds``, ``fused_plan``, ``pipeline``,
+``compile.*``), are not read here.
+
+Two random streams are hooks, because PyTorch cannot reproduce JAX's
+threefry: the local shuffles (``perm_fn``, train/client.py) and the
+Gaussian noise of the private and defended rounds (``noise_fn``, below)."""
 
 from __future__ import annotations
 
+import functools
+import logging
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -27,7 +34,7 @@ from fedml_tpu_torch.data.base import FederatedDataset, stack_clients
 from fedml_tpu_torch.data.device_store import DeviceDataStore
 from fedml_tpu_torch.device import DeviceLike, fp32_math, resolve_device
 from fedml_tpu_torch.models import ModelDef
-from fedml_tpu_torch.scheduler import ClientScheduler, select_clients
+from fedml_tpu_torch.scheduler import ClientScheduler, FaultInjector, select_clients
 from fedml_tpu_torch.train.client import (
     EpochPerm, PermFn, client_step_seed, make_local_train, seeded_perm_fn,
 )
@@ -35,6 +42,32 @@ from fedml_tpu_torch.train.evaluate import make_eval_fn, metrics_to_loss_acc, pa
 
 Tree = Dict[str, torch.Tensor]
 _METRIC_KEYS = ("correct", "count", "loss_sum", "steps")
+
+# the tag of the noise stream of weak DP, DP-FedAvg and the backdoor
+# harness (the reference folds it into the round key: NOISE_FOLD of
+# fedml_tpu/algorithms/fedavg_robust.py)
+NOISE_FOLD = 0x5EED
+
+# (round, tag, leaf names, leaf shapes) -> one standard-normal float32
+# tensor per leaf, in the order given
+NoiseFn = Callable[[int, int, List[str], List[tuple]], List[torch.Tensor]]
+# (leaf names, leaf shapes) -> tensors: one round's draw
+NoiseDraw = Callable[[List[str], List[tuple]], List[torch.Tensor]]
+
+
+def seeded_noise_fn(seed: int, device: torch.device) -> NoiseFn:
+    """The port's default noise source: one generator on ``device`` a
+    (round, tag), seeded from (seed, round, tag), drawing the leaves in the
+    order given. The reference draws ``normal(split(fold_in(round_key,
+    tag), n_leaves)[i])`` for leaf i in ``jax.tree_util`` order; a test
+    that needs those draws passes a ``noise_fn`` that makes them."""
+
+    def noise_fn(round_idx, tag, names, shapes):
+        key = np.random.SeedSequence([seed, round_idx, tag]).generate_state(1)[0]
+        gen = torch.Generator(device=device).manual_seed(int(key))
+        return [torch.randn(shape, generator=gen, device=device) for shape in shapes]
+
+    return noise_fn
 
 
 def weighted_average(stacked_tree: Tree, weights: torch.Tensor) -> Tree:
@@ -71,18 +104,22 @@ def make_fedavg_round(
     post_aggregate: Optional[Callable] = None,
     aggregate_fn: Optional[Callable] = None,
     robust=None,
+    client_metrics: bool = False,
 ):
     """The round function ``(global_vars, x, y, mask, num_samples,
-    client_perms, step_seeds=None) -> (global_vars', metric sums)``;
-    ``step_seeds[j]`` seeds client j's dropout and augmentation.
+    client_perms, step_seeds=None, *extra) -> (global_vars', metric
+    sums)``; ``step_seeds[j]`` seeds client j's dropout and augmentation.
 
-    ``post_train(client_vars, global_vars)`` transforms the stacked
+    ``post_train(client_vars, global_vars, *extra)`` transforms the stacked
     per-client results before aggregation, ``aggregate_fn(client_vars,
     num_samples, global_vars)`` replaces the weighted average (of the
     parameters and the running statistics alike) and
-    ``post_aggregate(new_global)`` transforms the result.
-    ``robust`` (a RobustConfig) derives the three hooks from the defense
-    config; it excludes passing hooks directly."""
+    ``post_aggregate(new_global, *extra)`` transforms the result; the
+    round's arguments after ``step_seeds`` (a noise draw, an attack mask)
+    go to both. ``robust`` (a RobustConfig) derives the three hooks from
+    the defense config; it excludes passing hooks directly.
+    ``client_metrics`` adds the per-client ``client_loss_sum`` and
+    ``client_count`` vectors [C] to the sums (power-of-choice's signal)."""
     if robust is not None:
         if any(h is not None for h in (post_train, post_aggregate, aggregate_fn)):
             raise ValueError(
@@ -96,11 +133,12 @@ def make_fedavg_round(
         model, config.train, config.fed.epochs, task=task
     )
 
-    def round_fn(global_vars, x, y, mask, num_samples, client_perms, step_seeds=None):
+    def round_fn(global_vars, x, y, mask, num_samples, client_perms, step_seeds=None, *extra):
         C = x.shape[0]
         mask_host = mask.cpu()  # which steps hold data is decided on the host
         client_vars: Tree = {}
         sums = None
+        per_client = []
         for j in range(C):
             new_vars, mets = local_train(
                 global_vars, x[j], y[j], mask[j], client_perms[j], mask_host=mask_host[j],
@@ -111,16 +149,22 @@ def make_fedavg_round(
                     client_vars[k] = torch.empty((C,) + tuple(v.shape), dtype=v.dtype, device=v.device)
                 client_vars[k][j] = v
             vec = torch.stack([mets[k] for k in _METRIC_KEYS])
+            per_client.append(vec)
             sums = vec if sums is None else sums + vec
         if post_train is not None:
-            client_vars = post_train(client_vars, global_vars)
+            client_vars = post_train(client_vars, global_vars, *extra)
         if aggregate_fn is not None:
             new_global = aggregate_fn(client_vars, num_samples, global_vars)
         else:
             new_global = weighted_average(client_vars, num_samples)
         if post_aggregate is not None:
-            new_global = post_aggregate(new_global)
-        return new_global, dict(zip(_METRIC_KEYS, sums))
+            new_global = post_aggregate(new_global, *extra)
+        metrics = dict(zip(_METRIC_KEYS, sums))
+        if client_metrics:
+            stacked = torch.stack(per_client)
+            metrics["client_loss_sum"] = stacked[:, _METRIC_KEYS.index("loss_sum")]
+            metrics["client_count"] = stacked[:, _METRIC_KEYS.index("count")]
+        return new_global, metrics
 
     return round_fn
 
@@ -130,7 +174,16 @@ class FedAvgAPI:
     ``FedAvgAPI``). ``device=None`` runs on the card and raises without
     one; pass ``device="cpu"`` for the CPU. ``perm_fn(round, client_slot,
     epoch, mask_flat)`` is the local shuffle source (default
-    :func:`seeded_perm_fn` of ``config.seed``)."""
+    :func:`seeded_perm_fn` of ``config.seed``), ``noise_fn`` the noise
+    source of the subclasses that add noise (default
+    :func:`seeded_noise_fn`).
+
+    A round's cohort is the scheduler's selection less the clients the
+    fault plan (``fed.fault_plan``) drops or crashes; the simulator trains
+    a cohort as one program, so only participation faults apply, and
+    ``faults.summary_row()`` holds the run's counts. With
+    ``fed.eval_on_clients`` an eval round reports the global model on every
+    client's shards (:meth:`local_test_on_all_clients`)."""
 
     def __init__(
         self,
@@ -142,16 +195,9 @@ class FedAvgAPI:
         log_fn: Optional[Callable[[dict], None]] = None,
         device: DeviceLike = None,
         perm_fn: Optional[PermFn] = None,
+        noise_fn: Optional[NoiseFn] = None,
     ):
         self.device = resolve_device(device)
-        fed = config.fed
-        if fed.fault_plan:
-            raise NotImplementedError(
-                "fault plans in the simulator are not ported yet (ROADMAP.md); "
-                "the transport (fedavg_transport) takes them"
-            )
-        if fed.eval_on_clients:
-            raise NotImplementedError("eval_on_clients is not ported yet (ROADMAP.md)")
         self.config = config
         self.data = data
         self.model = model
@@ -160,16 +206,24 @@ class FedAvgAPI:
         init = model.init(torch.Generator().manual_seed(config.seed))
         self.global_vars = {k: v.to(self.device) for k, v in init.items()}
         self.perm_fn = perm_fn or seeded_perm_fn(config.seed)
+        self.noise_fn = noise_fn or seeded_noise_fn(config.seed, self.device)
+        # each fresh cohort goes to log_fn (summary.json's scheduler/* keys)
+        self.scheduler = ClientScheduler.from_config(
+            config, num_clients=data.num_clients, data=data, log_fn=self.log_fn
+        )
         self.round_fn = self._build_round_fn(local_train_fn)
         self.eval_fn = make_eval_fn(model, task)
         self.history: list = []
         # --resume sets global_vars, start_round (and a FedOpt's
         # server_opt_state) after construction; train() continues from there
         self.start_round = 0
-        # each fresh cohort goes to log_fn (summary.json's scheduler/* keys)
-        self.scheduler = ClientScheduler.from_config(
-            config, num_clients=data.num_clients, data=data, log_fn=self.log_fn
-        )
+        self.faults = FaultInjector.from_config(config)
+        # round -> cohort after faults: one decision a round, so the fault
+        # counters count each fault once
+        self._round_plans: Dict[int, np.ndarray] = {}
+        # rounds whose clients' own losses went to the scheduler
+        # (power_of_choice); the others report the cohort mean
+        self._client_loss_rounds: set = set()
         self._store = None
         if config.data.device_cache:
             try:
@@ -179,18 +233,70 @@ class FedAvgAPI:
                 # one expected reason to stack on the host instead
                 self._store = None
         self._test_dev = None
+        self._local_eval_dev = None
 
     def _build_round_fn(self, local_train_fn):
         return make_fedavg_round(
-            self.model, self.config, task=self.task, local_train_fn=local_train_fn
+            self.model, self.config, task=self.task, local_train_fn=local_train_fn,
+            client_metrics=self.scheduler.wants_client_losses,
         )
 
     def train_round(self, round_idx: int):
-        sampled = self.scheduler.select(round_idx)
+        sampled = self._round_plan(round_idx)
         placed = self._place_batch(self._round_batch(sampled, round_idx), round_idx)
         with fp32_math():
             self.global_vars, metrics = self.round_fn(self.global_vars, *placed)
+        if "client_loss_sum" in metrics:
+            self._report_client_losses(sampled, metrics, round_idx)
         return sampled, metrics
+
+    def _report_client_losses(self, sampled, metrics, round_idx: int) -> None:
+        """Each client's own mean train loss to the scheduler (a client
+        without samples reports none), as the transport clients attach
+        theirs to their uploads."""
+        losses, counts = metrics["client_loss_sum"].tolist(), metrics["client_count"].tolist()
+        for cid, s, c in zip(sampled, losses, counts):
+            if c > 0:
+                self.scheduler.report_loss(int(cid), float(s) / float(c))
+        self._client_loss_rounds.add(int(round_idx))
+
+    def _round_plan(self, round_idx: int) -> np.ndarray:
+        """The round's cohort, memoized: the round, the backdoor harness's
+        attack mask and the fault counters see one decision a round."""
+        sampled = self._round_plans.get(round_idx)
+        if sampled is None:
+            sampled = self._round_plans[round_idx] = self._sample_clients(round_idx)
+        return sampled
+
+    def _sample_clients(self, round_idx: int) -> np.ndarray:
+        """The scheduler's cohort less the clients the fault plan removes
+        (DP-FedAvg draws its own cohorts instead)."""
+        sel = self.scheduler.select(round_idx)
+        if self.faults is not None:
+            sel = self._apply_participation_faults(sel, round_idx)
+        return sel
+
+    def _apply_participation_faults(self, selected, round_idx: int) -> np.ndarray:
+        """Dropout and crash remove a client from the cohort before
+        batching. When every selected client faults, the first is spared
+        (and no fault is recorded for it: it trains) so the round stays
+        well-formed."""
+        r = int(round_idx)
+        decisions = [(int(cid), self.faults.decide(int(cid), r)) for cid in selected]
+        survivors = [cid for cid, d in decisions if d.participates]
+        spared = None
+        if not survivors:
+            spared = int(selected[0])
+            survivors = [spared]
+            logging.warning(
+                "fault plan removed the ENTIRE round-%d cohort; sparing client %d so the "
+                "round stays well-formed", r, spared,
+            )
+        for cid, d in decisions:
+            if cid == spared or d.participates:
+                continue
+            self.faults.record(cid, r, "crash" if d.crashed else "dropout")
+        return np.asarray(survivors, np.int64)
 
     def _stack(self, client_indices, seed: int):
         cfg = self.config
@@ -218,6 +324,10 @@ class FedAvgAPI:
             [client_step_seed(self.config.seed, round_idx, j) for j in range(batch.num_clients)],
         )
 
+    def _noise_draw(self, round_idx: int) -> NoiseDraw:
+        """The round's noise stream, for the hooks that add noise."""
+        return functools.partial(self.noise_fn, round_idx, NOISE_FOLD)
+
     def _eval_batches(self):
         if self._test_dev is None:
             xb, yb, mb = pad_to_batches(
@@ -231,6 +341,37 @@ class FedAvgAPI:
         with fp32_math():
             return metrics_to_loss_acc(self.eval_fn(self.global_vars, *self._eval_batches()))
 
+    def local_test_on_all_clients(self, round_idx: int = 0) -> Dict[str, float]:
+        """The global model on every client's data: train metrics over all
+        clients' train shards, test metrics over their test shards (the
+        central test set when the dataset has no per-client split). The
+        reference's per-client sums weighted by sample counts equal one
+        pooled pass, so the shards are concatenated. ``fed.ci`` evaluates
+        client 0 only."""
+        if self._local_eval_dev is None:
+            # the pooled shards do not change between rounds: placed once
+            ids = [0] if self.config.fed.ci else range(self.data.num_clients)
+            xs = np.concatenate([self.data.client_x[i] for i in ids], axis=0)
+            ys = np.concatenate([self.data.client_y[i] for i in ids], axis=0)
+            self._local_eval_dev = {
+                split: tuple(torch.from_numpy(a).to(self.device) for a in pad_to_batches(x, y, 256))
+                for split, (x, y) in {"Train": (xs, ys), "Test": self._client_test_pool(ids)}.items()
+            }
+        row = {"round": round_idx}
+        with fp32_math():
+            for split, batches in self._local_eval_dev.items():
+                loss, acc = metrics_to_loss_acc(self.eval_fn(self.global_vars, *batches))
+                row[f"{split}/Loss"], row[f"{split}/Acc"] = loss, acc
+        return row
+
+    def _client_test_pool(self, ids):
+        if self.data.client_test_x is not None:
+            return (
+                np.concatenate([self.data.client_test_x[i] for i in ids], axis=0),
+                np.concatenate([self.data.client_test_y[i] for i in ids], axis=0),
+            )
+        return np.asarray(self.data.test_x), np.asarray(self.data.test_y)
+
     def _log_round(self, round_idx: int, sampled, metrics: Dict[str, float],
                    round_time_s: float) -> dict:
         count = float(metrics["count"])
@@ -240,12 +381,19 @@ class FedAvgAPI:
             "Train/Acc": float(metrics["correct"]) / max(count, 1e-9),
             "round_time_s": round_time_s,
         }
-        # the loss map of the checkpoint's sched slot: the cohort mean, as
-        # the reference's simulator reports it
-        for cid in sampled:
-            self.scheduler.report_loss(int(cid), row["Train/Loss"])
+        # a round without per-client losses gives every participant the
+        # cohort mean (the loss map of the checkpoint's sched slot)
+        if round_idx not in self._client_loss_rounds:
+            for cid in sampled:
+                self.scheduler.report_loss(int(cid), row["Train/Loss"])
         if self._is_eval_round(round_idx):
-            row["Test/Loss"], row["Test/Acc"] = self.evaluate_global()
+            if self.config.fed.eval_on_clients:
+                # all clients' metrics replace the cohort's, as the
+                # reference's rows have them
+                local = self.local_test_on_all_clients(round_idx)
+                row.update({k: v for k, v in local.items() if k != "round"})
+            else:
+                row["Test/Loss"], row["Test/Acc"] = self.evaluate_global()
         self.history.append(row)
         self.log_fn(row)
         return row

@@ -39,9 +39,11 @@ rounds, ``Test/Loss`` and ``Test/Acc``. The uploads' train loss weighted by
 their sample counts (the simulator's ΣLoss/ΣCount; None for a round whose
 uploads carried none) goes to the server's ``train_losses``, one entry a
 round; each round's cohort goes to ``log_fn`` as the scheduler's
-``scheduler/policy``/``scheduler/selected`` row. Not ported (each raises
-NotImplementedError naming ROADMAP.md): overprovisioning and the
-power-of-choice and straggler-aware policies (in the scheduler), AOT
+``scheduler/policy``/``scheduler/selected`` row, and each upload's train
+loss to the scheduler's loss map (power-of-choice's signal). With
+``fed.overprovision_factor`` the federation has one worker for each of
+``ceil(client_num_per_round · factor)`` slots. Not ported (each raises
+NotImplementedError naming ROADMAP.md): the straggler-aware policy, AOT
 warmup, the client health registry and the flight recorder."""
 
 from __future__ import annotations
@@ -79,16 +81,19 @@ from fedml_tpu_torch.train.evaluate import make_eval_fn, metrics_to_loss_acc, pa
 Variables = Dict[str, torch.Tensor]
 
 
-def _check_config(config: RunConfig) -> None:
+def _check_config(config: RunConfig, worker_num: int) -> None:
     """The reference server's constructor checks. What the port does not
-    have yet raises NotImplementedError where it is reached: the adaptive
-    selection policies and overprovisioning in the scheduler, AOT warmup in
-    :func:`run_federation`, the health registry at ``server.health``.
-    Without overprovisioning a server has exactly ``client_num_per_round``
-    workers, so the reference's check that ``secure_agg`` has no other
-    worker count holds by construction; it comes back with
-    overprovisioning (ROADMAP.md)."""
+    have yet raises NotImplementedError where it is reached: the
+    straggler-aware policy in the scheduler, AOT warmup in
+    :func:`run_federation`, the health registry at ``server.health``."""
     comm = config.comm
+    # clients size the mask registry from client_num_per_round, the only
+    # value they have: another worker count would not cancel the masks
+    if comm.secure_agg and worker_num != config.fed.client_num_per_round:
+        raise ValueError(
+            f"secure_agg requires worker_num ({worker_num}) == client_num_per_round "
+            f"({config.fed.client_num_per_round}): clients derive the mask registry from the latter"
+        )
     if comm.downlink_compression not in ("none", "int8"):
         raise ValueError(
             f"downlink_compression supports 'none' or 'int8'; got {comm.downlink_compression!r}"
@@ -257,7 +262,9 @@ class FedAvgServerManager(ServerManager):
     (``config.server``) on each round's pseudo-gradient. ``init_vars``
     (port variables) replaces the model's seeded init. ``faults`` is the
     federation's one :class:`FaultInjector`: its plan arms the stall valve
-    (see the module docstring)."""
+    (see the module docstring). ``worker_num``, the number of client
+    actors, is the scheduler's cohort size: ``client_num_per_round``
+    overprovisioned by ``overprovision_factor``, one actor a slot."""
 
     def __init__(
         self,
@@ -272,13 +279,13 @@ class FedAvgServerManager(ServerManager):
         init_vars: Optional[Variables] = None,
         faults: Optional[FaultInjector] = None,
     ):
-        _check_config(config)
-        self.worker_num = config.fed.client_num_per_round
-        self.device = resolve_device(device)
         self.log_fn = log_fn or (lambda m: None)
         self.scheduler = ClientScheduler.from_config(
             config, num_clients=config.fed.client_num_in_total, data=data, log_fn=self.log_fn
         )
+        self.worker_num = self.scheduler.cohort_size()
+        _check_config(config, self.worker_num)
+        self.device = resolve_device(device)
         super().__init__(comm, rank=0, config=config)
         self.config = config
         self.model = _own_copy(model)
@@ -324,6 +331,7 @@ class FedAvgServerManager(ServerManager):
         # masked uploads decode against it
         self._round_wire: Optional[dict] = None
         self._round_losses: Dict[int, tuple] = {}
+        self._assigned: Dict[int, int] = {}  # worker -> the client it trains this round
         self.history: List[dict] = []
         # the uploads' sample-weighted train loss, one entry a round
         self.train_losses: List[Optional[float]] = []
@@ -384,6 +392,7 @@ class FedAvgServerManager(ServerManager):
         else:
             shipped, raw = _model_wire_cost(host)
         self._round_wire = host
+        self._assigned = {worker: int(c) for worker, c in enumerate(sampled, start=1)}
         for worker, client_idx in enumerate(sampled, start=1):
             msg = Message(msg_type, 0, worker)
             if payload is not None:
@@ -551,6 +560,11 @@ class FedAvgServerManager(ServerManager):
             if upload_round != self.round_idx:
                 self.dropped_uploads += 1
                 return
+            # power-of-choice's signal: the client's mean train loss
+            # rides its upload
+            loss = msg.get(MT.ARG_TRAIN_LOSS)
+            if loss is not None and msg.get_sender_id() in self._assigned:
+                self.scheduler.report_loss(self._assigned[msg.get_sender_id()], float(loss))
             worker = msg.get_sender_id() - 1
             n = msg.get(MT.ARG_NUM_SAMPLES)
             if self.config.comm.secure_agg:
@@ -867,8 +881,9 @@ def run_federation(
     device: DeviceLike = None,
     init_vars: Optional[Variables] = None,
 ) -> FedAvgServerManager:
-    """One-process federation over any transport: a server and
-    ``client_num_per_round`` client actors in threads, each on
+    """One-process federation over any transport: a server and one client
+    actor a scheduler slot (``ceil(client_num_per_round ·
+    overprovision_factor)``) in threads, each on
     ``comm_factory(rank)``. A ``fed.fault_plan`` is parsed ONCE into one
     injector that every client actor and the server's stall valve share;
     after the last round its ``faults/*`` counters go to ``log_fn``.

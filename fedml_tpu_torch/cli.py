@@ -6,18 +6,23 @@ option of the reference's ``main`` under the same name, default, type and
 choices, and the same invocation trains the same way:
 
 - ``--runtime vmap`` (the port's sequential simulator; the flag keeps the
-  reference's name) with ``fedavg``, ``fedprox``, ``fedopt`` and
-  ``fedavg_robust`` (``median`` and ``trimmed_mean`` on kernel K1,
-  ``norm_diff_clipping``, ``no_defense``);
+  reference's name) with ``fedavg``, ``fedprox``, ``fedopt``,
+  ``dp_fedavg`` and ``fedavg_robust`` (``median`` and ``trimmed_mean`` on
+  kernel K1, ``krum``, ``multi_krum``, ``norm_diff_clipping``,
+  ``weak_dp``, ``no_defense``; ``--attack backdoor`` adds the boosted
+  attackers and ``Backdoor/ASR``), with the ``uniform``, ``weighted`` and
+  ``power_of_choice`` policies, ``--overprovision_factor``, fault plans
+  and ``--eval_on_clients``;
 - ``--runtime loopback|shm|mqtt`` with ``fedavg``, ``fedprox`` and
   ``fedopt`` through ``run_*_federation``, with deadlines and quorum, fault
-  plans, codecs, secure aggregation and send retries.
+  plans, overprovisioning, codecs, secure aggregation and send retries.
 
 The rows go to ``--log_dir`` (``metrics.jsonl``, ``summary.json``), and the
 last line printed is the final row as JSON. ``--checkpoint_path`` writes a
 checkpoint on every row with ``Test/Acc`` and at the end, in the
 reference's format (utils/checkpoint.py), and ``--resume`` continues from
-one written by either package.
+one written by either package (DP-FedAvg's ledger and participation
+secret in its ``algo`` slot).
 
 The reference's usage errors are usage errors here (exit code 2). An
 option whose feature is not ported is accepted at its default and raises
@@ -119,7 +124,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("--epochs", type=int, default=1)
     a("--comm_round", type=int, default=10)
     a("--frequency_of_the_test", type=int, default=1)
-    flag("--eval_on_clients", "eval on every client's shards (not ported: ROADMAP.md §1 item 3)")
+    flag("--eval_on_clients", "eval on every client's local shards (the reference's "
+         "_local_test_on_all_clients) instead of the central test set")
     a("--algorithm", choices=ALGORITHMS, default="fedavg")
     a("--runtime", choices=RUNTIMES, default="vmap")
     a("--client_shards", type=int, default=None, help="mesh shards (runtime=mesh)")
@@ -129,16 +135,22 @@ def build_parser() -> argparse.ArgumentParser:
     a("--prox_mu", type=float, default=0.01, help="FedProx proximal term (algorithm=fedprox)")
     a("--defense", choices=CLIP_DEFENSES + BYZANTINE_AGGREGATORS, default="norm_diff_clipping",
       help="fedavg_robust: clip/noise or Byzantine aggregator")
-    a("--norm_bound", type=float, default=5.0)
-    a("--noise_stddev", type=float, default=0.025)
+    a("--norm_bound", type=float, default=5.0,
+      help="norm_diff_clipping/weak_dp: clip ||w_i - w_g|| to this")
+    a("--noise_stddev", type=float, default=0.025,
+      help="weak_dp: Gaussian noise stddev after averaging")
     a("--num_byzantine", type=int, default=1,
       help="assumed Byzantine client count (trimmed_mean trim-k, krum f)")
-    a("--multi_krum_m", type=int, default=3)
-    a("--attack", choices=("none", "backdoor"), default="none")
-    a("--num_attackers", type=int, default=1)
-    a("--attack_boost", type=float, default=10.0)
-    a("--poison_frac", type=float, default=0.5)
-    a("--target_label", type=int, default=0)
+    a("--multi_krum_m", type=int, default=3, help="multi_krum: average the m best-scored clients")
+    a("--attack", choices=("none", "backdoor"), default="none",
+      help="fedavg_robust: simulate attackers (poisoned shards + boosted uploads) and report "
+           "Backdoor/ASR")
+    a("--num_attackers", type=int, default=1, help="attack=backdoor: clients 0..k-1 are attackers")
+    a("--attack_boost", type=float, default=10.0,
+      help="model-replacement boost γ on attacker uploads")
+    a("--poison_frac", type=float, default=0.5,
+      help="fraction of each attacker shard triggered+relabeled")
+    a("--target_label", type=int, default=0, help="backdoor target class")
     a("--group_num", type=int, default=2, help="hierarchical: number of groups")
     a("--group_comm_round", type=int, default=1)
     a("--compute_dtype", choices=("float32", "bfloat16"), default="float32",
@@ -165,9 +177,12 @@ def build_parser() -> argparse.ArgumentParser:
     a("--state_dir", type=str, default="")
     a("--straggle_ms", type=float, default=0.0)
     a("--qffl_q", type=float, default=1.0)
-    a("--dp_clip", type=float, default=1.0)
-    a("--dp_noise_multiplier", type=float, default=1.0)
-    a("--dp_delta", type=float, default=1e-5)
+    a("--dp_clip", type=float, default=1.0,
+      help="algorithm=dp_fedavg: per-client update L2 clip S")
+    a("--dp_noise_multiplier", type=float, default=1.0,
+      help="algorithm=dp_fedavg: noise multiplier z (stddev z*S on the clipped-update sum)")
+    a("--dp_delta", type=float, default=1e-5,
+      help="algorithm=dp_fedavg: report epsilon at this delta")
     a("--ditto_lambda", type=float, default=0.1)
     a("--async_buffer_k", type=int, default=10)
     a("--staleness_exp", type=float, default=0.5)
@@ -175,7 +190,9 @@ def build_parser() -> argparse.ArgumentParser:
     flag("--enable_wandb", "mirror the rows to wandb when it is importable")
     a("--selection", choices=("uniform", "weighted", "power_of_choice", "straggler_aware"),
       default="uniform", help="client selection policy (scheduler/policies.py)")
-    a("--overprovision_factor", type=float, default=1.0)
+    a("--overprovision_factor", type=float, default=1.0,
+      help="select ceil(k * factor) clients a round so deadline/quorum rounds still close "
+           "with ~k useful uploads; transport runtimes spawn one worker per slot (1.0 = off)")
     a("--fault_plan", type=str, default=None,
       help="fault-injection plan: inline JSON or a path to a JSON file")
     a("--send_retries", type=int, default=0)
@@ -304,6 +321,27 @@ def build_config(opt) -> RunConfig:
     )
 
 
+def _dp_cfg(opt):
+    """DP-FedAvg's config from the flags (None for other algorithms),
+    refused before any setup when it cannot be a DP run."""
+    if opt["algorithm"] != "dp_fedavg":
+        return None
+    from fedml_tpu_torch.privacy import DpConfig
+
+    clip, z, delta = opt["dp_clip"], opt["dp_noise_multiplier"], opt["dp_delta"]
+    # a negative clip would invert every client update (scale = clip/norm)
+    if clip <= 0:
+        raise UsageError("--dp_clip must be > 0")
+    if z <= 0:
+        raise UsageError(
+            "--dp_noise_multiplier must be > 0 (no-noise runs are not DP; use --algorithm "
+            "fedavg instead)"
+        )
+    if not 0.0 < delta < 1.0:
+        raise UsageError("--dp_delta must be in (0, 1)")
+    return DpConfig(clip_norm=clip, noise_multiplier=z, delta=delta)
+
+
 def _validate_scheduler(config: RunConfig, opt) -> None:
     """The scheduler and fault-plan usage errors, before any setup."""
     from fedml_tpu_torch.scheduler import FaultPlan
@@ -318,7 +356,14 @@ def _validate_scheduler(config: RunConfig, opt) -> None:
         config.fed.selection != "uniform" or config.fed.overprovision_factor != 1.0
         or plan is not None
     )
-    if engaged and (opt["algorithm"] == "dp_fedavg" or opt["algorithm"] in _LONGTAIL):
+    if engaged and opt["algorithm"] == "dp_fedavg":
+        raise UsageError(
+            "--selection/--overprovision_factor/--fault_plan cannot be combined with "
+            "algorithm=dp_fedavg: its cohort is the run-seeded secret Poisson draw (privacy "
+            "amplification by subsampling), which bypasses the scheduler — the flags would be "
+            "silently ignored"
+        )
+    if engaged and opt["algorithm"] in _LONGTAIL:
         raise UsageError(
             "--selection/--overprovision_factor/--fault_plan have no effect for "
             f"algorithm={opt['algorithm']}: it draws its cohorts outside the scheduler"
@@ -414,7 +459,6 @@ def _validate_variant(opt) -> None:
 # option -> (its value where the feature is off, the ROADMAP.md §1 item
 # that ports it)
 _UNPORTED_OPTIONS = {
-    "eval_on_clients": (False, 3),
     "telemetry_dir": (None, 1),
     "prom_port": (None, 1),
     "straggle_ms": (0.0, 1),
@@ -426,7 +470,6 @@ _UNPORTED_OPTIONS = {
     "fused_plan": ("static", 8),
     "state_store": ("auto", 8),
     "state_dir": ("", 8),
-    "attack": ("none", 5),
 }
 
 
@@ -441,8 +484,8 @@ def _check_ported(opt) -> None:
             "--runtime grpc (one process per participant) is not ported yet (ROADMAP.md §1 "
             "item 1); the port's gRPC transport runs in process"
         )
-    if algo not in ("fedavg", "fedprox", "fedopt", "fedavg_robust"):
-        item = {"dp_fedavg": 5, "secagg": 1}.get(algo, 8)
+    if algo not in ("fedavg", "fedprox", "fedopt", "fedavg_robust", "dp_fedavg"):
+        item = {"secagg": 1}.get(algo, 8)
         raise NotImplementedError(f"--algorithm {algo} is not ported yet (ROADMAP.md §1 item {item})")
     for name, (off, item) in _UNPORTED_OPTIONS.items():
         if opt[name] != off:
@@ -456,15 +499,10 @@ def _check_ported(opt) -> None:
             "--client_parallelism vmap is not ported yet (ROADMAP.md §1 item 7); every client "
             "schedule runs as the sequential loop"
         )
-    if opt["selection"] in ("power_of_choice", "straggler_aware"):
+    if opt["selection"] == "straggler_aware":
         raise NotImplementedError(
-            f"--selection {opt['selection']} is not ported yet (ROADMAP.md §1 item 3)"
-        )
-    if opt["overprovision_factor"] != 1.0:
-        raise NotImplementedError("--overprovision_factor is not ported yet (ROADMAP.md §1 item 3)")
-    if algo == "fedavg_robust" and opt["defense"] in ("krum", "multi_krum", "weak_dp"):
-        raise NotImplementedError(
-            f"--defense {opt['defense']} is not ported yet (ROADMAP.md §1 item 5)"
+            "--selection straggler_aware is not ported yet (ROADMAP.md §1 item 1: it reads the "
+            "client health registry)"
         )
 
 
@@ -492,6 +530,7 @@ def run(device: DeviceLike = None, **opt):
 
     dev = resolve_device(device)
     config = build_config(opt)
+    _dp_cfg(opt)  # refused before any setup
     _validate_scheduler(config, opt)
     _validate_comm(config, opt)
     _validate_variant(opt)
@@ -505,6 +544,7 @@ def run(device: DeviceLike = None, **opt):
     task = data_registry.task_for_dataset(config.data.dataset)
     sample_shape = tuple(data.client_x[0].shape[1:])
     model = create_model(config.model, config.data.dataset, sample_shape, data.num_classes)
+    poison_spec, attack_cfg, data = _attack(opt, config, data)
     if opt["enable_wandb"]:
         wandb_init(
             name=f"{opt['algorithm']}-r{opt['comm_round']}-e{opt['epochs']}-lr{opt['lr']}",
@@ -520,6 +560,7 @@ def run(device: DeviceLike = None, **opt):
         save_checkpoint(
             checkpoint_path, api.global_vars, round_idx=round_idx,
             server_opt_state=getattr(api, "server_opt_state", None),
+            algo_state=getattr(api, "checkpoint_state", lambda: None)(),
             sched_state=_sched_state(api),
         )
 
@@ -532,18 +573,49 @@ def run(device: DeviceLike = None, **opt):
                 checkpoint(api_cell[0], row["round"] + 1)
 
     try:
-        api = _build_api(opt, config, data, model, task, log_fn, dev)
+        api = _build_api(opt, config, data, model, task, log_fn, dev, attack_cfg)
         api_cell.append(api)
         if opt["resume"]:
             _restore(api, opt)
         with trace(str(opt["profile_dir"]) if opt["profile_dir"] else None):
             final = api.train()
+        if getattr(api, "faults", None) is not None:
+            # the simulator's fault counts (a federation logs its own)
+            log_fn(api.faults.summary_row())
+        if poison_spec is not None:
+            from fedml_tpu_torch.data.edge_cases import attack_success_rate
+
+            final = dict(final or {})
+            final["Backdoor/ASR"] = attack_success_rate(
+                model, api.global_vars, data, poison_spec, eval_fn=api.eval_fn
+            )
+            log_fn({"round": config.fed.comm_round - 1, "Backdoor/ASR": final["Backdoor/ASR"]})
         if checkpoint_path:
             checkpoint(api, config.fed.comm_round)
     finally:
         logger.close()
     print(json.dumps({k: _jsonable(v) for k, v in (final or {}).items()}), flush=True)
     return api
+
+
+def _attack(opt, config, data):
+    """``--attack backdoor``: (poison spec, AttackConfig, the data with
+    clients 0..k-1's shards poisoned); (None, None, data) otherwise."""
+    if opt["attack"] != "backdoor":
+        return None, None, data
+    if opt["algorithm"] != "fedavg_robust" or opt["runtime"] != "vmap":
+        raise UsageError("--attack backdoor requires --algorithm fedavg_robust --runtime vmap")
+    from fedml_tpu_torch.data.edge_cases import PoisonSpec, poison_clients
+    from fedml_tpu_torch.robustness.backdoor import AttackConfig
+
+    k = opt["num_attackers"]
+    if not 0 < k < data.num_clients:
+        raise UsageError(f"--num_attackers must be in [1, {data.num_clients - 1}]")
+    spec = PoisonSpec(target_label=opt["target_label"], poison_frac=opt["poison_frac"])
+    # one set of attacker ids for the poisoned shards and the boosted uploads
+    attack = AttackConfig(attacker_ids=tuple(range(k)), boost=opt["attack_boost"])
+    return spec, attack, poison_clients(data, attacker_ids=attack.attacker_ids, spec=spec,
+                                        seed=config.seed)
 
 
 def _restore(api, opt) -> None:
@@ -554,7 +626,7 @@ def _restore(api, opt) -> None:
 
     if not opt["checkpoint_path"]:
         raise UsageError("--resume requires --checkpoint_path")
-    loaded_vars, round_idx, _, opt_state, _, sched_state = load_checkpoint(
+    loaded_vars, round_idx, _, opt_state, algo_state, sched_state = load_checkpoint(
         str(opt["checkpoint_path"])
     )
     api.global_vars = restore_like(api.global_vars, loaded_vars)
@@ -563,6 +635,15 @@ def _restore(api, opt) -> None:
         api.server_opt_state = restore_like(api.server_opt_state, opt_state)
     if sched_state is not None:
         api.scheduler.load_state_dict(sched_state)
+    # an algorithm's own state (DP-FedAvg's ledger and secret)
+    if hasattr(api, "restore_state"):
+        if algo_state is None:
+            raise UsageError(
+                f"checkpoint has no algorithm state but {type(api).__name__} needs it to resume "
+                "faithfully — it was written by an older version or a different algorithm; "
+                "restarting from round 0 is the only sound continuation"
+            )
+        api.restore_state(algo_state)
 
 
 class _Runner:
@@ -585,7 +666,7 @@ class _Runner:
         return server.history[-1] if server.history else {}
 
 
-def _build_api(opt, config, data, model, task, log_fn, device):
+def _build_api(opt, config, data, model, task, log_fn, device, attack_cfg=None):
     algorithm, runtime = opt["algorithm"], opt["runtime"]
     if runtime in TRANSPORTS:
         from fedml_tpu_torch.algorithms import fedavg_transport as T
@@ -605,6 +686,10 @@ def _build_api(opt, config, data, model, task, log_fn, device):
         from fedml_tpu_torch.algorithms import FedOptAPI
 
         return FedOptAPI(config, data, model, **kw)
+    if algorithm == "dp_fedavg":
+        from fedml_tpu_torch.privacy import DPFedAvgAPI
+
+        return DPFedAvgAPI(config, data, model, dp=_dp_cfg(opt), **kw)
     from fedml_tpu_torch.algorithms import RobustFedAvgAPI
     from fedml_tpu_torch.robustness import RobustConfig
 
@@ -612,4 +697,8 @@ def _build_api(opt, config, data, model, task, log_fn, device):
         defense_type=opt["defense"], norm_bound=opt["norm_bound"], stddev=opt["noise_stddev"],
         num_byzantine=opt["num_byzantine"], multi_krum_m=opt["multi_krum_m"],
     )
+    if attack_cfg is not None:
+        from fedml_tpu_torch.robustness.backdoor import BackdoorFedAvgAPI
+
+        return BackdoorFedAvgAPI(config, data, model, robust=robust, attack=attack_cfg, **kw)
     return RobustFedAvgAPI(config, data, model, robust=robust, **kw)

@@ -7,6 +7,7 @@ from fedml_tpu_torch.data.base import (  # noqa: F401
     ClientBatch,
     FederatedDataset,
     bucket_steps,
+    pad_clients_to,
     size_class,
     stack_clients,
 )

@@ -12,6 +12,7 @@ import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def _ceil_to(x: int, mult: int) -> int:
@@ -122,4 +123,25 @@ def stack_clients(
         y=y.reshape((C, steps, bs) + lab_shape),
         mask=mask.reshape((C, steps, bs)),
         num_samples=np.array(ns, dtype=np.float32),
+    )
+
+
+def pad_clients_to(batch: ClientBatch, target: int) -> ClientBatch:
+    """Pad the client axis to ``target`` with all-mask-zero dummy clients:
+    ``num_samples`` 0 (the weighted average and DP's inclusion mask leave
+    them out) and an all-zero mask (the local train skips every one of
+    their steps, so their variables come back unchanged). Host (numpy) and
+    device-store (torch) batches alike."""
+    extra = target - batch.num_clients
+    if extra <= 0:
+        return batch
+
+    def pad0(a):
+        if isinstance(a, np.ndarray):
+            return np.pad(a, [(0, extra)] + [(0, 0)] * (a.ndim - 1))
+        return torch.cat([a, a.new_zeros((extra,) + tuple(a.shape[1:]))])
+
+    return ClientBatch(
+        x=pad0(batch.x), y=pad0(batch.y), mask=pad0(batch.mask),
+        num_samples=pad0(batch.num_samples),
     )

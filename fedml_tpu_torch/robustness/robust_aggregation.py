@@ -1,10 +1,11 @@
 """Robust aggregation defenses (port of
 ``fedml_tpu/robustness/robust_aggregation.py``).
 
-Ported: norm-difference clipping and the coordinate-wise Byzantine
-aggregators (median, trimmed mean), which run on kernel K1
-(ops/robust_stats.py) — once per weight leaf per round. Weak-DP noise and
-Krum / Multi-Krum are still to port (ROADMAP.md) and raise.
+Norm-difference clipping, weak-DP Gaussian noise, the coordinate-wise
+Byzantine aggregators (median, trimmed mean), which run on kernel K1
+(ops/robust_stats.py) once per weight leaf per round, and Krum /
+Multi-Krum, whose pairwise distances come from one Gram product of the
+[C, D] client matrix in full float32.
 
 Trees here are ``{name: tensor}`` dicts; a stacked tree carries a leading
 client axis on every leaf."""
@@ -16,6 +17,7 @@ from typing import Dict
 
 import torch
 
+from fedml_tpu_torch.device import fp32_math
 from fedml_tpu_torch.ops.robust_stats import median_1d, trimmed_mean_1d
 
 Tree = Dict[str, torch.Tensor]
@@ -107,10 +109,66 @@ def _byzantine_reduce(stacked_tree: Tree, num_samples, reduce_fn) -> Tree:
     return out
 
 
+def _client_matrix(stacked_tree: Tree) -> torch.Tensor:
+    """[C, D]: each client's weight leaves, flattened and concatenated."""
+    return torch.cat(
+        [v.float().reshape(v.shape[0], -1) for name, v in stacked_tree.items()
+         if _is_weight_leaf(name)],
+        dim=1,
+    )
+
+
+def krum_scores(stacked_tree: Tree, num_byzantine: int) -> torch.Tensor:
+    """Krum scores (Blanchard et al. 2017), [C]: for each client, the sum
+    of its C − f − 2 smallest squared distances to the other clients, from
+    the Gram form ||x_i − x_j||² = n_i + n_j − 2·x_i·x_j. The product runs
+    in full float32: TF32 would move the distances enough to change which
+    client wins."""
+    X = _client_matrix(stacked_tree)
+    C = X.shape[0]
+    # the admissibility regime C >= 2f + 3: with f a majority the
+    # colluders' mutual distances are 0 and Krum picks one of them
+    if num_byzantine < 0 or 2 * num_byzantine + 3 > C:
+        raise ValueError(
+            f"krum needs 0 <= byzantine <= (clients − 3)/2; got C={C}, f={num_byzantine}"
+        )
+    with fp32_math():
+        gram = X @ X.T
+    n = torch.sum(torch.square(X), dim=1)
+    sq = n[:, None] + n[None, :] - 2.0 * gram
+    # a client's distance to itself is left out
+    sq = torch.clamp(sq, min=0.0) + torch.diag(torch.full((C,), float("inf"), device=X.device))
+    closest = C - num_byzantine - 2
+    return torch.sum(torch.sort(sq, dim=1).values[:, :closest], dim=1)
+
+
+def krum_select(stacked_tree: Tree, num_byzantine: int, m: int = 1) -> torch.Tensor:
+    """The indices of the ``m`` best-scored clients ([m] int64, best
+    first; ties keep the lower index)."""
+    scores = krum_scores(stacked_tree, num_byzantine)
+    C = scores.shape[0]
+    if not 1 <= m <= C - num_byzantine - 2:
+        raise ValueError(
+            f"multi-krum needs 1 <= m <= clients − byzantine − 2 "
+            f"(Blanchard et al.); got m={m}, C={C}, f={num_byzantine}"
+        )
+    return torch.argsort(scores, stable=True)[:m]
+
+
+def krum_aggregate(stacked_tree: Tree, num_byzantine: int, m: int = 1) -> Tree:
+    """Krum (m = 1) / Multi-Krum (m > 1): the unweighted mean of the
+    selected clients over every leaf, running statistics included."""
+    sel = krum_select(stacked_tree, num_byzantine, m)
+    return {
+        name: torch.mean(torch.index_select(v.float(), 0, sel.to(v.device)), dim=0)
+        for name, v in stacked_tree.items()
+    }
+
+
 def make_byzantine_aggregate(robust: RobustConfig):
     """defense_type → ``aggregate_fn(stacked_client_vars, num_samples,
     global_vars=None)`` replacing the weighted average, or None for the
-    clip defenses."""
+    clip/noise defenses."""
     d = robust.defense_type
     if d in CLIP_DEFENSES:
         return None
@@ -121,11 +179,24 @@ def make_byzantine_aggregate(robust: RobustConfig):
         )
     if robust.num_byzantine < 0:
         raise ValueError(f"num_byzantine must be >= 0; got {robust.num_byzantine}")
-    if d in ("krum", "multi_krum"):
-        raise NotImplementedError(
-            f"defense_type {d!r} is not ported yet (ROADMAP.md); the port has "
-            "median, trimmed_mean, norm_diff_clipping and no_defense"
-        )
-    if d == "median":
-        return lambda cv, ns, g=None: coordinate_median(cv, ns)
-    return lambda cv, ns, g=None: trimmed_mean(cv, ns, trim_k=robust.num_byzantine)
+    f = robust.num_byzantine
+    aggregates = {
+        "median": lambda cv, ns, g=None: coordinate_median(cv, ns),
+        "trimmed_mean": lambda cv, ns, g=None: trimmed_mean(cv, ns, trim_k=f),
+        "krum": lambda cv, ns, g=None: krum_aggregate(cv, f, m=1),
+        "multi_krum": lambda cv, ns, g=None: krum_aggregate(cv, f, m=robust.multi_krum_m),
+    }
+    return aggregates[d]
+
+
+def add_gaussian_noise(tree: Tree, draw, stddev: float) -> Tree:
+    """Weak-DP noise on the weight leaves: ``leaf + z·stddev``, where
+    ``draw(names, shapes)`` gives one standard-normal tensor for EVERY
+    leaf of the tree, in its order (the statistics' draws go unused, as the
+    reference splits its key over every leaf)."""
+    names = list(tree)
+    noise = draw(names, [tuple(tree[k].shape) for k in names])
+    return {
+        name: tree[name] + z.to(tree[name].device) * stddev if _is_weight_leaf(name) else tree[name]
+        for name, z in zip(names, noise)
+    }

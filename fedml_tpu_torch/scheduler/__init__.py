@@ -11,5 +11,9 @@ from fedml_tpu_torch.scheduler.faults import (  # noqa: F401
 )
 from fedml_tpu_torch.scheduler.policies import (  # noqa: F401
     ClientScheduler,
+    OverprovisionPolicy,
+    PowerOfChoicePolicy,
+    make_policy,
+    overprovisioned_k,
     select_clients,
 )

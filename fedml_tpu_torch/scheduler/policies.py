@@ -1,6 +1,7 @@
 """Client selection (port of ``fedml_tpu/scheduler/policies.py``: the
-``uniform`` and ``weighted`` policies, and :class:`ClientScheduler` with
-its selection memo and checkpoint state).
+``uniform``, ``weighted`` and ``power_of_choice`` policies, the
+overprovisioning wrapper, and :class:`ClientScheduler` with its selection
+memo and checkpoint state).
 
 - ``uniform`` is the reference-parity draw: ``np.random.seed(round_idx)``
   then ``choice`` without replacement. It deliberately ignores the run
@@ -8,9 +9,15 @@ its selection memo and checkpoint state).
 - ``weighted`` draws inclusion proportional to local sample counts from a
   per-round generator over (seed, round, salt): the reference's stream, so
   its cohorts are the reference's too.
+- ``power_of_choice`` (Cho et al. 2020) draws ``ceil(candidate_factor·k)``
+  candidates size-weighted and keeps the k with the highest last-known
+  local loss (unknown losses rank first), ties broken by a seeded
+  permutation: the reference's rule on the reference's stream.
+- overprovisioning selects ``ceil(k·factor)`` clients of the wrapped
+  policy, so a deadline round still closes with about k uploads.
 
 Every policy is a pure function of (seed, round, policy inputs). The
-power-of-choice and straggler-aware policies, overprovisioning, and the
+straggler-aware policy (it reads the client health registry) and the
 population tier's O(cohort) draws at ``ocohort_threshold`` clients and
 above are still to port (ROADMAP.md) and raise; fault plans are in
 scheduler/faults.py."""
@@ -18,12 +25,14 @@ scheduler/faults.py."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-POLICIES = ("uniform", "weighted")
-_ROADMAP_ITEM = {"power_of_choice": 3, "straggler_aware": 3}
+POLICIES = ("uniform", "weighted", "power_of_choice")
+# the health registry it reads comes with the telemetry (ROADMAP.md §1)
+_ROADMAP_ITEM = {"straggler_aware": 1}
 
 
 class BoundedLossMap:
@@ -99,24 +108,89 @@ def _weighted_draw(rng, n: int, size: int, p: Optional[np.ndarray]) -> np.ndarra
     return np.concatenate([rng.permutation(nz), fill])
 
 
-def _uniform(round_idx: int, k: int, ctx: SelectionContext) -> np.ndarray:
-    n = ctx.num_clients
-    if k > n:
-        raise ValueError(f"client_num_per_round={k} exceeds client_num_in_total={n}")
-    if n == k:
-        return np.arange(n)
-    np.random.seed(round_idx)
-    return np.random.choice(range(n), k, replace=False)
+class SelectionPolicy:
+    """One cohort-selection rule: ``select(round_idx, k, ctx)`` is a pure
+    function of its arguments and returns distinct client ids."""
+
+    name = "base"
+
+    def select(self, round_idx: int, k: int, ctx: SelectionContext) -> np.ndarray:
+        raise NotImplementedError
 
 
-def _weighted(round_idx: int, k: int, ctx: SelectionContext) -> np.ndarray:
-    n = ctx.num_clients
-    return _weighted_draw(_rng(ctx, round_idx, salt=1), n, min(k, n), _size_probs(ctx))
+class UniformPolicy(SelectionPolicy):
+    name = "uniform"
+
+    def select(self, round_idx, k, ctx):
+        n = ctx.num_clients
+        if k > n:
+            raise ValueError(f"client_num_per_round={k} exceeds client_num_in_total={n}")
+        if n == k:
+            return np.arange(n)
+        np.random.seed(round_idx)
+        return np.random.choice(range(n), k, replace=False)
 
 
-_SELECT: Dict[str, Callable[[int, int, SelectionContext], np.ndarray]] = {
-    "uniform": _uniform,
-    "weighted": _weighted,
+class WeightedPolicy(SelectionPolicy):
+    name = "weighted"
+
+    def select(self, round_idx, k, ctx):
+        n = ctx.num_clients
+        return _weighted_draw(_rng(ctx, round_idx, salt=1), n, min(k, n), _size_probs(ctx))
+
+
+class PowerOfChoicePolicy(SelectionPolicy):
+    """Loss-biased d-choose-k: ``d = ceil(candidate_factor·k)`` candidates
+    drawn size-weighted, the k with the highest last-known loss kept;
+    unknown losses rank as +inf (cold clients are explored first), ties
+    break on a seeded per-round permutation."""
+
+    name = "power_of_choice"
+
+    def __init__(self, candidate_factor: float = 2.0):
+        if candidate_factor < 1.0:
+            raise ValueError("candidate_factor must be >= 1.0")
+        self.candidate_factor = float(candidate_factor)
+
+    def select(self, round_idx, k, ctx):
+        n = ctx.num_clients
+        k = min(k, n)
+        d = min(n, max(k, int(math.ceil(self.candidate_factor * k))))
+        rng = _rng(ctx, round_idx, salt=2)
+        candidates = _weighted_draw(rng, n, d, _size_probs(ctx))
+        losses = ctx.losses or {}
+        tiebreak = rng.permutation(d)
+        order = sorted(
+            range(d), key=lambda i: (-losses.get(int(candidates[i]), math.inf), tiebreak[i])
+        )
+        return np.asarray([int(candidates[i]) for i in order[:k]], np.int64)
+
+
+def overprovisioned_k(k: int, factor: float, num_clients: int) -> int:
+    """ceil(k·factor) clamped to the population: the overprovisioned
+    cohort size, and the worker count a transport federation spawns."""
+    return max(1, min(int(num_clients), int(math.ceil(k * float(factor)))))
+
+
+class OverprovisionPolicy(SelectionPolicy):
+    """Any policy, selecting ``overprovisioned_k(k, factor, N)`` clients."""
+
+    name = "overprovision"
+
+    def __init__(self, inner: SelectionPolicy, factor: float = 1.0):
+        if factor < 1.0:
+            raise ValueError("overprovision factor must be >= 1.0")
+        self.inner = inner
+        self.factor = float(factor)
+
+    def select(self, round_idx, k, ctx):
+        return self.inner.select(round_idx, overprovisioned_k(k, self.factor, ctx.num_clients), ctx)
+
+
+_POLICIES: Dict[str, Callable[..., SelectionPolicy]] = {
+    "uniform": UniformPolicy,
+    "weighted": WeightedPolicy,
+    "power_of_choice": PowerOfChoicePolicy,
 }
 
 
@@ -130,19 +204,28 @@ def _check_policy(policy: str) -> None:
         raise ValueError(f"unknown selection policy {policy!r}; the port has {POLICIES}")
 
 
+def make_policy(name: str, overprovision_factor: float = 1.0, **kw) -> SelectionPolicy:
+    """The named policy, wrapped in overprovisioning when the factor is not 1."""
+    _check_policy(name)
+    inner = _POLICIES[name](**kw)
+    if overprovision_factor and overprovision_factor != 1.0:
+        return OverprovisionPolicy(inner, overprovision_factor)
+    return inner
+
+
 def select_clients(
     round_idx: int, num_clients: int, k: int, policy: str = "uniform"
 ) -> np.ndarray:
     """One round's cohort through the named policy (run seed 0, no sample
     counts: ``weighted`` then draws uniformly from its own stream)."""
-    _check_policy(policy)
     ctx = SelectionContext(num_clients=int(num_clients))
-    return _SELECT[policy](int(round_idx), int(k), ctx)
+    return make_policy(policy).select(int(round_idx), int(k), ctx)
 
 
 class ClientScheduler:
-    """The per-run selection: the configured policy over a fixed
-    population and cohort size, a per-round memo and a bounded loss map.
+    """The per-run selection: the configured policy (overprovisioned by
+    ``overprovision_factor``) over a fixed population and cohort size, a
+    per-round memo and a bounded loss map.
 
     ``select(r)`` is memoized, so the round loop and a checkpoint writer see
     one decision a round, and each fresh decision goes to ``on_select``
@@ -157,15 +240,17 @@ class ClientScheduler:
         k: int,
         policy: str = "uniform",
         seed: int = 0,
+        overprovision_factor: float = 1.0,
         sample_counts: Optional[Sequence[int]] = None,
         on_select: Optional[Callable[[int, np.ndarray], None]] = None,
         loss_map_capacity: int = 65536,
         selection_memo_rounds: int = 64,
     ):
-        _check_policy(policy)
         self.num_clients = int(num_clients)
         self.k = int(k)
         self.policy_name = policy
+        self.overprovision_factor = float(overprovision_factor)
+        self._policy = make_policy(policy, overprovision_factor)
         self._ctx = SelectionContext(
             seed=int(seed),
             num_clients=self.num_clients,
@@ -181,8 +266,6 @@ class ClientScheduler:
         """Build from a RunConfig. ``data`` (a FederatedDataset) gives the
         weighted policy its sample counts when its client count is the
         federation's; ``log_fn`` receives each round's selection row."""
-        if config.fed.overprovision_factor != 1.0:
-            raise NotImplementedError("overprovision_factor is not ported yet (ROADMAP.md §1 item 3)")
         pop = config.population
         if num_clients >= pop.ocohort_threshold:
             # the reference draws such populations through its packed
@@ -204,19 +287,26 @@ class ClientScheduler:
             })
         return cls(
             num_clients, config.fed.client_num_per_round, policy=policy, seed=config.seed,
+            overprovision_factor=config.fed.overprovision_factor,
             sample_counts=counts, on_select=on_select,
             loss_map_capacity=pop.loss_map_capacity,
             selection_memo_rounds=pop.selection_memo_rounds,
         )
 
+    def cohort_size(self) -> int:
+        """Clients selected a round after overprovisioning: the worker
+        count a transport federation spawns."""
+        return overprovisioned_k(self.k, self.overprovision_factor, self.num_clients)
+
     def select(self, round_idx: int) -> np.ndarray:
-        """This round's cohort (memoized; the live memo keeps the most recent
-        ``max(selection_memo_rounds, 64)`` rounds — evicted rounds re-derive,
-        every policy being a pure function of (seed, round))."""
+        """This round's cohort of :meth:`cohort_size` clients (memoized; the
+        live memo keeps the most recent ``max(selection_memo_rounds, 64)``
+        rounds — evicted rounds re-derive, every policy being a pure
+        function of (seed, round))."""
         r = int(round_idx)
         if r in self._selections:
             return self._selections[r]
-        sel = np.asarray(_SELECT[self.policy_name](r, self.k, self._ctx), np.int64)
+        sel = np.asarray(self._policy.select(r, self.k, self._ctx), np.int64)
         self._selections[r] = sel
         cap = max(self._memo_rounds, 64)
         while len(self._selections) > cap:
@@ -224,6 +314,12 @@ class ClientScheduler:
         if self._on_select is not None:
             self._on_select(r, sel)
         return sel
+
+    @property
+    def wants_client_losses(self) -> bool:
+        """Whether the policy biases on per-client losses (power_of_choice,
+        overprovisioned or not)."""
+        return isinstance(getattr(self._policy, "inner", self._policy), PowerOfChoicePolicy)
 
     def report_loss(self, client_id: int, loss: float) -> None:
         """Record a client's last observed local train loss."""

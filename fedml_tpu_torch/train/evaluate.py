@@ -7,6 +7,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from fedml_tpu_torch.device import fp32_math
 from fedml_tpu_torch.models import ModelDef
 from fedml_tpu_torch.train.client import make_task_loss
 
@@ -53,3 +54,15 @@ def metrics_to_loss_acc(m) -> Tuple[float, float]:
         float(m["loss_sum"]) / max(count, 1e-9),
         float(m["correct"]) / max(count, 1e-9),
     )
+
+
+def evaluate(model: ModelDef, variables, x, y, batch_size: int = 256,
+             task: str = "classification", eval_fn=None) -> Tuple[float, float]:
+    """(loss, accuracy) of ``variables`` on host arrays x, y, batched on
+    the variables' device."""
+    dev = next(iter(variables.values())).device
+    batches = [torch.from_numpy(a).to(dev)
+               for a in pad_to_batches(np.asarray(x), np.asarray(y), batch_size)]
+    fn = eval_fn or make_eval_fn(model, task)
+    with fp32_math():
+        return metrics_to_loss_acc(fn(variables, *batches))

@@ -103,12 +103,14 @@ def save_checkpoint(
     round_idx: int,
     server_opt_state=None,
     sched_state=None,
+    algo_state=None,
 ) -> None:
     """Write ``<path>.npz`` atomically (a per-process temporary file moved
     into place with ``os.replace``, the metadata inside it), then the
-    ``<path>.json`` sidecar. ``global_vars`` are port variables. The
-    reference's ``rng`` and ``algo`` slots stay empty: no ported algorithm
-    has state of its own to keep."""
+    ``<path>.json`` sidecar. ``global_vars`` are port variables;
+    ``algo_state`` an algorithm's own state (DP-FedAvg's
+    ``checkpoint_state()``: numpy arrays). The reference's ``rng`` slot
+    stays empty: the port's round keys derive from the seed."""
     if not _is_writer():
         return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -116,12 +118,14 @@ def save_checkpoint(
     _flatten("vars", to_flax_variables(global_vars), flat)
     if server_opt_state is not None:
         _flatten("opt", _to_reference(server_opt_state), flat)
+    if algo_state is not None:
+        _flatten("algo", _to_reference(algo_state), flat)
     if sched_state is not None:
         _flatten("sched", _to_reference(sched_state), flat)
     meta = {
         "round_idx": int(round_idx),
         "has_opt": server_opt_state is not None,
-        "has_algo": False,
+        "has_algo": algo_state is not None,
         "has_sched": sched_state is not None,
     }
     flat["__meta__"] = np.frombuffer(json.dumps(meta).encode("utf-8"), dtype=np.uint8)

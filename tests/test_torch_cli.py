@@ -9,7 +9,9 @@
     keys and values within ROW_TOL; (d) the port's kill-and-resume equals
     its uninterrupted run bit for bit; (e) a reference run of 2 rounds,
     resumed by the port for rounds 2-3, matches the reference's 4 straight
-    rounds; (f) ``--selection weighted`` draws the reference's cohorts;
+    rounds; DP-FedAvg, Krum and Multi-Krum, weak DP, the backdoor attack,
+    power-of-choice, overprovisioning, fault plans and ``--eval_on_clients``
+    write the reference's rows, and their usage errors are the reference's; (f) ``--selection weighted`` draws the reference's cohorts;
     (g) the entry point runs ``--help`` here and refuses to train without a
     card; (h) a loopback FedAdam run writes the reference's transport row
     keys. Besides: ``--enable_wandb`` names and feeds a wandb run as the
@@ -48,7 +50,7 @@ from fedml_tpu_torch import cli as tcli  # noqa: E402
 from fedml_tpu_torch.bridge import to_flax  # noqa: E402
 
 from torch_parity import (  # noqa: E402
-    flat_params, jax_round_perm_fn, private_reference_programs, time_limit,
+    flat_params, jax_noise_fn, jax_round_perm_fn, private_reference_programs, time_limit,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -103,12 +105,12 @@ def _reference_shuffles(monkeypatch, args):
     monkeypatch.setattr(tfedavg, "seeded_perm_fn", lambda seed: jax_round_perm_fn(seed, cohort))
 
 
-def _reference_init_checkpoint(path: Path, args) -> None:
+def _reference_init_checkpoint(path: Path, args, algo_state=None) -> None:
     """The reference's init for the run's model, as a round-0 checkpoint."""
     classes = 10  # synthetic_classification's
     model = jax_create_model(_arg(args, "--model", "lr"), "synthetic", (28, 28, 1), classes)
     init = jax.device_get(model.init(jax.random.fold_in(jax.random.PRNGKey(0), 0)))
-    jax_save(str(path), init, round_idx=0)
+    jax_save(str(path), init, round_idx=0, algo_state=algo_state)
 
 
 def _summary(log_dir: Path) -> dict:
@@ -196,17 +198,10 @@ UNPORTED = {
     "grpc": ["--runtime", "grpc", "--rank", "0"],
     "scaffold": ["--algorithm", "scaffold"],
     "fedbuff_over_loopback": ["--algorithm", "fedbuff", "--runtime", "loopback"],
-    "dp_fedavg": ["--algorithm", "dp_fedavg"],
-    "eval_on_clients": ["--eval_on_clients"],
     "warmup": ["--warmup"],
     "fused_rounds": ["--fused_rounds", "2"],
     "client_parallelism_vmap": ["--client_parallelism", "vmap"],
-    "power_of_choice": ["--selection", "power_of_choice"],
     "straggler_aware": ["--selection", "straggler_aware"],
-    "overprovision": ["--overprovision_factor", "1.5"],
-    "krum": ["--algorithm", "fedavg_robust", "--defense", "krum"],
-    "weak_dp": ["--algorithm", "fedavg_robust", "--defense", "weak_dp"],
-    "backdoor": ["--algorithm", "fedavg_robust", "--attack", "backdoor"],
     "telemetry_dir": ["--telemetry_dir", "telemetry"],
     "prom_port": ["--prom_port", "0"],
     "recompile_budget": ["--recompile_budget", "10"],
@@ -219,6 +214,118 @@ UNPORTED = {
 def test_what_is_not_ported_raises(case, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _port(UNPORTED[case] + ["--comm_round", "1", "--log_dir", tmp_path])
+
+
+# what earlier slices left unported and this one ports: each runs as the
+# reference's CLI does on the same argv (LR = the logistic-regression model
+# on synthetic data, 10 clients). "cohort" is the round's cohort size over
+# which the reference splits its shuffle keys (None: full batch, where the
+# shuffles do not matter); "noise" patches in the reference's noise draws.
+DP_SECRET = (1 << 100) + 12345
+PORTED = {
+    "dp_fedavg": dict(args=["--algorithm", "dp_fedavg", "--client_num_per_round", "4",
+                            "--dp_noise_multiplier", "0.1"], noise=True,
+                      cohort=lambda r: _dp_cohort(r, 10, 4)),
+    "eval_on_clients": dict(args=["--eval_on_clients", "--client_num_per_round", "4"], cohort=4),
+    "power_of_choice": dict(args=["--selection", "power_of_choice", "--client_num_per_round", "3",
+                                  "--comm_round", "3"], cohort=3),
+    "overprovision": dict(args=["--overprovision_factor", "1.4", "--client_num_per_round", "4"],
+                          cohort=6),
+    "krum": dict(args=["--algorithm", "fedavg_robust", "--defense", "krum"], cohort=10),
+    "multi_krum": dict(args=["--algorithm", "fedavg_robust", "--defense", "multi_krum",
+                             "--num_byzantine", "2", "--multi_krum_m", "4"], cohort=10),
+    "weak_dp": dict(args=["--algorithm", "fedavg_robust", "--defense", "weak_dp",
+                          "--norm_bound", "1.0"], cohort=10, noise=True),
+    "backdoor": dict(args=["--algorithm", "fedavg_robust", "--defense", "median", "--attack",
+                           "backdoor", "--num_attackers", "2", "--client_num_per_round", "5",
+                           "--attack_boost", "5"], cohort=5, noise=True),
+    "fault_plan": dict(args=["--fault_plan", '{"seed": 4, "default": {"dropout_p": 0.3}}',
+                             "--client_num_per_round", "5", "--batch_size", "-1"], cohort=None),
+}
+
+
+def _dp_cohort(round_idx, n, per_round):
+    from fedml_tpu_torch.privacy.dp_fedavg import bucket_cohort, poisson_client_sampling
+
+    return bucket_cohort(len(poisson_client_sampling(DP_SECRET, round_idx, n, per_round / n)))
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_ported_options_match_the_reference(case, tmp_path, monkeypatch):
+    """From one reference-written init checkpoint (with DP-FedAvg's ledger
+    and secret in its algo slot), both CLIs --resume for the run with the
+    reference's shuffles and noise: summary.json and every round row
+    within ROW_TOL, the same keys (the port's lack only compile/*)."""
+    spec = PORTED[case]
+    args = LR + spec["args"] + ["--resume"]
+    if "--comm_round" not in args:
+        args += ["--comm_round", "2"]
+    algo = None
+    if case == "dp_fedavg":
+        from fedml_tpu_torch.privacy.accountant import RdpAccountant
+        from fedml_tpu_torch.privacy.dp_fedavg import _secret_to_words
+
+        algo = {"dp_rdp": np.zeros(len(RdpAccountant().orders)), "dp_rounds": np.asarray(0),
+                "dp_sample_secret": _secret_to_words(DP_SECRET)}
+    _reference_init_checkpoint(tmp_path / "init", args, algo_state=algo)
+    for side in ("ref", "port"):
+        for ext in (".npz", ".json"):
+            shutil.copy(tmp_path / f"init{ext}", tmp_path / f"{side}{ext}")
+    _ref(args + ["--log_dir", tmp_path / "ref_log", "--checkpoint_path", tmp_path / "ref"])
+    if spec["cohort"] is not None:
+        monkeypatch.setattr(tfedavg, "seeded_perm_fn",
+                            lambda seed: jax_round_perm_fn(seed, spec["cohort"]))
+    if spec.get("noise"):
+        monkeypatch.setattr(tfedavg, "seeded_noise_fn", lambda seed, device: jax_noise_fn(seed))
+    api = _port(args + ["--log_dir", tmp_path / "port_log", "--checkpoint_path",
+                        tmp_path / "port"])
+
+    want, got = _summary(tmp_path / "ref_log"), _summary(tmp_path / "port_log")
+    only_ref = set(want) - set(got)
+    assert only_ref and all(k.startswith(REFERENCE_ONLY_PREFIXES) for k in only_ref), only_ref
+    assert set(got) <= set(want)
+    _assert_close_rows({k: got[k] for k in got if k != "round_time_s"},
+                       {k: want[k] for k in got if k != "round_time_s"})
+    ref_rows, port_rows = _round_rows(tmp_path / "ref_log"), _round_rows(tmp_path / "port_log")
+    assert len(port_rows) == len(ref_rows) >= 2
+    for g, w in zip(port_rows, ref_rows, strict=True):
+        _assert_close_rows(g, w)
+    key = {"dp_fedavg": "DP/epsilon", "backdoor": "Backdoor/ASR",
+           "fault_plan": "faults/total"}.get(case)
+    if key is not None:
+        assert key in got
+    if case == "eval_on_clients":
+        assert "Train/Acc" in got and "Test/Acc" in got
+    if case in ("dp_fedavg",):
+        # the end-of-run checkpoint carries the ledger both packages resume
+        ref_ck, port_ck = jax_load(str(tmp_path / "ref")), jax_load(str(tmp_path / "port"))
+        assert int(port_ck[4]["dp_rounds"]) == int(ref_ck[4]["dp_rounds"]) == 2
+        np.testing.assert_array_equal(port_ck[4]["dp_sample_secret"],
+                                      ref_ck[4]["dp_sample_secret"])
+        np.testing.assert_allclose(port_ck[4]["dp_rdp"], ref_ck[4]["dp_rdp"], rtol=1e-12)
+        assert api.accountant.rounds == 2
+
+
+@pytest.mark.parametrize("case", ["dp_with_scheduler", "dp_bad_clip", "dp_bad_noise",
+                                  "dp_bad_delta", "attack_without_robust",
+                                  "overprovision_with_secure_agg", "attackers_out_of_range"])
+def test_new_usage_errors_are_the_reference_s(case, tmp_path):
+    args = {
+        "dp_with_scheduler": ["--algorithm", "dp_fedavg", "--selection", "weighted"],
+        "dp_bad_clip": ["--algorithm", "dp_fedavg", "--dp_clip", "0"],
+        "dp_bad_noise": ["--algorithm", "dp_fedavg", "--dp_noise_multiplier", "-1"],
+        "dp_bad_delta": ["--algorithm", "dp_fedavg", "--dp_delta", "1.5"],
+        "attack_without_robust": ["--attack", "backdoor"],
+        "overprovision_with_secure_agg": ["--overprovision_factor", "1.5", "--secure_agg",
+                                          "--runtime", "loopback"],
+        "attackers_out_of_range": ["--algorithm", "fedavg_robust", "--attack", "backdoor",
+                                   "--num_attackers", "10"],
+    }[case] + ["--comm_round", "1", "--log_dir", tmp_path / "log"]
+    result = CliRunner().invoke(jcli.main, [str(a) for a in args])
+    assert result.exit_code == 2, result.output
+    with pytest.raises(SystemExit) as e:
+        _port(args)
+    assert e.value.code == 2
 
 
 @pytest.mark.parametrize("sub", ["serve", "status", "fleet", "trace"])

@@ -17,7 +17,11 @@ not matter):
 - the port's client trainer takes the reference client's minibatches and
   shuffles at batch 4 (client-index keyed permutations);
 - at batch 4 the port's simulator, trained on the actors' own minibatches
-  (``actor_order_perm_fn``), is bit-equal to the loopback federation.
+  (``actor_order_perm_fn``), is bit-equal to the loopback federation;
+- with overprovisioning (one worker a slot) and power-of-choice the port's
+  federation selects the reference federation's cohorts, and secure
+  aggregation refuses an overprovisioned worker count as the reference's
+  server does.
 
 The reference's programs run with a private program cache and executable
 store (torch_parity.private_reference_programs): the session store keys an
@@ -294,10 +298,61 @@ def test_local_trainer_takes_the_reference_clients_minibatches():
         assert abs(trainer.last_loss - jtrainer.last_loss) <= 1e-6
 
 
-@pytest.mark.parametrize(
-    "section,field,value",
-    [("fed", "overprovision_factor", 1.5), ("fed", "selection", "power_of_choice")],
-)
+def _selections(rows) -> dict:
+    return {r["round"]: r["scheduler/selected"] for r in rows if "scheduler/selected" in r}
+
+
+@pytest.mark.parametrize("fed_kw", [
+    dict(overprovision_factor=1.5),
+    dict(selection="power_of_choice"),
+    dict(selection="power_of_choice", overprovision_factor=1.5),
+])
+def test_adaptive_cohorts_over_loopback_match_the_reference_federation(fed_kw):
+    """2 of 4 clients a round (3 with overprovisioning 1.5: one worker a
+    slot), 3 rounds: the port's loopback federation selects the reference
+    federation's cohorts (power-of-choice on the uploads' train losses)
+    and ends within ATOL of its params, from the same init."""
+    from fedml_tpu.algorithms.fedavg_transport import (
+        run_loopback_federation as jax_run_loopback,
+    )
+
+    def cfg_for(cfg):
+        return cfg.replace(fed=dataclasses.replace(cfg.fed, client_num_per_round=2, **fed_kw))
+
+    jcfg_, jdata, jmodel = _ref()
+    jrows, trows = [], []
+    jfed = jax_run_loopback(cfg_for(jcfg_), jdata, jmodel, log_fn=jrows.append)
+    cfg, data, model = _port()
+    init = from_flax(jax.device_get(jmodel.init(jax.random.fold_in(jax.random.PRNGKey(0), 0)))["params"])
+    fed = run_loopback_federation(cfg_for(cfg), data, model, device="cpu", init_vars=init,
+                                  log_fn=trows.append)
+    want = 3 if fed_kw.get("overprovision_factor") else 2
+    assert fed.worker_num == jfed.worker_num == want
+    assert _selections(trows) == _selections(jrows) and len(_selections(trows)) == LR["rounds"]
+    assert all(len(c) == want for c in _selections(trows).values())
+    _assert_ref_close(fed.global_vars, jfed.global_vars)
+
+
+def test_secure_agg_refuses_an_overprovisioned_worker_count():
+    """The reference server's check: clients size the mask registry from
+    client_num_per_round, so another worker count is refused."""
+    from fedml_tpu.algorithms.fedavg_transport import (
+        run_loopback_federation as jax_run_loopback,
+    )
+
+    def over(cfg):
+        return cfg.replace(fed=dataclasses.replace(cfg.fed, client_num_per_round=2,
+                                                   overprovision_factor=1.5))
+
+    with pytest.raises(ValueError, match="secure_agg requires worker_num"):
+        jax_run_loopback(over(_ref(comm=dict(secure_agg=True))[0]), *_ref()[1:])
+    cfg, data, model = _port(comm=dict(secure_agg=True))
+    with pytest.raises(ValueError, match=r"secure_agg requires worker_num \(3\) == "
+                                         r"client_num_per_round \(2\)"):
+        run_loopback_federation(over(cfg), data, model, device="cpu")
+
+
+@pytest.mark.parametrize("section,field,value", [("fed", "selection", "straggler_aware")])
 def test_unported_options_raise(section, field, value):
     cfg, data, model = _port()
     cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **{field: value})})

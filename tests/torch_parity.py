@@ -164,19 +164,48 @@ def torch_lr_model():
     return create_model("lr", "synthetic", LR["feat"], LR["num_classes"])
 
 
-def jax_round_perm_fn(seed: int, cohort: int):
+def jax_round_perm_fn(seed: int, cohort):
     """``perm_fn`` for the port's FedAvgAPI that yields the reference
     FedAvgAPI's permutations for run seed ``seed`` and cohort size
-    ``cohort``."""
+    ``cohort``: the round's key split over that many slots. ``cohort`` may
+    be a function of the round (a fault plan shrinks cohorts; DP-FedAvg
+    splits over ``bucket_cohort`` of its Poisson draw)."""
     import jax
 
     base = jax.random.PRNGKey(seed)
+    size = cohort if callable(cohort) else (lambda r: cohort)
 
     def perm_fn(round_idx, slot, epoch, m_flat):
-        rngs = jax.random.split(jax.random.fold_in(base, round_idx + 1), cohort)
+        rngs = jax.random.split(jax.random.fold_in(base, round_idx + 1), size(round_idx))
         return jax_epoch_perm(rngs[slot], epoch, m_flat)
 
     return perm_fn
+
+
+def jax_noise_fn(seed: int):
+    """``noise_fn`` for the port's APIs that yields the reference's noise:
+    ``normal(split(fold_in(fold_in(PRNGKey(seed), round + 1), tag),
+    n_leaves)[i])`` for leaf i of the variables tree in ``jax.tree_util``
+    order, drawn in the reference's layout and handed back in the port's
+    (conv kernels HWIO -> OIHW, dense kernels transposed)."""
+    import jax
+    import jax.numpy as jnp
+
+    from fedml_tpu_torch.bridge import from_flax, to_flax_variables
+
+    base = jax.random.PRNGKey(seed)
+
+    def noise_fn(round_idx, tag, names, shapes):
+        key = jax.random.fold_in(jax.random.fold_in(base, round_idx + 1), tag)
+        tree = to_flax_variables({n: torch.zeros(s) for n, s in zip(names, shapes)})
+        leaves, treedef = jax.tree_util.tree_flatten(tree)
+        keys = jax.random.split(key, len(leaves))
+        drawn = [np.asarray(jax.random.normal(k, leaf.shape, jnp.float32))
+                 for k, leaf in zip(keys, leaves)]
+        port = from_flax(jax.tree_util.tree_unflatten(treedef, drawn))
+        return [port[n] for n in names]
+
+    return noise_fn
 
 
 # the whole-slice comparison: femnist_synthetic(12 clients, 40 mean samples),
@@ -184,12 +213,13 @@ def jax_round_perm_fn(seed: int, cohort: int):
 SLICE = dict(num_clients=12, mean_samples=40, per_round=4, rounds=3, seed=0)
 
 
-def _slice_config(cfg_mod, rounds: int = SLICE["rounds"], server: dict | None = None):
+def _slice_config(cfg_mod, rounds: int = SLICE["rounds"], server: dict | None = None,
+                  per_round: int = SLICE["per_round"], batch_size: int = 20):
     return cfg_mod.RunConfig(
-        data=cfg_mod.DataConfig(batch_size=20),
+        data=cfg_mod.DataConfig(batch_size=batch_size),
         fed=cfg_mod.FedConfig(
             client_num_in_total=SLICE["num_clients"],
-            client_num_per_round=SLICE["per_round"],
+            client_num_per_round=per_round,
             comm_round=rounds,
             epochs=1,
         ),
@@ -199,13 +229,56 @@ def _slice_config(cfg_mod, rounds: int = SLICE["rounds"], server: dict | None = 
     )
 
 
+def slice_data():
+    """The slice's femnist_synthetic data from each package (reference, port)."""
+    from fedml_tpu.data.femnist_synth import femnist_synthetic as jax_femnist
+
+    from fedml_tpu_torch.data.femnist_synth import femnist_synthetic
+
+    data_kw = dict(num_clients=SLICE["num_clients"], mean_samples=SLICE["mean_samples"])
+    return jax_femnist(**data_kw), femnist_synthetic(**data_kw)
+
+
+def slice_models():
+    """The slice's 62-class CNN from each package (reference, port)."""
+    from fedml_tpu.models import create_model as jax_create_model
+
+    from fedml_tpu_torch.models import create_model
+
+    shape, classes = (28, 28, 1), 62
+    return (jax_create_model("cnn", "femnist", shape, classes),
+            create_model("cnn", "femnist", shape, classes))
+
+
+def slice_configs(rounds: int = SLICE["rounds"], per_round: int = SLICE["per_round"],
+                  batch_size: int = 20):
+    """The slice's RunConfig from each package (reference, port)."""
+    import fedml_tpu.config as jcfg
+
+    import fedml_tpu_torch.config as tcfg
+
+    kw = dict(rounds=rounds, per_round=per_round, batch_size=batch_size)
+    return _slice_config(jcfg, **kw), _slice_config(tcfg, **kw)
+
+
+def share_init(japi, tapi) -> None:
+    """Start the port's API from the reference's init."""
+    from fedml_tpu_torch.bridge import from_flax
+
+    tapi.global_vars = from_flax(
+        {"params": {layer: {k: np.array(v) for k, v in leaves.items()}
+                    for layer, leaves in japi.global_vars["params"].items()}}
+    )
+
+
 def run_slice(robust: dict | None = None, server: dict | None = None,
-              rounds: int = SLICE["rounds"]):
+              rounds: int = SLICE["rounds"], per_round: int = SLICE["per_round"]):
     """Run the slice through the reference and through the port on the CPU,
-    from the reference's init and with its permutations. ``robust`` holds
-    RobustConfig fields, ``server`` ServerConfig fields for FedOptAPI (both
-    None: plain FedAvgAPI). Returns ``(reference_api, port_api)`` after
-    ``rounds`` rounds of training."""
+    from the reference's init and with its permutations (and its noise).
+    ``robust`` holds RobustConfig fields, ``server`` ServerConfig fields for
+    FedOptAPI (both None: plain FedAvgAPI); ``per_round`` the cohort size.
+    Returns ``(reference_api, port_api)`` after ``rounds`` rounds of
+    training."""
     import fedml_tpu.config as jcfg
     from fedml_tpu.algorithms import FedAvgAPI as JaxFedAvg
     from fedml_tpu.algorithms.fedavg_robust import RobustFedAvgAPI as JaxRobust
@@ -225,7 +298,8 @@ def run_slice(robust: dict | None = None, server: dict | None = None,
     jdata, tdata = jax_femnist(**data_kw), femnist_synthetic(**data_kw)
     jmodel = jax_create_model("cnn", "femnist", shape, classes)
     tmodel = create_model("cnn", "femnist", shape, classes)
-    jconf, tconf = _slice_config(jcfg, rounds, server), _slice_config(tcfg, rounds, server)
+    jconf = _slice_config(jcfg, rounds, server, per_round=per_round)
+    tconf = _slice_config(tcfg, rounds, server, per_round=per_round)
     if server is not None:
         from fedml_tpu.algorithms.fedopt import FedOptAPI as JaxFedOpt
 
@@ -234,19 +308,20 @@ def run_slice(robust: dict | None = None, server: dict | None = None,
         japi = JaxFedOpt(jconf, jdata, jmodel)
         tapi = FedOptAPI(
             tconf, tdata, tmodel, device="cpu",
-            perm_fn=jax_round_perm_fn(SLICE["seed"], SLICE["per_round"]),
+            perm_fn=jax_round_perm_fn(SLICE["seed"], per_round),
         )
     elif robust is None:
         japi = JaxFedAvg(jconf, jdata, jmodel)
         tapi = FedAvgAPI(
             tconf, tdata, tmodel, device="cpu",
-            perm_fn=jax_round_perm_fn(SLICE["seed"], SLICE["per_round"]),
+            perm_fn=jax_round_perm_fn(SLICE["seed"], per_round),
         )
     else:
         japi = JaxRobust(jconf, jdata, jmodel, robust=JaxRobustConfig(**robust))
         tapi = RobustFedAvgAPI(
             tconf, tdata, tmodel, robust=RobustConfig(**robust), device="cpu",
-            perm_fn=jax_round_perm_fn(SLICE["seed"], SLICE["per_round"]),
+            perm_fn=jax_round_perm_fn(SLICE["seed"], per_round),
+            noise_fn=jax_noise_fn(SLICE["seed"]),
         )
     init = {
         layer: {k: np.array(v) for k, v in leaves.items()}
