@@ -123,7 +123,19 @@ Phases, each of which raises on failure:
     3 rounds, its cohorts equal to a replay of the policy on the losses
     the run reported and its ``faults/*`` counters to the plan's, the
     eval timed apart from ``round_time_s`` (which ends before it). Every
-    loss finite; a ``[defenses]`` JSON line gives the readings.
+    loss finite; a ``[defenses]`` JSON line gives the readings;
+17. the stateful and drift-correcting algorithms (``phase_longtail``) on
+    the north star, 2 rounds each: FedNova, q-FedAvg (q = 1) and
+    hierarchical FedAvg (2 groups) with warm round times beside phase 4's;
+    SCAFFOLD and Ditto (λ = 0.1) with their per-client state on the device
+    and spilled to the mmap tier, bit-equal between the two, with the
+    stack's bytes, the peak device memory and the gather/scatter ms a
+    round, and Ditto's Personalized/Acc; a full-batch FedNova and SCAFFOLD
+    round on the card against the CPU (CARD_VS_CPU; SCAFFOLD's control
+    variates STATE_CARD_VS_CPU); a SCAFFOLD
+    ``--resume`` through ``cli.main`` bit-equal to the straight run; one
+    epoch of centralized training; DSGD and push-sum with finite losses
+    and a falling regret. A ``[longtail]`` JSON line gives the readings.
 
 Then it prints each phase's seconds (``phase_s``), the kernels' JSON line,
 the ``nvidia-smi`` line, and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -132,6 +144,7 @@ printing any result."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -163,6 +176,11 @@ MEDIAN_ROUNDS, TRIMMED_ROUNDS = 3, 2
 # one full-batch step per client (batch -1) and by 1.6e-3 after the
 # north-star's 24 steps of batch 20 at lr 0.1; each bound is ~10x its own.
 CARD_VS_CPU = {-1: (1e-4, 5e-5), 20: (1e-3, 1e-2)}
+# SCAFFOLD's control variates after the same full-batch round: c_i⁺ holds
+# (x − y_i)/(K·lr), one client's model (its ReLU and max-pool flips are not
+# averaged away) times 1/(K·lr) = 10. On the CPU alone the 1e-7 nudge moves
+# the cohort's rows by 5.3e-5 and c by 4.5e-7; 1e-3 is ~20x the rows'.
+STATE_CARD_VS_CPU = (1e-3, 1e-3)
 
 # card vs CPU after one LM round (float32 SGD): the same float32 arithmetic
 # summed in another order; on the CPU alone a 1e-7 relative nudge of the
@@ -1920,6 +1938,270 @@ def phase_defenses(smi: str, device="cuda", num_clients=128, per_round=COHORT) -
     return launches
 
 
+# ----------------------------------------- the stateful and drift-correcting rounds
+
+LONGTAIL_ROUNDS = 2
+DITTO_LAMBDA = 0.1
+QFFL_Q = 1.0
+# the decentralized runs' step: the north star's 0.1 diverges on the 784
+# standardized pixels a sample (mean |x|_1 ~ 873): regret 0.99 -> 3.96 over
+# the 89 samples of the shortest stream, 0.57 at 0.003
+DECENTRALIZED_LR = 0.003
+
+
+@contextlib.contextmanager
+def _deterministic_convs():
+    """cuDNN's deterministic algorithms within the block, for the
+    bit-equality checks."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _host(tree) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in tree.items()}
+
+
+def _assert_bit_equal(got: dict, want: dict, what: str) -> None:
+    import torch
+
+    for k, v in want.items():
+        if not torch.equal(got[k], v):
+            err = (got[k].float() - v.float()).abs().max().item()
+            raise AssertionError(f"{what}: {k} differs by {err}")
+
+
+def _stateful_snapshot(api, touched) -> dict:
+    """A stateful run's model, server state and touched rows on the host."""
+    snap = {"global": _host(api.global_vars)}
+    if hasattr(api, "c_server"):
+        snap["c_server"] = _host(api.c_server)
+    rows = api.state.gather(-1, touched)
+    snap["rows"] = _host(rows)
+    return snap
+
+
+def _stack_copy_ms(stack: dict, ids) -> tuple:
+    """Device ms of one cohort's gather (``index_select``) from the
+    [N, ...] stack and its write-back (``index_copy_`` of the same rows)."""
+    import torch
+
+    idx = torch.as_tensor(ids, device=next(iter(stack.values())).device)
+    rows = {k: s.index_select(0, idx) for k, s in stack.items()}
+    gather = device_ms(lambda: [s.index_select(0, idx) for s in stack.values()])
+    scatter = device_ms(lambda: [s.index_copy_(0, idx, rows[k]) for k, s in stack.items()])
+    return gather, scatter
+
+
+def _scaffold_argv(log_dir, rounds: int, num_clients: int, per_round: int, *extra) -> list:
+    """python -m fedml_tpu_torch's options for SCAFFOLD on the north star."""
+    return ["--algorithm", "scaffold", "--model", "cnn", "--dataset", "femnist_synth",
+            "--client_num_in_total", str(num_clients), "--client_num_per_round", str(per_round),
+            "--batch_size", "20", "--epochs", "1", "--lr", "0.1", "--comm_round", str(rounds),
+            "--log_dir", str(log_dir), *extra]
+
+
+def phase_longtail(smi: str, main_warm_s=None, device="cuda", num_clients=128,
+                   per_round=COHORT) -> dict:
+    """The stateful and drift-correcting algorithms on the north star
+    (phase 17), 2 rounds each:
+
+    (a) FedNovaAPI, QFedAvgAPI (q = 1) and HierarchicalFedAvgAPI (2 groups,
+        group_comm_round 1): warm round times beside phase 4's, finite
+        losses;
+    (b) ScaffoldAPI and DittoAPI (λ = 0.1), each with its state on the
+        device and forced to the mmap tier, under cuDNN's deterministic
+        algorithms: params, c and every touched row bit-equal between the
+        modes; the stack's bytes, the peak device memory of each run, the
+        spill tier's gather/scatter ms a round, the device stack's
+        index_select/index_copy_ ms at the cohort, Ditto's
+        Personalized/Acc;
+    (c) one full-batch round of FedNova and of SCAFFOLD on the card against
+        the CPU: the params within CARD_VS_CPU, SCAFFOLD's c and touched
+        rows within STATE_CARD_VS_CPU;
+    (d) SCAFFOLD through ``cli.main``: 2 rounds straight on the device
+        stack, and 1 round spilled then ``--resume`` to 2 from its
+        checkpoint (the touched rows' form): rows, params and c bit-equal;
+    (e) CentralizedTrainer for 1 epoch of the pooled data; DSGD over the
+        symmetric topology and push-sum over a directed one, the clients'
+        streams (128 workers, step DECENTRALIZED_LR): finite losses and the
+        regret falling.
+
+    Prints the ``[longtail]`` line. ``device="cpu"`` rehearses it (device
+    times and memory "not measured")."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch import cli
+    from fedml_tpu_torch.algorithms import (
+        DittoAPI, FedNovaAPI, HierarchicalFedAvgAPI, QFedAvgAPI, ScaffoldAPI,
+    )
+    from fedml_tpu_torch.algorithms.decentralized import DecentralizedAPI
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.partition import AsymmetricTopologyManager, SymmetricTopologyManager
+    from fedml_tpu_torch.train.centralized import CentralizedTrainer
+
+    on_card = device == "cuda"
+    rounds = LONGTAIL_ROUNDS
+    cfg0, data, model = _north_star(rounds, num_clients, per_round)
+    report = {"device": device, "card": smi, "phase4_median_warm_round_s": main_warm_s}
+    round_s = lambda api: [r["round_time_s"] for r in api.history]  # noqa: E731
+
+    # (a) the algorithms whose state is the global model alone
+    for name, cls, cfg, kw in (
+        ("fednova", FedNovaAPI, cfg0, {}),
+        ("qfedavg", QFedAvgAPI, cfg0, {"q": QFFL_Q}),
+        ("hierarchical", HierarchicalFedAvgAPI, _with_fed(cfg0, group_num=2, group_comm_round=1),
+         {}),
+    ):
+        api = cls(cfg, data, model, device=device, **kw)
+        api.train()
+        _finite_rows(api.history, name)
+        report[name] = {"round_s": round_s(api), "last_row": api.history[-1]}
+        log(f"[longtail] {name}: " + json.dumps(report[name]))
+        del api
+
+    # (b) SCAFFOLD and Ditto: the device stack against the mmap tier
+    with tempfile.TemporaryDirectory(prefix="fedml_state_") as tmp, _deterministic_convs():
+        for name, cls, kw in (("scaffold", ScaffoldAPI, {}), ("ditto", DittoAPI,
+                                                             {"lam": DITTO_LAMBDA})):
+            entry, snaps = {"round_s": {}, "peak_mem_bytes": {}, "allocated_before_bytes": {}}, {}
+            for mode in ("device", "mmap"):
+                state_dir = str(Path(tmp) / name) if mode == "mmap" else ""
+                cfg = _with_fed(cfg0, state_store=mode, state_dir=state_dir)
+                if on_card:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                # what earlier work still holds on the device, inside the peak
+                entry["allocated_before_bytes"][mode] = (torch.cuda.memory_allocated() if on_card
+                                                         else "not measured")
+                api = cls(cfg, data, model, device=device, **kw)
+                final = api.train()
+                if api.state.mode != mode:
+                    raise AssertionError(f"{name}: state in {api.state.mode}, asked for {mode}")
+                _finite_rows(api.history, f"{name} {mode}")
+                entry["peak_mem_bytes"][mode] = (torch.cuda.max_memory_allocated() if on_card
+                                                 else "not measured")
+                entry["round_s"][mode] = round_s(api)
+                touched = sorted({int(c) for r in range(rounds) for c in api._round_plan(r)})
+                snaps[mode] = _stateful_snapshot(api, touched)
+                if mode == "device":
+                    entry["stack_bytes"] = api.state.stack_bytes
+                    entry["device_gather_ms"], entry["device_scatter_ms"] = (
+                        _stack_copy_ms(api.state.stack, touched[:per_round]) if on_card
+                        else ("not measured", "not measured"))
+                else:
+                    entry["spill_ms"] = api.state.spill_ms
+                    entry["store_rows_written"] = api.state.store.initialized_count()
+                if name == "ditto":
+                    entry[f"final_{mode}"] = {k: final[k] for k in
+                                              ("Personalized/Acc", "Global/Acc",
+                                               "num_clients_evaluated")}
+                del api, final
+                gc.collect()
+                if on_card:
+                    torch.cuda.empty_cache()
+            for part in snaps["device"]:
+                _assert_bit_equal(snaps["mmap"][part], snaps["device"][part],
+                                  f"{name} mmap vs device, {part}")
+            if entry.get("final_mmap") != entry.get("final_device"):
+                raise AssertionError(f"{name}: personalized rows differ between the modes")
+            entry["mmap_bit_equal_to_device"] = True
+            entry["touched_rows"] = len(touched)
+            report[name] = entry
+            log(f"[longtail] {name}: " + json.dumps(entry))
+
+    # (c) one full-batch round, card against the CPU: the params within
+    # CARD_VS_CPU, SCAFFOLD's c and rows within STATE_CARD_VS_CPU
+    tols = {"global": CARD_VS_CPU[-1], "c_server": STATE_CARD_VS_CPU,
+            "rows": STATE_CARD_VS_CPU}
+    for name, cls in (("fednova", FedNovaAPI), ("scaffold", ScaffoldAPI)):
+        out = {}
+        for dev in dict.fromkeys(("cpu", device)):
+            api = cls(_full_batch(_with_fed(cfg0, comm_round=1)), data, model, device=dev)
+            api.train_round(0)
+            touched = [int(c) for c in api._round_plan(0)]
+            out[dev] = ({"global": _host(api.global_vars)} if name == "fednova"
+                        else _stateful_snapshot(api, touched))
+            del api
+        errs = {}
+        for part, want in out["cpu"].items():
+            for k, v in want.items():
+                rtol, atol = tols[part]
+                torch.testing.assert_close(out[device][part][k], v, rtol=rtol, atol=atol,
+                                           msg=lambda m, k=k: f"{name} card vs cpu, {k}: {m}")
+                errs[part] = max(errs.get(part, 0.0),
+                                 (out[device][part][k] - v).abs().max().item())
+        report[name]["card_vs_cpu_max_abs_err"] = errs
+        report[name]["card_vs_cpu_tol"] = {part: tols[part] for part in out["cpu"]}
+        log(f"[longtail] {name} card vs cpu: {json.dumps(errs)}")
+        gc.collect()
+
+    # (d) SCAFFOLD --resume through the command line
+    dev = None if on_card else device
+    with tempfile.TemporaryDirectory(prefix="fedml_scaffold_cli_") as tmp, \
+            _deterministic_convs():
+        tmp = Path(tmp)
+        straight = cli.main(_scaffold_argv(tmp / "straight", 2, num_clients, per_round),
+                            device=dev)
+        spilled = ("--state_store", "mmap", "--checkpoint_path", str(tmp / "ck"))
+        cli.main(_scaffold_argv(tmp / "first", 1, num_clients, per_round, *spilled), device=dev)
+        resumed = cli.main(_scaffold_argv(tmp / "resumed", 2, num_clients, per_round, *spilled,
+                                          "--resume"), device=dev)
+        strip = lambda row: {k: v for k, v in row.items() if k != "round_time_s"}  # noqa: E731
+        if [strip(r) for r in resumed.history] != [strip(r) for r in straight.history[1:]]:
+            raise AssertionError(f"scaffold cli: resumed rows {resumed.history} != straight "
+                                 f"{straight.history[1:]}")
+        touched = sorted({int(c) for r in range(2) for c in straight._round_plan(r)})
+        a, b = _stateful_snapshot(straight, touched), _stateful_snapshot(resumed, touched)
+        for part in a:
+            _assert_bit_equal(b[part], a[part], f"scaffold cli resume, {part}")
+        report["scaffold"]["cli_resume"] = {
+            "bit_equal": True, "resumed_mode": resumed.state.mode,
+            "checkpoint_bytes": (tmp / "ck.npz").stat().st_size,
+            "round_s_straight": round_s(straight), "round_s_resumed": round_s(resumed),
+        }
+        del straight, resumed
+        gc.collect()
+
+    # (e) centralized training and decentralized DSGD / push-sum
+    t0 = time.perf_counter()
+    trainer = CentralizedTrainer(_with_fed(cfg0, comm_round=1), data, model, device=device)
+    row = trainer.train()
+    _finite_rows([row], "centralized")
+    report["centralized"] = {"epoch_s": time.perf_counter() - t0, "row": row,
+                             "steps": -(-len(trainer._x) // trainer.batch_size)}
+    T = min(len(cy) for cy in data.client_y)
+    x = np.stack([cx[:T].reshape(T, -1) for cx in data.client_x])
+    y = np.stack([(cy[:T] % 2).astype(np.float32) for cy in data.client_y])
+    topologies = {"dsgd": SymmetricTopologyManager(num_clients, neighbor_num=4),
+                  "pushsum": AsymmetricTopologyManager(num_clients, 3, 3, seed=0)}
+    for variant, topo in topologies.items():
+        topo.generate_topology()
+        t0 = time.perf_counter()
+        api = DecentralizedAPI(create_model("lr", "synthetic", (x.shape[-1],), 1), topo,
+                               lr=DECENTRALIZED_LR, variant=variant, seed=0, device=device)
+        out = api.run(x, y)
+        regret = out["regret"]
+        if not (np.isfinite(out["losses"]).all() and regret[-1] < regret[0]):
+            raise AssertionError(f"{variant}: regret {regret[0]} -> {regret[-1]}, losses "
+                                 f"finite {np.isfinite(out['losses']).all()}")
+        report[variant] = {"workers": num_clients, "topology": type(topo).__name__,
+                           "lr": DECENTRALIZED_LR, "iterations": int(len(out["losses"])),
+                           "regret_first_last": [float(regret[0]), float(regret[-1])],
+                           "run_s": time.perf_counter() - t0}
+    log("[longtail] " + json.dumps(report))
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -1953,6 +2235,7 @@ def main() -> int:
     cli_launches = timed(phase_cli, smi, main_warm_s["median"])
     resnet_launches = timed(phase_resnet, smi)
     defense_launches = timed(phase_defenses, smi)
+    timed(phase_longtail, smi, main_warm_s["median"])
     log(json.dumps({"phase_s": phase_s}))
 
     from fedml_tpu_torch.ops import flash_attention as fa

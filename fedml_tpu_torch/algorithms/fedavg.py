@@ -95,6 +95,30 @@ def round_client_perms(perm_fn: PermFn, round_idx: int, num_sampled: int) -> Lis
     ]
 
 
+def train_clients(local_train, global_vars, x, y, mask, client_perms, step_seeds=None):
+    """Every client's local train from ``global_vars``, one after the other
+    (the schedule of every round here): ``(client_vars [C, ...], per-client
+    metric vectors [C] × [4] in ``_METRIC_KEYS`` order, their sum)``."""
+    C = x.shape[0]
+    mask_host = mask.cpu()  # which steps hold data is decided on the host
+    client_vars: Tree = {}
+    sums = None
+    per_client = []
+    for j in range(C):
+        new_vars, mets = local_train(
+            global_vars, x[j], y[j], mask[j], client_perms[j], mask_host=mask_host[j],
+            step_seed=0 if step_seeds is None else step_seeds[j],
+        )
+        for k, v in new_vars.items():
+            if k not in client_vars:
+                client_vars[k] = torch.empty((C,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+            client_vars[k][j] = v
+        vec = torch.stack([mets[k] for k in _METRIC_KEYS])
+        per_client.append(vec)
+        sums = vec if sums is None else sums + vec
+    return client_vars, per_client, sums
+
+
 def make_fedavg_round(
     model: ModelDef,
     config: RunConfig,
@@ -134,23 +158,9 @@ def make_fedavg_round(
     )
 
     def round_fn(global_vars, x, y, mask, num_samples, client_perms, step_seeds=None, *extra):
-        C = x.shape[0]
-        mask_host = mask.cpu()  # which steps hold data is decided on the host
-        client_vars: Tree = {}
-        sums = None
-        per_client = []
-        for j in range(C):
-            new_vars, mets = local_train(
-                global_vars, x[j], y[j], mask[j], client_perms[j], mask_host=mask_host[j],
-                step_seed=0 if step_seeds is None else step_seeds[j],
-            )
-            for k, v in new_vars.items():
-                if k not in client_vars:
-                    client_vars[k] = torch.empty((C,) + tuple(v.shape), dtype=v.dtype, device=v.device)
-                client_vars[k][j] = v
-            vec = torch.stack([mets[k] for k in _METRIC_KEYS])
-            per_client.append(vec)
-            sums = vec if sums is None else sums + vec
+        client_vars, per_client, sums = train_clients(
+            local_train, global_vars, x, y, mask, client_perms, step_seeds
+        )
         if post_train is not None:
             client_vars = post_train(client_vars, global_vars, *extra)
         if aggregate_fn is not None:

@@ -20,7 +20,12 @@ ones ``fedml_tpu/models/pretrained.py`` applies to torch checkpoints:
 Ported models keep the reference's flatten order (see models/cnn.py), so no
 row permutation is needed and both directions are exact:
 ``to_flax(from_flax(p))`` is ``p`` for a params tree and
-``to_flax_variables(from_flax(v))`` is ``v`` for a whole variables tree."""
+``to_flax_variables(from_flax(v))`` is ``v`` for a whole variables tree.
+``lead`` counts leading axes that stack one tree per client (SCAFFOLD's
+control variates, Ditto's personal models): the transposes act on the
+trailing dims only. :func:`flax_leaves` and :func:`flax_unflatten` give a
+nested tree's leaves in ``jax.tree_util`` order (keys sorted at every
+level), the order the reference's checkpoints number them in."""
 
 from __future__ import annotations
 
@@ -30,20 +35,16 @@ import numpy as np
 import torch
 
 
-def _kernel_to_torch(a: np.ndarray) -> np.ndarray:
-    if a.ndim == 4:
-        return a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-    if a.ndim == 2:
-        return a.T
-    raise ValueError(f"unsupported kernel rank {a.ndim}")
-
-
-def _kernel_to_flax(a: np.ndarray) -> np.ndarray:
-    if a.ndim == 4:
-        return a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-    if a.ndim == 2:
-        return a.T
-    raise ValueError(f"unsupported kernel rank {a.ndim}")
+def _transpose_kernel(a: np.ndarray, lead: int, to_torch: bool) -> np.ndarray:
+    """A kernel between the two layouts, its ``lead`` leading axes kept."""
+    rank = a.ndim - lead
+    if rank == 4:
+        tail = (3, 2, 0, 1) if to_torch else (2, 3, 1, 0)  # HWIO <-> OIHW
+    elif rank == 2:
+        tail = (1, 0)
+    else:
+        raise ValueError(f"unsupported kernel rank {rank}")
+    return a.transpose(tuple(range(lead)) + tuple(lead + i for i in tail))
 
 
 _COLLECTIONS = ("params", "batch_stats")
@@ -56,12 +57,12 @@ def _is_variables(tree) -> bool:
     return "params" in tree and all(k in _COLLECTIONS for k in tree)
 
 
-def from_flax(tree: Dict[str, object]) -> Dict[str, torch.Tensor]:
+def from_flax(tree: Dict[str, object], lead: int = 0) -> Dict[str, torch.Tensor]:
     """A flax ``params`` tree, or a whole variables tree with its
     ``batch_stats``, (numpy leaves) → port variables (CPU tensors)."""
     if _is_variables(tree):
-        state = from_flax(tree["params"])
-        state.update({_STATS + k: v for k, v in from_flax(tree.get("batch_stats", {})).items()})
+        state = from_flax(tree["params"], lead)
+        state.update({_STATS + k: v for k, v in from_flax(tree.get("batch_stats", {}), lead).items()})
         return state
     state = {}
 
@@ -72,7 +73,7 @@ def from_flax(tree: Dict[str, object]) -> Dict[str, torch.Tensor]:
                 continue
             a = np.asarray(value)
             if key == "kernel":
-                a, key = _kernel_to_torch(a), "weight"
+                a, key = _transpose_kernel(a, lead, to_torch=True), "weight"
             # a contiguous copy: the source may be read-only (a JAX array's
             # view), and a kernel's transposed view would hand the layers
             # strided weights (other kernels, other summation orders)
@@ -88,13 +89,13 @@ def _sorted_keys(tree):
     return tree
 
 
-def _nest(state: Dict[str, torch.Tensor], kernels: bool) -> Dict[str, object]:
+def _nest(state: Dict[str, torch.Tensor], kernels: bool, lead: int = 0) -> Dict[str, object]:
     tree: Dict[str, object] = {}
     for name, t in state.items():
         *scopes, leaf = name.split(".")
-        a = t.detach().cpu().numpy()
+        a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
         if kernels and leaf == "weight":
-            a, leaf = _kernel_to_flax(a), "kernel"
+            a, leaf = _transpose_kernel(a, lead, to_torch=False), "kernel"
         node = tree
         for s in scopes:
             node = node.setdefault(s, {})
@@ -102,7 +103,7 @@ def _nest(state: Dict[str, torch.Tensor], kernels: bool) -> Dict[str, object]:
     return _sorted_keys(tree)
 
 
-def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, object]:
+def to_flax(state: Dict[str, torch.Tensor], lead: int = 0) -> Dict[str, object]:
     """Port parameters → nested flax ``params`` with numpy leaves (the
     inverse of :func:`from_flax` on a params tree), keys sorted at every
     level as JAX's tree utilities leave a reference model — the order its
@@ -111,17 +112,36 @@ def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, object]:
     stats = [k for k in state if k.startswith(_STATS)]
     if stats:
         raise ValueError(f"{len(stats)} running statistics ({stats[0]}, …): use to_flax_variables")
-    return _nest(state, kernels=True)
+    return _nest(state, kernels=True, lead=lead)
 
 
-def to_flax_variables(state: Dict[str, torch.Tensor]) -> Dict[str, object]:
+def to_flax_variables(state: Dict[str, torch.Tensor], lead: int = 0) -> Dict[str, object]:
     """Port variables → the whole flax variables tree,
     ``{"batch_stats": …, "params": …}`` (``batch_stats`` only for a model
     that has them), keys sorted at every level: the inverse of
     :func:`from_flax`, and the tree a reference model's ``init`` gives."""
     params = {k: v for k, v in state.items() if not k.startswith(_STATS)}
     stats = {k[len(_STATS):]: v for k, v in state.items() if k.startswith(_STATS)}
-    out = {"params": _nest(params, kernels=True)}
+    out = {"params": _nest(params, kernels=True, lead=lead)}
     if stats:
-        out["batch_stats"] = _nest(stats, kernels=False)
+        out["batch_stats"] = _nest(stats, kernels=False, lead=lead)
     return _sorted_keys(out)
+
+
+def flax_leaves(tree) -> list:
+    """A nested tree's leaves in ``jax.tree_util`` order (sorted keys)."""
+    if hasattr(tree, "items"):
+        return [leaf for k in sorted(tree) for leaf in flax_leaves(tree[k])]
+    return [tree]
+
+
+def flax_unflatten(template, leaves) -> Dict[str, object]:
+    """The inverse of :func:`flax_leaves` on ``template``'s structure."""
+    it = iter(leaves)
+
+    def build(node):
+        if hasattr(node, "items"):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(template)

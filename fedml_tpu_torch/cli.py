@@ -6,13 +6,19 @@ option of the reference's ``main`` under the same name, default, type and
 choices, and the same invocation trains the same way:
 
 - ``--runtime vmap`` (the port's sequential simulator; the flag keeps the
-  reference's name) with ``fedavg``, ``fedprox``, ``fedopt``,
-  ``dp_fedavg`` and ``fedavg_robust`` (``median`` and ``trimmed_mean`` on
-  kernel K1, ``krum``, ``multi_krum``, ``norm_diff_clipping``,
-  ``weak_dp``, ``no_defense``; ``--attack backdoor`` adds the boosted
-  attackers and ``Backdoor/ASR``), with the ``uniform``, ``weighted`` and
-  ``power_of_choice`` policies, ``--overprovision_factor``, fault plans
-  and ``--eval_on_clients``;
+  reference's name) with ``fedavg``, ``fedprox``, ``fedopt``, ``fednova``,
+  ``qfedavg`` (``--qffl_q``), ``hierarchical`` (``--group_num``,
+  ``--group_comm_round``), ``scaffold`` and ``ditto`` (``--ditto_lambda``;
+  both keep per-client state on the card or spilled, ``--state_store``,
+  ``--state_dir``), ``dp_fedavg`` and ``fedavg_robust`` (``median`` and
+  ``trimmed_mean`` on kernel K1, ``krum``, ``multi_krum``,
+  ``norm_diff_clipping``, ``weak_dp``, ``no_defense``; ``--attack
+  backdoor`` adds the boosted attackers and ``Backdoor/ASR``), with the
+  ``uniform``, ``weighted`` and ``power_of_choice`` policies,
+  ``--overprovision_factor``, fault plans and ``--eval_on_clients``;
+- ``centralized`` (the pooled data, ``--comm_round`` epochs) and
+  ``decentralized`` (DSGD or push-sum, ``--variant``, over the clients'
+  streams), which run loops of their own;
 - ``--runtime loopback|shm|mqtt`` with ``fedavg``, ``fedprox`` and
   ``fedopt`` through ``run_*_federation``, with deadlines and quorum, fault
   plans, overprovisioning, codecs, secure aggregation and send retries.
@@ -468,9 +474,13 @@ _UNPORTED_OPTIONS = {
     "recompile_budget": (None, 4),
     "fused_rounds": (1, 8),
     "fused_plan": ("static", 8),
-    "state_store": ("auto", 8),
-    "state_dir": ("", 8),
 }
+_PORTED_ALGORITHMS = (
+    "fedavg", "fedprox", "fedopt", "fedavg_robust", "dp_fedavg", "fednova", "scaffold", "ditto",
+    "qfedavg", "hierarchical", "centralized", "decentralized",
+)
+# the ROADMAP.md §1 item of each algorithm still to port (8 where unnamed)
+_ALGORITHM_ITEMS = {"secagg": 1, "fedgkt": 7, "fedgan": 7, "fedseg": 7, "fednas": 7}
 
 
 def _check_ported(opt) -> None:
@@ -484,9 +494,14 @@ def _check_ported(opt) -> None:
             "--runtime grpc (one process per participant) is not ported yet (ROADMAP.md §1 "
             "item 1); the port's gRPC transport runs in process"
         )
-    if algo not in ("fedavg", "fedprox", "fedopt", "fedavg_robust", "dp_fedavg"):
-        item = {"secagg": 1}.get(algo, 8)
+    if algo not in _PORTED_ALGORITHMS:
+        item = _ALGORITHM_ITEMS.get(algo, 8)
         raise NotImplementedError(f"--algorithm {algo} is not ported yet (ROADMAP.md §1 item {item})")
+    if opt["state_store"] == "sharded":
+        raise NotImplementedError(
+            "--state_store sharded (the record-major state tier) is not ported yet (ROADMAP.md §1 "
+            "item 9)"
+        )
     for name, (off, item) in _UNPORTED_OPTIONS.items():
         if opt[name] != off:
             flag = "--" + name
@@ -535,7 +550,10 @@ def run(device: DeviceLike = None, **opt):
     _validate_comm(config, opt)
     _validate_variant(opt)
     _check_ported(opt)
-    if opt["runtime"] in TRANSPORTS and opt["algorithm"] not in ("fedavg", "fedprox", "fedopt"):
+    runner = _LONGTAIL_RUNNERS.get(opt["algorithm"])
+    if runner is not None:
+        _validate_longtail(opt)
+    elif opt["runtime"] in TRANSPORTS and opt["algorithm"] not in ("fedavg", "fedprox", "fedopt"):
         raise UsageError(f"runtime={opt['runtime']} supports fedavg/fedprox/fedopt/fedbuff")
     if opt["resume"] and opt["runtime"] in TRANSPORTS:
         raise UsageError(f"--resume is not supported for runtime={opt['runtime']}")
@@ -553,6 +571,14 @@ def run(device: DeviceLike = None, **opt):
     logger = MetricsLogger(
         str(opt["log_dir"]) if opt["log_dir"] else None, use_wandb=opt["enable_wandb"]
     )
+    if runner is not None:
+        try:
+            with trace(str(opt["profile_dir"]) if opt["profile_dir"] else None):
+                api, final = runner(config, data, model, task, logger.log, opt, dev)
+        finally:
+            logger.close()
+        print(json.dumps({k: _jsonable(v) for k, v in (final or {}).items()}), flush=True)
+        return api
     checkpoint_path = str(opt["checkpoint_path"]) if opt["checkpoint_path"] else None
     api_cell = []
 
@@ -596,6 +622,56 @@ def run(device: DeviceLike = None, **opt):
         logger.close()
     print(json.dumps({k: _jsonable(v) for k, v in (final or {}).items()}), flush=True)
     return api
+
+
+def _validate_longtail(opt) -> None:
+    """The reference's refusals for the algorithms that run loops of their
+    own."""
+    algo = opt["algorithm"]
+    if opt["resume"]:
+        raise UsageError(f"--resume is not supported for algorithm={algo}")
+    allowed = ("vmap", "mesh") if algo == "centralized" else ("vmap",)
+    if opt["runtime"] not in allowed:
+        raise UsageError(f"algorithm={algo} supports only --runtime {'|'.join(allowed)}")
+    if opt["checkpoint_path"]:
+        raise UsageError(
+            f"--checkpoint_path is not supported for algorithm={algo} (supported: the FedAvg "
+            "family and fedseg)"
+        )
+
+
+def _run_centralized(config, data, model, task, log_fn, opt, device):
+    """The pooled-data baseline; ``--comm_round`` is the epoch count."""
+    from fedml_tpu_torch.train.centralized import CentralizedTrainer
+
+    trainer = CentralizedTrainer(config, data, model, task=task, log_fn=log_fn, device=device)
+    return trainer, trainer.train()
+
+
+def _run_decentralized(config, data, model, task, log_fn, opt, device):
+    """Decentralized online learning over the clients' topology: each
+    client's shard (its first T samples, T the smallest shard, labels mod
+    2) is its stream; a logistic regression of one output."""
+    from fedml_tpu_torch.algorithms.decentralized import DecentralizedAPI
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.partition.topology import SymmetricTopologyManager
+
+    N = data.num_clients
+    T = min(len(cy) for cy in data.client_y)
+    x = np.stack([cx[:T].reshape(T, -1) for cx in data.client_x])
+    y = np.stack([(cy[:T] % 2).astype(np.float32) for cy in data.client_y])
+    topo = SymmetricTopologyManager(N, neighbor_num=min(4, N - 1))
+    topo.generate_topology()
+    api = DecentralizedAPI(create_model("lr", "synthetic", (x.shape[-1],), 1), topo,
+                           lr=config.train.lr, variant=opt["variant"] or "dsgd", seed=config.seed,
+                           device=device)
+    out = api.run(x, y)
+    final = {"iterations": int(len(out["losses"])), "final_regret": float(out["regret"][-1])}
+    log_fn(final)
+    return api, final
+
+
+_LONGTAIL_RUNNERS = {"centralized": _run_centralized, "decentralized": _run_decentralized}
 
 
 def _attack(opt, config, data):
@@ -690,6 +766,26 @@ def _build_api(opt, config, data, model, task, log_fn, device, attack_cfg=None):
         from fedml_tpu_torch.privacy import DPFedAvgAPI
 
         return DPFedAvgAPI(config, data, model, dp=_dp_cfg(opt), **kw)
+    if algorithm == "fednova":
+        from fedml_tpu_torch.algorithms import FedNovaAPI
+
+        return FedNovaAPI(config, data, model, **kw)
+    if algorithm == "scaffold":
+        from fedml_tpu_torch.algorithms import ScaffoldAPI
+
+        return ScaffoldAPI(config, data, model, **kw)
+    if algorithm == "ditto":
+        from fedml_tpu_torch.algorithms import DittoAPI
+
+        return DittoAPI(config, data, model, lam=opt["ditto_lambda"], **kw)
+    if algorithm == "qfedavg":
+        from fedml_tpu_torch.algorithms import QFedAvgAPI
+
+        return QFedAvgAPI(config, data, model, q=opt["qffl_q"], **kw)
+    if algorithm == "hierarchical":
+        from fedml_tpu_torch.algorithms import HierarchicalFedAvgAPI
+
+        return HierarchicalFedAvgAPI(config, data, model, **kw)
     from fedml_tpu_torch.algorithms import RobustFedAvgAPI
     from fedml_tpu_torch.robustness import RobustConfig
 

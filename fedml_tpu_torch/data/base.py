@@ -90,6 +90,11 @@ class FederatedDataset:
     def train_sample_counts(self) -> np.ndarray:
         return np.array([len(y) for y in self.client_y], dtype=np.int64)
 
+    def centralized_train(self) -> tuple:
+        """Every client's shard concatenated (the centralized trainer's
+        pooled data)."""
+        return np.concatenate(self.client_x, axis=0), np.concatenate(self.client_y, axis=0)
+
 
 def stack_clients(
     data: FederatedDataset,

@@ -210,11 +210,13 @@ class LocalTrain:
         epoch_perm: EpochPerm,
         mask_host: Optional[torch.Tensor] = None,
         step_seed: int = 0,
+        prox_ref: Optional[Dict[str, torch.Tensor]] = None,
     ):
         """→ (variables', opt_state', mets [4] = loss_sum, correct, count,
         steps). ``opt_state`` is over the parameters only. ``mask_host``
         is ``mask`` on the CPU when the caller has it (it decides, with the
-        permutation, which steps hold data)."""
+        permutation, which steps hold data). The proximal term (``prox_mu``)
+        pulls toward ``prox_ref``, by default the entry parameters."""
         params, stats = split_stats(variables)
         S, B = mask.shape[0], mask.shape[1]
         n_flat = S * B
@@ -222,7 +224,9 @@ class LocalTrain:
         y_flat = y.reshape((n_flat,) + tuple(y.shape[2:]))
         m_flat = mask.reshape(n_flat)
         m_host = (mask_host if mask_host is not None else mask).reshape(n_flat).cpu()
-        prox_ref = {k: v.detach() for k, v in params.items()}
+        if prox_ref is None:
+            prox_ref = params
+        prox_ref = {k: v.detach() for k, v in prox_ref.items()}
         mets = torch.zeros(4, dtype=torch.float32, device=mask.device)
         for epoch in range(self.epochs):
             perm_host = epoch_perm(epoch, m_host)
@@ -261,6 +265,24 @@ class LocalTrain:
         return new_vars, metrics
 
 
-def make_local_train(model: ModelDef, tc, epochs: int, task: str = "classification") -> LocalTrain:
-    """Build the per-client training function (see :class:`LocalTrain`)."""
-    return LocalTrain(model, tc, epochs, task=task)
+class ExternalProxLocalTrain(LocalTrain):
+    """:class:`LocalTrain` whose proximal term pulls toward an EXTERNAL
+    reference, ``(prox_ref, variables, x, y, mask, epoch_perm, ...)``:
+    Ditto's personal step, pulled toward the broadcast global parameters
+    rather than the entry ones (the reference's ``external_prox=True``)."""
+
+    def __call__(self, prox_ref, variables, x, y, mask, epoch_perm: EpochPerm, mask_host=None,
+                 step_seed: int = 0):
+        params, _ = split_stats(variables)
+        new_vars, _, mets = self.run_epochs(
+            variables, self.opt.init(params), x, y, mask, epoch_perm, mask_host, step_seed,
+            prox_ref=prox_ref,
+        )
+        return new_vars, dict(zip(("loss_sum", "correct", "count", "steps"), mets))
+
+
+def make_local_train(model: ModelDef, tc, epochs: int, task: str = "classification",
+                     external_prox: bool = False) -> LocalTrain:
+    """Build the per-client training function (see :class:`LocalTrain`;
+    ``external_prox`` gives :class:`ExternalProxLocalTrain`)."""
+    return (ExternalProxLocalTrain if external_prox else LocalTrain)(model, tc, epochs, task=task)

@@ -10,8 +10,11 @@
     its uninterrupted run bit for bit; (e) a reference run of 2 rounds,
     resumed by the port for rounds 2-3, matches the reference's 4 straight
     rounds; DP-FedAvg, Krum and Multi-Krum, weak DP, the backdoor attack,
-    power-of-choice, overprovisioning, fault plans and ``--eval_on_clients``
-    write the reference's rows, and their usage errors are the reference's; (f) ``--selection weighted`` draws the reference's cohorts;
+    power-of-choice, overprovisioning, fault plans, ``--eval_on_clients``,
+    FedNova, q-FedAvg, hierarchical FedAvg, SCAFFOLD (device and mmap) and
+    Ditto write the reference's rows, centralized and decentralized runs
+    too (from the reference's init), and their usage errors are the
+    reference's; (f) ``--selection weighted`` draws the reference's cohorts;
     (g) the entry point runs ``--help`` here and refuses to train without a
     card; (h) a loopback FedAdam run writes the reference's transport row
     keys. Besides: ``--enable_wandb`` names and feeds a wandb run as the
@@ -45,12 +48,14 @@ from fedml_tpu.utils.checkpoint import load_checkpoint as jax_load  # noqa: E402
 from fedml_tpu.utils.checkpoint import save_checkpoint as jax_save  # noqa: E402
 
 import fedml_tpu_torch.__main__ as tmain  # noqa: E402
+import fedml_tpu_torch.algorithms.ditto as tditto  # noqa: E402
 import fedml_tpu_torch.algorithms.fedavg as tfedavg  # noqa: E402
 from fedml_tpu_torch import cli as tcli  # noqa: E402
 from fedml_tpu_torch.bridge import to_flax  # noqa: E402
 
 from torch_parity import (  # noqa: E402
-    flat_params, jax_noise_fn, jax_round_perm_fn, private_reference_programs, time_limit,
+    flat_params, jax_ditto_personal_perm_fn, jax_noise_fn, jax_round_perm_fn,
+    private_reference_programs, time_limit,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -196,7 +201,7 @@ def test_resume_over_a_transport_is_refused(tmp_path):
 UNPORTED = {
     "mesh": ["--runtime", "mesh"],
     "grpc": ["--runtime", "grpc", "--rank", "0"],
-    "scaffold": ["--algorithm", "scaffold"],
+    "scaffold": ["--algorithm", "scaffold", "--state_store", "sharded"],
     "fedbuff_over_loopback": ["--algorithm", "fedbuff", "--runtime", "loopback"],
     "warmup": ["--warmup"],
     "fused_rounds": ["--fused_rounds", "2"],
@@ -241,7 +246,41 @@ PORTED = {
                            "--attack_boost", "5"], cohort=5, noise=True),
     "fault_plan": dict(args=["--fault_plan", '{"seed": 4, "default": {"dropout_p": 0.3}}',
                              "--client_num_per_round", "5", "--batch_size", "-1"], cohort=None),
+    # the stateful and drift-correcting algorithms: SCAFFOLD and Ditto resume
+    # from the init checkpoint's state (the device stack's form; the mmap
+    # run restores it into its spill tier), Ditto with the reference's
+    # personal shuffles; hierarchical at full batch (its shuffles are keyed
+    # per group and sub-round, and full batch makes them moot)
+    "fednova": dict(args=["--algorithm", "fednova", "--client_num_per_round", "4"], cohort=4),
+    "qfedavg": dict(args=["--algorithm", "qfedavg", "--qffl_q", "0.5",
+                          "--client_num_per_round", "4"], cohort=4),
+    "hierarchical": dict(args=["--algorithm", "hierarchical", "--group_num", "2",
+                               "--group_comm_round", "2", "--client_num_per_round", "6",
+                               "--batch_size", "-1"], cohort=None),
+    "scaffold": dict(args=["--algorithm", "scaffold", "--client_num_per_round", "4"], cohort=4),
+    "scaffold_mmap": dict(args=["--algorithm", "scaffold", "--client_num_per_round", "4",
+                                "--state_store", "mmap"], cohort=4),
+    "ditto": dict(args=["--algorithm", "ditto", "--ditto_lambda", "0.5",
+                        "--client_num_per_round", "4"], cohort=4, personal=True),
 }
+
+
+def _stateful_init(args):
+    """SCAFFOLD's and Ditto's state at round 0 in the reference's device
+    form (zero control variates; every personal model w_0), for the init
+    checkpoint's algo slot."""
+    algorithm = _arg(args, "--algorithm", "fedavg")
+    if algorithm not in ("scaffold", "ditto"):
+        return None
+    model = jax_create_model("lr", "synthetic", (28, 28, 1), 10)
+    init = jax.device_get(model.init(jax.random.fold_in(jax.random.PRNGKey(0), 0)))
+    n = _arg(args, "--client_num_in_total", 10)
+    tree_map = jax.tree_util.tree_map
+    stack = lambda tree: tree_map(lambda a: np.broadcast_to(a, (n,) + a.shape).copy(), tree)  # noqa: E731
+    if algorithm == "ditto":
+        return {"v_stack": stack(init)}
+    zeros = tree_map(np.zeros_like, init["params"])
+    return {"c_server": zeros, "c_stack": stack(zeros)}
 
 
 def _dp_cohort(round_idx, n, per_round):
@@ -267,6 +306,8 @@ def test_ported_options_match_the_reference(case, tmp_path, monkeypatch):
 
         algo = {"dp_rdp": np.zeros(len(RdpAccountant().orders)), "dp_rounds": np.asarray(0),
                 "dp_sample_secret": _secret_to_words(DP_SECRET)}
+    else:
+        algo = _stateful_init(args)
     _reference_init_checkpoint(tmp_path / "init", args, algo_state=algo)
     for side in ("ref", "port"):
         for ext in (".npz", ".json"):
@@ -277,6 +318,9 @@ def test_ported_options_match_the_reference(case, tmp_path, monkeypatch):
                             lambda seed: jax_round_perm_fn(seed, spec["cohort"]))
     if spec.get("noise"):
         monkeypatch.setattr(tfedavg, "seeded_noise_fn", lambda seed, device: jax_noise_fn(seed))
+    if spec.get("personal"):
+        monkeypatch.setattr(tditto, "seeded_personal_perm_fn",
+                            lambda seed: jax_ditto_personal_perm_fn(seed, spec["cohort"]))
     api = _port(args + ["--log_dir", tmp_path / "port_log", "--checkpoint_path",
                         tmp_path / "port"])
 
@@ -291,7 +335,9 @@ def test_ported_options_match_the_reference(case, tmp_path, monkeypatch):
     for g, w in zip(port_rows, ref_rows, strict=True):
         _assert_close_rows(g, w)
     key = {"dp_fedavg": "DP/epsilon", "backdoor": "Backdoor/ASR",
-           "fault_plan": "faults/total"}.get(case)
+           "fault_plan": "faults/total", "ditto": "Personalized/Acc"}.get(case)
+    if case.startswith("scaffold"):
+        assert api.state.mode == _arg(args, "--state_store", "device")
     if key is not None:
         assert key in got
     if case == "eval_on_clients":
@@ -586,3 +632,97 @@ def test_no_port_module_imports_click_or_h5py():
                          timeout=120, check=True)
     n, has_cli, loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert n > 50 and has_cli and loaded == []
+
+
+# ------------------------------- the algorithms with loops of their own
+
+
+def _reference_lr_init(monkeypatch):
+    """The port's models start from the reference's init for the run's
+    model (these algorithms take no --resume)."""
+    import fedml_tpu_torch.models as tmodels
+    from fedml_tpu_torch.bridge import from_flax
+
+    model = jax_create_model("lr", "synthetic", (28, 28, 1), 10)
+    init = from_flax(jax.device_get(model.init(jax.random.fold_in(jax.random.PRNGKey(0), 0))))
+    create = tmodels.create_model
+
+    def create_with_reference_init(*a, **kw):
+        m = create(*a, **kw)
+        m.init = lambda generator: {k: v.clone() for k, v in init.items()}
+        return m
+
+    monkeypatch.setattr(tmodels, "create_model", create_with_reference_init)
+
+
+def _reference_worker_init(monkeypatch, n: int, feat: int):
+    """Each decentralized worker from the reference's per-worker key
+    (``split(PRNGKey(seed), N)``)."""
+    import fedml_tpu_torch.algorithms.decentralized as tdec
+    from fedml_tpu.models import ModelDef as JaxModelDef
+    from fedml_tpu.models.linear import LogisticRegression as JaxLR
+
+    from fedml_tpu_torch.bridge import from_flax
+
+    model = JaxModelDef(JaxLR(num_classes=1), (feat,), 1, name="lr")
+    keys = jax.random.split(jax.random.PRNGKey(0), n)
+    params = from_flax(jax.device_get(jax.vmap(lambda k: model.init(k)["params"])(keys)), 1)
+
+    class WithReferenceInit(tdec.DecentralizedAPI):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.params = {k: v.to(self.device) for k, v in params.items()}
+
+    monkeypatch.setattr(tdec, "DecentralizedAPI", WithReferenceInit)
+
+
+@pytest.mark.parametrize("case", ["centralized", "dsgd", "pushsum"])
+def test_longtail_algorithms_match_the_reference(case, tmp_path, monkeypatch):
+    """Both CLIs from the reference's init: summary.json and every row
+    within ROW_TOL, with the same keys (the port's lack only compile/*)."""
+    if case == "centralized":
+        args = LR + ["--algorithm", "centralized", "--comm_round", "2", "--batch_size", "16"]
+        _reference_lr_init(monkeypatch)
+    else:
+        args = LR + ["--algorithm", "decentralized", "--variant", case]
+        _reference_worker_init(monkeypatch, 10, 28 * 28)
+    _ref(args + ["--log_dir", tmp_path / "ref_log"])
+    api = _port(args + ["--log_dir", tmp_path / "port_log"])
+    want, got = _summary(tmp_path / "ref_log"), _summary(tmp_path / "port_log")
+    assert set(got) <= set(want)
+    assert all(k.startswith(REFERENCE_ONLY_PREFIXES) for k in set(want) - set(got))
+    _assert_close_rows(got, {k: want[k] for k in got})
+    rows = lambda d: [json.loads(line) for line in (d / "metrics.jsonl").read_text().splitlines()]  # noqa: E731
+    ref_rows = [r for r in rows(tmp_path / "ref_log") if "Train/Loss" in r or "final_regret" in r]
+    port_rows = [r for r in rows(tmp_path / "port_log") if "Train/Loss" in r or "final_regret" in r]
+    assert len(port_rows) == len(ref_rows) >= 1
+    for g, w in zip(port_rows, ref_rows, strict=True):
+        _assert_close_rows({k: v for k, v in g.items() if k != "_ts"},
+                           {k: v for k, v in w.items() if k != "_ts"})
+    if case != "centralized":
+        assert api.variant == case and got["iterations"] > 1
+
+
+@pytest.mark.parametrize("case", [
+    "centralized_with_selection", "decentralized_over_loopback", "centralized_resume",
+    "centralized_checkpoint", "decentralized_bad_variant", "scaffold_over_loopback",
+    "fednova_with_variant", "ditto_over_shm",
+])
+def test_longtail_usage_errors_are_the_reference_s(case, tmp_path):
+    args = {
+        "centralized_with_selection": ["--algorithm", "centralized", "--selection", "weighted"],
+        "decentralized_over_loopback": ["--algorithm", "decentralized", "--runtime", "loopback"],
+        "centralized_resume": ["--algorithm", "centralized", "--resume", "--checkpoint_path",
+                               tmp_path / "ck"],
+        "centralized_checkpoint": ["--algorithm", "centralized", "--checkpoint_path",
+                                   tmp_path / "ck"],
+        "decentralized_bad_variant": ["--algorithm", "decentralized", "--variant", "gossip"],
+        "scaffold_over_loopback": ["--algorithm", "scaffold", "--runtime", "loopback"],
+        "fednova_with_variant": ["--algorithm", "fednova", "--variant", "dsgd"],
+        "ditto_over_shm": ["--algorithm", "ditto", "--runtime", "shm"],
+    }[case] + ["--comm_round", "1", "--log_dir", tmp_path / "log"]
+    result = CliRunner().invoke(jcli.main, [str(a) for a in args])
+    assert result.exit_code == 2, result.output
+    with pytest.raises(SystemExit) as e:
+        _port(args)
+    assert e.value.code == 2

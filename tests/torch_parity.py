@@ -436,3 +436,69 @@ def flat_params(tree, prefix: str = "") -> dict:
         else:
             out[prefix + key] = np.asarray(value)
     return out
+
+
+def jax_ditto_personal_perm_fn(seed: int, cohort):
+    """``personal_perm_fn`` for the port's DittoAPI that yields the
+    reference's personal-train permutations: each client's round key
+    folded with 0x0D1770 (fedml_tpu/algorithms/ditto.py
+    ``_make_ditto_cohort_body``)."""
+    import jax
+
+    base = jax.random.PRNGKey(seed)
+    size = cohort if callable(cohort) else (lambda r: cohort)
+
+    def perm_fn(round_idx, slot, epoch, m_flat):
+        rngs = jax.random.split(jax.random.fold_in(base, round_idx + 1), size(round_idx))
+        return jax_epoch_perm(jax.random.fold_in(rngs[slot], 0x0D1770), epoch, m_flat)
+
+    return perm_fn
+
+
+def algorithm_pair(jax_cls, torch_cls, jax_kw=None, torch_kw=None, rounds: int = SLICE["rounds"],
+                   per_round: int = SLICE["per_round"], batch_size: int = 20, fed=None,
+                   train=None, data=None, models=None):
+    """The reference's ``jax_cls`` and the port's ``torch_cls`` on the same
+    inputs, built but not trained: the CNN slice by default (``data`` and
+    ``models`` are (reference, port) pairs to use instead), ``fed`` and
+    ``train`` FedConfig/TrainConfig fields set on both configs, the port
+    on the CPU from the reference's init (its model's ``init`` returns it,
+    so state initialised from the model, Ditto's v_k = w_0, starts there
+    too) with the reference's shuffles."""
+    import dataclasses
+
+    import jax
+
+    from fedml_tpu_torch.bridge import from_flax
+
+    jdata, tdata = data or slice_data()
+    jmodel, tmodel = models or slice_models()
+
+    def edit(cfg):
+        return cfg.replace(fed=dataclasses.replace(cfg.fed, **(fed or {})),
+                           train=dataclasses.replace(cfg.train, **(train or {})))
+
+    jconf, tconf = (edit(c) for c in slice_configs(rounds, per_round, batch_size))
+    japi = jax_cls(jconf, jdata, jmodel, **(jax_kw or {}))
+    init = from_flax(jax.device_get(japi.global_vars))
+    tmodel.init = lambda generator: {k: v.clone() for k, v in init.items()}
+    kw = dict(device="cpu", perm_fn=jax_round_perm_fn(SLICE["seed"], per_round))
+    kw.update(torch_kw or {})
+    return japi, torch_cls(tconf, tdata, tmodel, **kw)
+
+
+def lr_pair(jax_cls, torch_cls, jax_kw=None, torch_kw=None, fed=None, train=None,
+            batch_size: int = -1, rounds: int = LR["rounds"], data=None):
+    """:func:`algorithm_pair` on the logistic-regression fixture (full batch
+    by default), all of its clients in every round."""
+    from fedml_tpu.data.synthetic import synthetic_classification as jax_synthetic
+
+    from fedml_tpu_torch.data.synthetic import synthetic_classification
+
+    n = LR["num_clients"]
+    return algorithm_pair(
+        jax_cls, torch_cls, jax_kw, torch_kw, rounds=rounds, per_round=n, batch_size=batch_size,
+        fed={"client_num_in_total": n, **(fed or {})}, train={"lr": 0.1, **(train or {})},
+        data=data or (lr_data(jax_synthetic), lr_data(synthetic_classification)),
+        models=(jax_lr_model(), torch_lr_model()),
+    )
