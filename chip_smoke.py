@@ -135,7 +135,27 @@ Phases, each of which raises on failure:
     variates STATE_CARD_VS_CPU); a SCAFFOLD
     ``--resume`` through ``cli.main`` bit-equal to the straight run; one
     epoch of centralized training; DSGD and push-sum with finite losses
-    and a falling regret. A ``[longtail]`` JSON line gives the readings.
+    and a falling regret. A ``[longtail]`` JSON line gives the readings;
+18. FedBuff, the async buffered federation (``phase_fedbuff``), on the
+    north star at full width (10 workers, ``async_buffer_k`` 10, η_g 1,
+    staleness exponent 0.5): (a) 6 server steps over loopback, then the
+    same under the profiler (the device's busy share); (b) 3 steps over
+    shared memory and over the embedded MQTT broker — each run with its
+    step count, finite losses, one staleness entry a buffered upload, a
+    staleness histogram summing to them, and the health registry's
+    participations covering them; seconds a step, uploads a second and
+    bytes a dispatch and an upload; (c) one worker, k = 1, 3 full-batch
+    steps on the card against the CPU from one init (CARD_VS_CPU); (d)
+    the buffer step alone, k = 10 over the whole model, τ = 0..9, within
+    FEDBUFF_STEP_TOL of float64 numpy, its device ms beside its bytes
+    bound; (e) a dropout 0.2 / flaky 0.1 plan: declines re-dispatched and
+    the flaky copies dropped by the tag dedupe, as the injector counted
+    them, the steps completed; (f) ``straggler_aware`` on the sync
+    loopback transport with a fixed set of slow clients: the cohorts
+    equal a replay of the policy over the run's ``local_train`` spans,
+    no cohort holds a flagged client while ten unflagged ones exist, and
+    a slow client gets flagged. A ``[fedbuff]`` JSON line gives the
+    readings.
 
 Then it prints each phase's seconds (``phase_s``), the kernels' JSON line,
 the ``nvidia-smi`` line, and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -2202,6 +2222,303 @@ def phase_longtail(smi: str, main_warm_s=None, device="cuda", num_clients=128,
     return report
 
 
+
+# ---------------------------------------------------------------- FedBuff
+
+FEDBUFF = dict(workers=10, k=10, steps=6, other_steps=3, card_cpu_steps=3, exp=0.5, eta=1.0)
+FEDBUFF_PLAN = {"seed": 11, "default": {"dropout_p": 0.2, "flaky_upload_p": 0.1}}
+FEDBUFF_STEP_TOL = 1e-6  # the buffer step on the card against float64 numpy
+STRAGGLER_ROUNDS = 6
+STRAGGLER_SLOW_S = 1.0  # the slow clients' extra train time, inside their local_train span
+STRAGGLER_SLOW = 3  # of round 0's cohort
+
+
+def _fedbuff_cfg(steps: int, num_clients: int, workers: int, k: int, **fed):
+    cfg, data, model = _north_star(steps, num_clients, workers)
+    cfg = _with_fed(cfg, async_buffer_k=k, async_staleness_exp=FEDBUFF["exp"],
+                    async_server_lr=FEDBUFF["eta"], **fed)
+    return cfg, data, model
+
+
+def _fedbuff_checks(server, what: str, workers: int, steps: int, trainers, rows) -> dict:
+    """The gates every FedBuff run holds: its step count, finite losses,
+    one staleness entry a buffered upload and a histogram summing to them,
+    and the health registry's participations (the buffered uploads, plus at
+    most one train a worker that ended before the last step while its
+    upload arrived after it)."""
+    k = server.config.fed.async_buffer_k
+    if server.server_steps != steps:
+        raise AssertionError(f"{what}: {server.server_steps} server steps, want {steps}")
+    _finite_rows(server.history, what)
+    losses = [t.last_loss for t in trainers if t.last_loss is not None]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: client train losses {losses}")
+    uploads = len(server.staleness_seen)
+    if uploads != steps * k:
+        raise AssertionError(f"{what}: {uploads} buffered uploads, want {steps * k}")
+    final = [r for r in rows if r.get("async_final")]
+    if len(final) != 1 or sum(final[0]["staleness_hist"].values()) != uploads:
+        raise AssertionError(f"{what}: staleness histogram {final} against {uploads} uploads")
+    seen = sum(server.health.rounds_participated(c)
+               for c in range(server.config.fed.client_num_in_total))
+    if not uploads <= seen <= uploads + workers:
+        raise AssertionError(f"{what}: the registry saw {seen} trains for {uploads} uploads")
+    return {"server_steps": server.server_steps, "buffered_uploads": uploads,
+            "registry_participations": seen, "staleness_hist": final[0]["staleness_hist"],
+            "final_row": server.history[-1]}
+
+
+def _fedbuff_run(runner, cfg, data, model, device, **kw):
+    """``runner`` with the comm meter and tracer reset before; (server,
+    trainers, rows, wall seconds)."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg_transport import LocalTrainer
+    from fedml_tpu_torch.telemetry import get_comm_meter, get_tracer
+
+    trainers, rows = [], []
+
+    def make_trainer(rank):
+        trainers.append(LocalTrainer(cfg, data, model, device=device))
+        return trainers[-1]
+
+    get_comm_meter().reset()
+    get_tracer().reset()
+    t0 = time.perf_counter()
+    server = runner(cfg, data, model, device=device, log_fn=rows.append,
+                    trainer_factory=make_trainer, orphan_deadline_s=120.0, **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return server, trainers, rows, time.perf_counter() - t0
+
+
+def _fedbuff_report(server, wall_s: float) -> dict:
+    """Seconds a server step (the rows' ``t_s`` deltas, and net of the
+    previous step's eval), uploads a second, and bytes a dispatch and an
+    upload from the port's CommMeter."""
+    from fedml_tpu_torch.core.message import MessageType as MT
+    from fedml_tpu_torch.telemetry import get_comm_meter, get_tracer
+
+    snap = get_comm_meter().snapshot()
+    t_s = [row["t_s"] for row in server.history]
+    evals = {ev.attrs["round"]: ev.dur_us / 1e6 for ev in get_tracer().events() if ev.name == "eval"}
+    steps = [b - a for a, b in zip(t_s, t_s[1:])]
+    net = [d - evals.get(i, 0.0) for i, d in enumerate(steps)]
+    k = server.config.fed.async_buffer_k
+    ups = snap["messages_sent"].get(MT.C2S_SEND_MODEL, 0)
+    return {
+        "wall_s": wall_s,
+        "t_s": t_s,
+        "step_s": steps,
+        "step_s_net_of_eval": net,
+        "uploads_per_s": k * len(steps) / (t_s[-1] - t_s[0]) if len(t_s) > 1 else None,
+        "bytes_per_dispatch": snap["downlink_payload_bytes"] / max(snap["downlink_updates"], 1),
+        "wire_bytes_per_upload": snap["bytes_sent"].get(MT.C2S_SEND_MODEL, 0) / max(ups, 1),
+        "eval_s": sorted(evals.values()),
+    }
+
+
+class _SlowClientsTrainer:
+    """A LocalTrainer factory whose trainers sleep ``slow_s`` inside their
+    ``local_train`` span for the clients in ``slow`` (the reference's
+    per-trainer ``straggle_ms``, keyed by client here): the health
+    registry sees the span, so these clients' train times are the slow
+    ones. A fault plan's slowdown sleeps after the span in both packages,
+    where the registry's span stream does not see it."""
+
+    def __init__(self, cfg, data, model, device, slow, slow_s):
+        from fedml_tpu_torch.algorithms.fedavg_transport import LocalTrainer
+
+        class Slow(LocalTrainer):
+            def _train(self, round_idx, variables):
+                out = super()._train(round_idx, variables)
+                if self.client_index in slow:
+                    time.sleep(slow_s)
+                return out
+
+        self.make = lambda rank: Slow(cfg, data, model, device=device)
+
+
+def phase_fedbuff(smi: str, device="cuda", num_clients=128, workers=FEDBUFF["workers"],
+                  k=FEDBUFF["k"], steps=FEDBUFF["steps"], other_steps=FEDBUFF["other_steps"],
+                  straggler_rounds=STRAGGLER_ROUNDS) -> dict:
+    """FedBuff on the north star at full width (phase 18); see the module
+    docstring. Returns the ``[fedbuff]`` readings."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.algorithms import fedbuff as fb
+    from fedml_tpu_torch.algorithms.fedavg_transport import run_loopback_federation
+    from fedml_tpu_torch.scheduler.policies import SelectionContext, StragglerAwarePolicy
+    from fedml_tpu_torch.telemetry import ClientHealthRegistry, MetricsRegistry, get_tracer
+
+    report = {"card": smi, "workers": workers, "async_buffer_k": k}
+
+    # (a) loopback: timed, then again under the profiler for the busy share
+    cfg, data, model = _fedbuff_cfg(steps, num_clients, workers, k)
+    server, trainers, rows, wall = _fedbuff_run(fb.run_fedbuff_loopback, cfg, data, model, device)
+    report["loopback"] = {**_fedbuff_checks(server, "loopback", workers, steps, trainers, rows),
+                          **_fedbuff_report(server, wall)}
+    if device == "cuda":
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            server, trainers, rows, wall = _fedbuff_run(fb.run_fedbuff_loopback, cfg, data, model,
+                                                        device)
+        _fedbuff_checks(server, "loopback (profiled)", workers, steps, trainers, rows)
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        report["loopback_profiled"] = {
+            "wall_s": wall, "kernel_launches": sum(e.count for e in kernels),
+            "device_kernel_ms": kernel_ms if kernels else "not measured",
+            "device_busy_share": kernel_ms / (wall * 1e3) if kernels else "not measured",
+            "top_kernels_ms_calls": {e.key[:60]: [e.self_device_time_total / 1e3, e.count]
+                                     for e in top},
+        }
+
+    # the yardstick in this call: synchronous FedAvg rounds of the same
+    # cohort size over loopback
+    sync, sync_report = _traced_federation(run_loopback_federation,
+                                           *_north_star(3, num_clients, workers), device=device)
+    _finite_rows(sync.history, "sync loopback")
+    report["sync_loopback"] = {k: sync_report[k] for k in ("warm_round_s", "round_t_s", "wall_s")}
+
+    # (b) shared memory and the embedded MQTT broker
+    cfg_b, _, _ = _fedbuff_cfg(other_steps, num_clients, workers, k)
+    for name, runner in (("shm", fb.run_fedbuff_shm), ("mqtt", fb.run_fedbuff_mqtt)):
+        server, trainers, rows, wall = _fedbuff_run(runner, cfg_b, data, model, device)
+        report[name] = {**_fedbuff_checks(server, name, workers, other_steps, trainers, rows),
+                        **_fedbuff_report(server, wall)}
+
+    # (c) the fixed arrival order (one worker, k = 1, one full-batch step a
+    # client) on the card against the CPU, from one init
+    cfg_c, _, _ = _fedbuff_cfg(FEDBUFF["card_cpu_steps"], num_clients, 1, 1,
+                               frequency_of_the_test=FEDBUFF["card_cpu_steps"])
+    cfg_c = _full_batch(cfg_c)
+    init = model.init(torch.Generator().manual_seed(cfg_c.seed))
+    out = {}
+    for dev in ("cpu", device):
+        t0 = time.perf_counter()
+        srv = fb.run_fedbuff_loopback(cfg_c, data, model, device=dev, init_vars=init,
+                                      orphan_deadline_s=120.0)
+        out[dev] = ({n: v.cpu() for n, v in srv.global_vars.items()}, srv.history,
+                    time.perf_counter() - t0)
+        if srv.staleness_seen != [0] * FEDBUFF["card_cpu_steps"]:
+            raise AssertionError(f"card vs cpu ({dev}): staleness {srv.staleness_seen}")
+    rtol, atol = CARD_VS_CPU[-1]
+    (cpu, cpu_rows, cpu_s), (card, card_rows, card_s) = out["cpu"], out[device]
+    err = max((card[n] - cpu[n]).abs().max().item() for n in cpu)
+    for n in cpu:
+        torch.testing.assert_close(card[n], cpu[n], rtol=rtol, atol=atol,
+                                   msg=lambda m, n=n: f"fedbuff card vs cpu {n}: {m}")
+    report["card_vs_cpu"] = {"steps": FEDBUFF["card_cpu_steps"], "max_abs_err": err, "rtol": rtol,
+                             "atol": atol, "cpu_s": cpu_s, "card_s": card_s,
+                             "test_loss": [card_rows[-1]["Test/Loss"], cpu_rows[-1]["Test/Loss"]]}
+
+    # (d) the buffer step alone: k deltas over the whole model, tau = 0..k-1,
+    # against float64 numpy
+    gen = torch.Generator().manual_seed(1)
+    g = {n: v.to(device) for n, v in model.init(gen).items()}
+    deltas = [{n: (0.01 * torch.randn(v.shape, generator=gen)).to(device) for n, v in g.items()}
+              for _ in range(k)]
+    taus = list(range(k))
+    got = fb.apply_buffered_update(g, deltas, taus, FEDBUFF["eta"], FEDBUFF["exp"])
+    w = (1.0 + np.arange(k, dtype=np.float64)) ** -FEDBUFF["exp"]
+    w /= w.sum()
+    step_err = 0.0
+    for n, v in g.items():
+        want = v.double().cpu().numpy() + FEDBUFF["eta"] * np.tensordot(
+            w, np.stack([d[n].double().cpu().numpy() for d in deltas]), axes=1)
+        step_err = max(step_err, float(np.abs(got[n].double().cpu().numpy() - want).max()))
+    if step_err > FEDBUFF_STEP_TOL:
+        raise AssertionError(f"buffer step: {step_err} from float64, tolerance {FEDBUFF_STEP_TOL}")
+    model_bytes = 4 * sum(v.numel() for v in g.values())
+    step = {"k": k, "max_abs_err_vs_float64": step_err, "tol": FEDBUFF_STEP_TOL,
+            "model_bytes": model_bytes}
+    if device == "cuda":
+        _, (rate, _, _) = card_rates(torch.cuda.get_device_name(0))
+        step["ms"] = device_ms(lambda: fb.apply_buffered_update(g, deltas, taus, FEDBUFF["eta"],
+                                                                FEDBUFF["exp"]))
+        # each delta read once, the model read once and written once
+        step["bound_ms"] = (k + 2) * model_bytes / rate * 1e3
+        step["bound_by"] = "bytes"
+    report["buffer_step"] = step
+
+    # (e) a fault plan over loopback: declines re-dispatched, the flaky
+    # second copies dropped by the tag dedupe
+    cfg_e, _, _ = _fedbuff_cfg(other_steps, num_clients, workers, k,
+                               fault_plan=json.dumps(FEDBUFF_PLAN))
+    server, trainers, rows, wall = _fedbuff_run(fb.run_fedbuff_loopback, cfg_e, data, model, device)
+    checks = _fedbuff_checks(server, "fault plan", workers, other_steps, trainers, rows)
+    summary = [r for r in rows if "faults/total" in r]
+    if len(summary) != 1:
+        raise AssertionError(f"fault plan: summary rows {summary}")
+    summary = summary[0]
+    dropouts, flaky = summary["faults/dropouts"], summary["faults/flaky_uploads"]
+    # a decline or flaky pair in flight when the last step closed the run is
+    # never read by the server: at most one a worker
+    if not (0 < dropouts and server.declines <= dropouts <= server.declines + workers):
+        raise AssertionError(f"fault plan: {server.declines} declines read of {dropouts} dropouts")
+    if not server.duplicates <= flaky <= server.duplicates + workers:
+        raise AssertionError(f"fault plan: {server.duplicates} duplicates dropped of {flaky} "
+                             "flaky sends")
+    report["fault_plan"] = {**checks, "plan": FEDBUFF_PLAN, "summary": summary,
+                            "declines_redispatched": server.declines,
+                            "duplicates_dropped": server.duplicates,
+                            "dispatches": server._dispatch_counter,
+                            **_fedbuff_report(server, wall)}
+
+    # (f) straggler_aware on the sync loopback transport: a fixed set of
+    # slow clients (from round 0's cohort), the cohorts replayed from the
+    # run's local_train spans
+    cfg_f, _, _ = _north_star(straggler_rounds, num_clients, COHORT)
+    cfg_f = _with_fed(cfg_f, selection="straggler_aware", frequency_of_the_test=straggler_rounds)
+    first = StragglerAwarePolicy().select(0, COHORT, SelectionContext(seed=cfg_f.seed,
+                                                                      num_clients=num_clients))
+    slow = {int(c) for c in first[:STRAGGLER_SLOW]}
+    rows = []
+    get_tracer().reset()
+    t0 = time.perf_counter()
+    fed = run_loopback_federation(
+        cfg_f, data, model, device=device, log_fn=rows.append,
+        trainer_factory=_SlowClientsTrainer(cfg_f, data, model, device, slow, STRAGGLER_SLOW_S).make,
+    )
+    wall = time.perf_counter() - t0
+    _finite_rows(fed.history, "straggler_aware")
+    cohorts = {r["round"]: r["scheduler/selected"] for r in rows if "scheduler/selected" in r}
+    spans = {}
+    for ev in get_tracer().events():
+        if ev.name == "local_train":
+            spans.setdefault(int(ev.attrs["round"]), []).append(
+                (int(ev.attrs["client"]), ev.dur_us / 1e6))
+    replay = ClientHealthRegistry(registry=MetricsRegistry())
+    ctx = SelectionContext(seed=cfg_f.seed, num_clients=num_clients, health=replay)
+    flagged_by_round, slow_flagged = {}, set()
+    for r in range(straggler_rounds):
+        flagged = replay.straggler_ids()
+        want = StragglerAwarePolicy().select(r, COHORT, ctx).tolist()
+        if cohorts[r] != want:
+            raise AssertionError(f"straggler_aware round {r}: cohort {cohorts[r]}, replay {want}")
+        if num_clients - len(flagged) >= COHORT and set(cohorts[r]) & set(flagged):
+            raise AssertionError(f"straggler_aware round {r}: flagged {flagged} in {cohorts[r]}")
+        flagged_by_round[r] = flagged
+        slow_flagged |= slow & set(flagged)
+        for cid, dur in spans.get(r, []):
+            replay.observe_train(cid, r, dur)
+    if not slow_flagged:
+        raise AssertionError(f"straggler_aware: no slow client of {sorted(slow)} was ever flagged")
+    if replay.snapshot() != fed.health.snapshot():
+        raise AssertionError("straggler_aware: the server's registry is not the spans' replay")
+    report["straggler_aware"] = {"rounds": straggler_rounds, "slow": sorted(slow),
+                                 "slow_s": STRAGGLER_SLOW_S, "flagged_by_round": flagged_by_round,
+                                 "cohorts": cohorts, "wall_s": wall,
+                                 "round_t_s": [row["t_s"] for row in fed.history]}
+    log("[fedbuff] " + json.dumps(report))
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -2236,6 +2553,7 @@ def main() -> int:
     resnet_launches = timed(phase_resnet, smi)
     defense_launches = timed(phase_defenses, smi)
     timed(phase_longtail, smi, main_warm_s["median"])
+    timed(phase_fedbuff, smi)
     log(json.dumps({"phase_s": phase_s}))
 
     from fedml_tpu_torch.ops import flash_attention as fa

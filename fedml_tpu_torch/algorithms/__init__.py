@@ -2,7 +2,8 @@
 FedAvg-robust, FedOpt, FedNova, q-FedAvg, hierarchical FedAvg, SCAFFOLD and
 Ditto with the per-client state store, decentralized DSGD/push-sum and the
 base framework; the cross-silo transport form of FedAvg imports from
-``fedml_tpu_torch.algorithms.fedavg_transport``)."""
+``fedml_tpu_torch.algorithms.fedavg_transport``, the async buffered
+federation FedBuff from ``fedml_tpu_torch.algorithms.fedbuff``)."""
 
 from fedml_tpu_torch.algorithms.ditto import DittoAPI  # noqa: F401
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI  # noqa: F401

@@ -35,6 +35,7 @@ from fedml_tpu_torch.data.device_store import DeviceDataStore
 from fedml_tpu_torch.device import DeviceLike, fp32_math, resolve_device
 from fedml_tpu_torch.models import ModelDef
 from fedml_tpu_torch.scheduler import ClientScheduler, FaultInjector, select_clients
+from fedml_tpu_torch.telemetry import ClientHealthRegistry
 from fedml_tpu_torch.train.client import (
     EpochPerm, PermFn, client_step_seed, make_local_train, seeded_perm_fn,
 )
@@ -191,7 +192,9 @@ class FedAvgAPI:
     A round's cohort is the scheduler's selection less the clients the
     fault plan (``fed.fault_plan``) drops or crashes; the simulator trains
     a cohort as one program, so only participation faults apply, and
-    ``faults.summary_row()`` holds the run's counts. With
+    ``faults.summary_row()`` holds the run's counts. ``health`` is the
+    client health registry: after each round every sampled client is
+    observed with the round's time (``straggler_aware`` reads it). With
     ``fed.eval_on_clients`` an eval round reports the global model on every
     client's shards (:meth:`local_test_on_all_clients`)."""
 
@@ -217,9 +220,15 @@ class FedAvgAPI:
         self.global_vars = {k: v.to(self.device) for k, v in init.items()}
         self.perm_fn = perm_fn or seeded_perm_fn(config.seed)
         self.noise_fn = noise_fn or seeded_noise_fn(config.seed, self.device)
+        # the client health registry: the cohort trains as one loop, so
+        # every sampled client shares the round's wall time; participation
+        # and last-seen are exact per client. straggler_aware reads it, and
+        # fault plans record into it
+        self.health = ClientHealthRegistry.from_config(config)
         # each fresh cohort goes to log_fn (summary.json's scheduler/* keys)
         self.scheduler = ClientScheduler.from_config(
-            config, num_clients=data.num_clients, data=data, log_fn=self.log_fn
+            config, num_clients=data.num_clients, data=data, log_fn=self.log_fn,
+            health=self.health,
         )
         self.round_fn = self._build_round_fn(local_train_fn)
         self.eval_fn = make_eval_fn(model, task)
@@ -227,7 +236,7 @@ class FedAvgAPI:
         # --resume sets global_vars, start_round (and a FedOpt's
         # server_opt_state) after construction; train() continues from there
         self.start_round = 0
-        self.faults = FaultInjector.from_config(config)
+        self.faults = FaultInjector.from_config(config, health=self.health)
         # round -> cohort after faults: one decision a round, so the fault
         # counters count each fault once
         self._round_plans: Dict[int, np.ndarray] = {}
@@ -425,5 +434,7 @@ class FedAvgAPI:
             sampled, metrics = self.train_round(round_idx)
             host = torch.stack([metrics[k] for k in _METRIC_KEYS]).tolist()
             dt = time.perf_counter() - t0
+            for cid in sampled:
+                self.health.observe_train(int(cid), round_idx, dt)
             final = self._log_round(round_idx, sampled, dict(zip(_METRIC_KEYS, host)), dt)
         return final

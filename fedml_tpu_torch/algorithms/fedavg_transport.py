@@ -42,9 +42,15 @@ round; each round's cohort goes to ``log_fn`` as the scheduler's
 ``scheduler/policy``/``scheduler/selected`` row, and each upload's train
 loss to the scheduler's loss map (power-of-choice's signal). With
 ``fed.overprovision_factor`` the federation has one worker for each of
-``ceil(client_num_per_round · factor)`` slots. Not ported (each raises
-NotImplementedError naming ROADMAP.md): the straggler-aware policy, AOT
-warmup, the client health registry and the flight recorder."""
+``ceil(client_num_per_round · factor)`` slots.
+
+**Health.** The server's client health registry (``server.health``)
+feeds on the tracer's ``local_train`` spans (in-process actors record
+their true train time) and on each upload's broadcast→upload round trip
+(the only timing a server across processes can see); the (client, round)
+dedupe lets the span win. ``straggler_aware`` reads it, and the fault
+injector records into it. Not ported (raising NotImplementedError naming
+ROADMAP.md): AOT warmup and the flight recorder."""
 
 from __future__ import annotations
 
@@ -73,7 +79,7 @@ from fedml_tpu_torch.device import DeviceLike, fp32_math, resolve_device
 from fedml_tpu_torch.models import ModelDef, split_stats
 from fedml_tpu_torch.scheduler import ClientScheduler, FaultInjector, FaultPlan
 from fedml_tpu_torch.secagg.secure_aggregation import ClientParty, ServerAggregator, tree_dim
-from fedml_tpu_torch.telemetry import get_comm_meter, get_tracer
+from fedml_tpu_torch.telemetry import ClientHealthRegistry, get_comm_meter, get_tracer
 from fedml_tpu_torch.telemetry.wire import beacon_nbytes, build_beacon
 from fedml_tpu_torch.train.client import PermFn, client_step_seed, make_local_train, seeded_perm_fn
 from fedml_tpu_torch.train.evaluate import make_eval_fn, metrics_to_loss_acc, pad_to_batches
@@ -83,9 +89,8 @@ Variables = Dict[str, torch.Tensor]
 
 def _check_config(config: RunConfig, worker_num: int) -> None:
     """The reference server's constructor checks. What the port does not
-    have yet raises NotImplementedError where it is reached: the
-    straggler-aware policy in the scheduler, AOT warmup in
-    :func:`run_federation`, the health registry at ``server.health``."""
+    have yet raises NotImplementedError where it is reached: AOT warmup in
+    :func:`run_federation`."""
     comm = config.comm
     # clients size the mask registry from client_num_per_round, the only
     # value they have: another worker count would not cancel the masks
@@ -280,8 +285,13 @@ class FedAvgServerManager(ServerManager):
         faults: Optional[FaultInjector] = None,
     ):
         self.log_fn = log_fn or (lambda m: None)
+        self._tracer = get_tracer()
+        # detached in finish(): sequential federations in one process must
+        # not pile up listeners on the tracer
+        self.health = ClientHealthRegistry.from_config(config).attach(self._tracer)
         self.scheduler = ClientScheduler.from_config(
-            config, num_clients=config.fed.client_num_in_total, data=data, log_fn=self.log_fn
+            config, num_clients=config.fed.client_num_in_total, data=data, log_fn=self.log_fn,
+            health=self.health,
         )
         self.worker_num = self.scheduler.cohort_size()
         _check_config(config, self.worker_num)
@@ -332,17 +342,17 @@ class FedAvgServerManager(ServerManager):
         self._round_wire: Optional[dict] = None
         self._round_losses: Dict[int, tuple] = {}
         self._assigned: Dict[int, int] = {}  # worker -> the client it trains this round
+        self._bcast_t = 0.0  # the round's broadcast time (health's round trip)
         self.history: List[dict] = []
         # the uploads' sample-weighted train loss, one entry a round
         self.train_losses: List[Optional[float]] = []
         self._eval_fn = make_eval_fn(self.model, task) if data is not None else None
         self._test_dev = None
-        self._tracer = get_tracer()
         self._round_span = None
 
-    @property
-    def health(self):
-        raise NotImplementedError("the client health registry is not ported yet (ROADMAP.md)")
+    def finish(self):
+        self.health.detach()  # queries on self.health keep working
+        super().finish()
 
     def _broadcast(self, msg: Message) -> bool:
         """Send a server->client message, tolerating a dead peer: a worker
@@ -393,6 +403,7 @@ class FedAvgServerManager(ServerManager):
             shipped, raw = _model_wire_cost(host)
         self._round_wire = host
         self._assigned = {worker: int(c) for worker, c in enumerate(sampled, start=1)}
+        self._bcast_t = time.monotonic()
         for worker, client_idx in enumerate(sampled, start=1):
             msg = Message(msg_type, 0, worker)
             if payload is not None:
@@ -560,11 +571,16 @@ class FedAvgServerManager(ServerManager):
             if upload_round != self.round_idx:
                 self.dropped_uploads += 1
                 return
-            # power-of-choice's signal: the client's mean train loss
-            # rides its upload
-            loss = msg.get(MT.ARG_TRAIN_LOSS)
-            if loss is not None and msg.get_sender_id() in self._assigned:
-                self.scheduler.report_loss(self._assigned[msg.get_sender_id()], float(loss))
+            cid = self._assigned.get(msg.get_sender_id())
+            if cid is not None:
+                # health: the broadcast→upload round trip; an in-process
+                # actor's local_train span came first and wins the dedupe
+                self.health.observe_train(cid, upload_round, time.monotonic() - self._bcast_t)
+                # power-of-choice's signal: the client's mean train loss
+                # rides its upload
+                loss = msg.get(MT.ARG_TRAIN_LOSS)
+                if loss is not None:
+                    self.scheduler.report_loss(cid, float(loss))
             worker = msg.get_sender_id() - 1
             n = msg.get(MT.ARG_NUM_SAMPLES)
             if self.config.comm.secure_agg:
@@ -910,6 +926,10 @@ def run_federation(
         config, comm_factory(0), model, data=data, task=task, log_fn=log_fn,
         server_opt=server_opt, device=dev, init_vars=init_vars, faults=injector,
     )
+    if injector is not None:
+        # the injector predates the server (its stall valve reads the
+        # plan): point the fault accounting at the server's registry
+        injector.health = server.health
     make_trainer = trainer_factory or (
         lambda rank: LocalTrainer(config, data, model, task, device=dev)
     )

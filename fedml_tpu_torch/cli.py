@@ -21,7 +21,13 @@ choices, and the same invocation trains the same way:
   streams), which run loops of their own;
 - ``--runtime loopback|shm|mqtt`` with ``fedavg``, ``fedprox`` and
   ``fedopt`` through ``run_*_federation``, with deadlines and quorum, fault
-  plans, overprovisioning, codecs, secure aggregation and send retries.
+  plans, overprovisioning, codecs, secure aggregation and send retries;
+  and with ``fedbuff``, the async buffered federation
+  (``--async_buffer_k``, ``--staleness_exp``, ``--async_server_lr``),
+  through ``run_fedbuff_*``, whose final row is its last server step.
+
+Every policy of the reference runs, ``straggler_aware`` included: it reads
+the client health registry the simulator and every federation build.
 
 The rows go to ``--log_dir`` (``metrics.jsonl``, ``summary.json``), and the
 last line printed is the final row as JSON. ``--checkpoint_path`` writes a
@@ -245,6 +251,17 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None):
         parser.error(str(e))
 
 
+def _checked_buffer_k(opt) -> int:
+    """fedbuff's buffer size, validated at parse time; 0 for every
+    synchronous algorithm."""
+    if opt["algorithm"] != "fedbuff":
+        return 0
+    k = opt["async_buffer_k"]
+    if k <= 0:
+        raise UsageError("--algorithm fedbuff needs --async_buffer_k > 0")
+    return k
+
+
 def build_config(opt) -> RunConfig:
     return RunConfig(
         data=DataConfig(
@@ -274,8 +291,7 @@ def build_config(opt) -> RunConfig:
             overprovision_factor=opt["overprovision_factor"],
             fault_plan=opt["fault_plan"] or "",
             client_parallelism=opt["client_parallelism"],
-            # fedbuff's buffer (validated by the reference where fedbuff runs)
-            async_buffer_k=opt["async_buffer_k"] if opt["algorithm"] == "fedbuff" else 0,
+            async_buffer_k=_checked_buffer_k(opt),
             async_staleness_exp=opt["staleness_exp"],
             async_server_lr=opt["async_server_lr"],
             state_store=opt["state_store"],
@@ -477,7 +493,7 @@ _UNPORTED_OPTIONS = {
 }
 _PORTED_ALGORITHMS = (
     "fedavg", "fedprox", "fedopt", "fedavg_robust", "dp_fedavg", "fednova", "scaffold", "ditto",
-    "qfedavg", "hierarchical", "centralized", "decentralized",
+    "qfedavg", "hierarchical", "centralized", "decentralized", "fedbuff",
 )
 # the ROADMAP.md §1 item of each algorithm still to port (8 where unnamed)
 _ALGORITHM_ITEMS = {"secagg": 1, "fedgkt": 7, "fedgan": 7, "fedseg": 7, "fednas": 7}
@@ -514,11 +530,6 @@ def _check_ported(opt) -> None:
             "--client_parallelism vmap is not ported yet (ROADMAP.md §1 item 7); every client "
             "schedule runs as the sequential loop"
         )
-    if opt["selection"] == "straggler_aware":
-        raise NotImplementedError(
-            "--selection straggler_aware is not ported yet (ROADMAP.md §1 item 1: it reads the "
-            "client health registry)"
-        )
 
 
 def _jsonable(v):
@@ -553,8 +564,15 @@ def run(device: DeviceLike = None, **opt):
     runner = _LONGTAIL_RUNNERS.get(opt["algorithm"])
     if runner is not None:
         _validate_longtail(opt)
-    elif opt["runtime"] in TRANSPORTS and opt["algorithm"] not in ("fedavg", "fedprox", "fedopt"):
+    elif opt["runtime"] in TRANSPORTS and opt["algorithm"] not in (
+        "fedavg", "fedprox", "fedopt", "fedbuff",
+    ):
         raise UsageError(f"runtime={opt['runtime']} supports fedavg/fedprox/fedopt/fedbuff")
+    elif opt["algorithm"] == "fedbuff" and opt["runtime"] not in TRANSPORTS:
+        raise UsageError(
+            "algorithm=fedbuff is an async TRANSPORT protocol — run it with --runtime loopback, "
+            "shm, or mqtt"
+        )
     if opt["resume"] and opt["runtime"] in TRANSPORTS:
         raise UsageError(f"--resume is not supported for runtime={opt['runtime']}")
 
@@ -724,26 +742,37 @@ def _restore(api, opt) -> None:
 
 class _Runner:
     """A transport federation behind the simulator's surface: ``train()``
-    runs every round, then ``global_vars`` and ``server_opt_state`` are the
-    server's (so the end-of-run checkpoint holds the FedOpt moments)."""
+    runs every round (FedBuff: every server step) and returns the last
+    row, then ``global_vars``, ``server_opt_state`` (so the end-of-run
+    checkpoint holds the FedOpt moments) and ``health`` are the server's."""
 
     global_vars = None
     server_opt_state = None
+    health = None
 
-    def __init__(self, runner_fn, config, data, model, task, log_fn, server_opt, device):
-        self._run = lambda: runner_fn(
-            config, data, model, task=task, log_fn=log_fn, server_opt=server_opt, device=device
-        )
+    def __init__(self, runner_fn, config, data, model, task, log_fn, device, **kw):
+        self._run = lambda: runner_fn(config, data, model, task=task, log_fn=log_fn, device=device,
+                                      **kw)
 
     def train(self):
         server = self._run()
         self.global_vars = server.global_vars
-        self.server_opt_state = server._server_opt_state
+        self.server_opt_state = getattr(server, "_server_opt_state", None)
+        self.health = server.health
         return server.history[-1] if server.history else {}
 
 
 def _build_api(opt, config, data, model, task, log_fn, device, attack_cfg=None):
     algorithm, runtime = opt["algorithm"], opt["runtime"]
+    if runtime in TRANSPORTS and algorithm == "fedbuff":
+        from fedml_tpu_torch.algorithms import fedbuff as FB
+
+        runner_fn = {
+            "loopback": FB.run_fedbuff_loopback,
+            "shm": FB.run_fedbuff_shm,
+            "mqtt": FB.run_fedbuff_mqtt,
+        }[runtime]
+        return _Runner(runner_fn, config, data, model, task, log_fn, device)
     if runtime in TRANSPORTS:
         from fedml_tpu_torch.algorithms import fedavg_transport as T
 
@@ -752,7 +781,8 @@ def _build_api(opt, config, data, model, task, log_fn, device, attack_cfg=None):
             "shm": T.run_shm_federation,
             "mqtt": T.run_mqtt_federation,
         }[runtime]
-        return _Runner(runner_fn, config, data, model, task, log_fn, algorithm == "fedopt", device)
+        return _Runner(runner_fn, config, data, model, task, log_fn, device,
+                       server_opt=algorithm == "fedopt")
     kw = dict(task=task, log_fn=log_fn, device=device)
     if algorithm in ("fedavg", "fedprox"):
         from fedml_tpu_torch.algorithms import FedAvgAPI

@@ -9,7 +9,8 @@ are the reference's byte for byte; retries a failed ``_send`` under the
 installed :class:`~fedml_tpu_torch.core.retry.RetryPolicy` (a
 :class:`~fedml_tpu_torch.core.retry.RemoteRefusal` is metered apart as
 ``send_refused``); and meters
-messages and wire bytes (telemetry/comm.py). ``notify`` dispatches to the
+messages and wire bytes (telemetry/comm.py). ``send_message_nowait`` stamps
+and meters one attempt and never retries (shutdown broadcasts). ``notify`` dispatches to the
 observers and meters what arrived. Wire sizes come from the envelope itself:
 ``Message.to_wire_parts``/``from_bytes`` stamp the serialized size on the
 message, so accounting costs no extra serialization pass."""
@@ -163,6 +164,16 @@ class BaseCommManager(abc.ABC):
                     self._meter.on_send_retry(mt)
                     time.sleep(delay)
         self._meter.on_sent(msg.get_type(), _wire_bytes(msg), wire_s)
+
+    def send_message_nowait(self, msg: Message, **kwargs) -> None:
+        """Single-attempt send (stamped + metered, NEVER retried): for
+        shutdown/FINISH broadcasts, where a dead peer must cost at most one
+        bounded timeout rather than the retry schedule's backoff × attempts
+        per dead rank."""
+        self._stamp_trace(msg)
+        t0 = time.perf_counter()
+        self._send(msg, **kwargs)
+        self._meter.on_sent(msg.get_type(), _wire_bytes(msg), time.perf_counter() - t0)
 
     def _stamp_trace(self, msg: Message) -> None:
         """Stamp the compact ``_trace`` context onto the envelope (carried

@@ -47,7 +47,7 @@ _FILE_LOADERS = {
 
 # the reference's other names, by the ROADMAP.md item that brings them
 _NOT_PORTED = {
-    "seg_synth": 3,  # the segmentation task
+    "seg_synth": 7,  # the segmentation task
     "stackoverflow_lr": 7,
     "stackoverflow_nwp": 7,
     "imagenet": 7,

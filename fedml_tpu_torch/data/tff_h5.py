@@ -86,7 +86,8 @@ def load_fed_cifar100(
     """'image' [N,32,32,3] uint8, 'label' int per client; per-image
     standardization + center crop to 24×24 (the reference applies random
     crop/flip at train time, fed_cifar100/data_loader.py:57-80 — here the
-    deterministic part is host-side; random augmentation is not ported, ROADMAP.md)."""
+    deterministic part is host-side; random aug belongs in the train-time pipeline,
+    train/augment.py)."""
     off = (32 - crop) // 2
 
     def prep(img_u8):

@@ -10,9 +10,11 @@ from fedml_tpu_torch.scheduler.faults import (  # noqa: F401
     FaultTrace,
 )
 from fedml_tpu_torch.scheduler.policies import (  # noqa: F401
+    POLICY_NAMES,
     ClientScheduler,
     OverprovisionPolicy,
     PowerOfChoicePolicy,
+    StragglerAwarePolicy,
     make_policy,
     overprovisioned_k,
     select_clients,

@@ -62,8 +62,7 @@ replay it forever (the record → replay → survive loop):
   events instead of coin flips — what :meth:`FaultPlan.from_trace`
   emits, so a recorded fleet replays byte-identically.
 - **Fault traces** (:class:`FaultTrace`): the observed record the
-  server-side client health registry (``fedml_tpu/telemetry/health.py``; not
-  ported yet)
+  server-side client health registry (``telemetry/health.py``)
   exports (per-client fault events with rounds + magnitudes, train-time
   stats). ``--fault_plan trace:<path>`` replays one.
 """
@@ -511,9 +510,9 @@ class FaultPlan:
 class FaultTrace:
     """An OBSERVED fleet: per-client fault events (round + magnitude) and
     train-time statistics, exported by the server-side
-    client health registry of ``fedml_tpu/telemetry/health.py``
-    (``export_trace()``; the CLI writes ``fault_trace.json`` next to
-    ``health.json`` under ``--telemetry_dir``).
+    client health registry of ``telemetry/health.py`` (``export_trace()``;
+    the reference's CLI writes ``fault_trace.json`` next to ``health.json``
+    under ``--telemetry_dir``, ROADMAP.md §1 item 1).
 
     ``clients[cid]`` carries ``{"faults": {kind: [[round, detail], ...]},
     "rounds_participated", "last_seen_round", "mean_train_s",

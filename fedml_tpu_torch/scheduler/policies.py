@@ -1,7 +1,7 @@
 """Client selection (port of ``fedml_tpu/scheduler/policies.py``: the
-``uniform``, ``weighted`` and ``power_of_choice`` policies, the
-overprovisioning wrapper, and :class:`ClientScheduler` with its selection
-memo and checkpoint state).
+``uniform``, ``weighted``, ``power_of_choice`` and ``straggler_aware``
+policies, the overprovisioning wrapper, and :class:`ClientScheduler` with
+its selection memo and checkpoint state).
 
 - ``uniform`` is the reference-parity draw: ``np.random.seed(round_idx)``
   then ``choice`` without replacement. It deliberately ignores the run
@@ -13,57 +13,30 @@ memo and checkpoint state).
   candidates size-weighted and keeps the k with the highest last-known
   local loss (unknown losses rank first), ties broken by a seeded
   permutation: the reference's rule on the reference's stream.
+- ``straggler_aware`` draws uniformly over the clients the client health
+  registry (telemetry/health.py) does not flag as stragglers, and tops the
+  cohort up from the flagged set, slowest last, when fewer than k fast
+  clients remain.
 - overprovisioning selects ``ceil(k·factor)`` clients of the wrapped
   policy, so a deadline round still closes with about k uploads.
 
 Every policy is a pure function of (seed, round, policy inputs). The
-straggler-aware policy (it reads the client health registry) and the
 population tier's O(cohort) draws at ``ocohort_threshold`` clients and
-above are still to port (ROADMAP.md) and raise; fault plans are in
-scheduler/faults.py."""
+above are still to port (ROADMAP.md §1 item 9) and raise; fault plans are
+in scheduler/faults.py."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-POLICIES = ("uniform", "weighted", "power_of_choice")
-# the health registry it reads comes with the telemetry (ROADMAP.md §1)
-_ROADMAP_ITEM = {"straggler_aware": 1}
+from fedml_tpu_torch.population import BoundedLossMap
 
-
-class BoundedLossMap:
-    """Insertion-ordered {client id: last loss} bounded at ``capacity``
-    entries: setting a key refreshes its position, and past capacity the
-    entry written least recently is dropped (a copy of the reference's
-    ``population.active.BoundedLossMap``, the dict surface the policies
-    read)."""
-
-    def __init__(self, capacity: int = 65536):
-        if capacity < 1:
-            raise ValueError("BoundedLossMap capacity must be >= 1")
-        self.capacity = int(capacity)
-        self._d: Dict[int, float] = {}
-
-    def __setitem__(self, key: int, value: float) -> None:
-        k = int(key)
-        if k in self._d:
-            del self._d[k]  # re-insert at the fresh end
-        self._d[k] = float(value)
-        while len(self._d) > self.capacity:
-            self._d.pop(next(iter(self._d)))
-
-    def get(self, key: int, default=None):
-        return self._d.get(int(key), default)
-
-    def __iter__(self) -> Iterator[int]:
-        return iter(self._d)
-
-    def items(self):
-        return self._d.items()
+#: the policy names a config or the CLI may name
+POLICY_NAMES = ("uniform", "weighted", "power_of_choice", "straggler_aware")
 
 
 @dataclasses.dataclass
@@ -76,6 +49,10 @@ class SelectionContext:
     sample_counts: Optional[np.ndarray] = None
     # last reported local train loss per client id
     losses: Optional[BoundedLossMap] = None
+    # ClientHealthRegistry-shaped object (straggler_aware): straggler_ids()
+    # and mean_train_s(cid)
+    health: Optional[object] = None
+    ocohort_threshold: int = 65536
 
 
 def _rng(ctx: SelectionContext, round_idx: int, salt: int = 0) -> np.random.Generator:
@@ -166,6 +143,37 @@ class PowerOfChoicePolicy(SelectionPolicy):
         return np.asarray([int(candidates[i]) for i in order[:k]], np.int64)
 
 
+class StragglerAwarePolicy(SelectionPolicy):
+    """Uniform over the clients the health registry does not flag as
+    stragglers (``ClientHealthRegistry.straggler_ids``: the slowest decile
+    AND more than 1.2× the median mean). When fewer than k fast clients
+    exist, the cohort tops up from the flagged set, slowest last, then by
+    id. With no registry attached this is a seeded uniform draw."""
+
+    name = "straggler_aware"
+
+    def select(self, round_idx, k, ctx):
+        n = ctx.num_clients
+        k = min(k, n)
+        if n >= ctx.ocohort_threshold:
+            # the reference rejection-samples here, another stream
+            raise NotImplementedError(
+                f"straggler_aware over {ctx.ocohort_threshold}+ clients (the population tier's "
+                "rejection draw) is not ported yet (ROADMAP.md §1 item 9)"
+            )
+        rng = _rng(ctx, round_idx, salt=3)
+        flagged: List[int] = []
+        if ctx.health is not None:
+            flagged = [c for c in ctx.health.straggler_ids() if c < n]
+        eligible = np.setdiff1d(np.arange(n), np.asarray(flagged, np.int64))
+        take = min(k, len(eligible))
+        sel = rng.choice(eligible, size=take, replace=False) if take else np.empty(0, np.int64)
+        if take < k:
+            by_speed = sorted(flagged, key=lambda c: (ctx.health.mean_train_s(c) or 0.0, c))
+            sel = np.concatenate([sel, np.asarray(by_speed[: k - take], np.int64)])
+        return np.sort(sel.astype(np.int64))
+
+
 def overprovisioned_k(k: int, factor: float, num_clients: int) -> int:
     """ceil(k·factor) clamped to the population: the overprovisioned
     cohort size, and the worker count a transport federation spawns."""
@@ -191,17 +199,13 @@ _POLICIES: Dict[str, Callable[..., SelectionPolicy]] = {
     "uniform": UniformPolicy,
     "weighted": WeightedPolicy,
     "power_of_choice": PowerOfChoicePolicy,
+    "straggler_aware": StragglerAwarePolicy,
 }
 
 
 def _check_policy(policy: str) -> None:
-    if policy in _ROADMAP_ITEM:
-        raise NotImplementedError(
-            f"selection policy {policy!r} is not ported yet (ROADMAP.md §1 item "
-            f"{_ROADMAP_ITEM[policy]}); the port has {POLICIES}"
-        )
-    if policy not in POLICIES:
-        raise ValueError(f"unknown selection policy {policy!r}; the port has {POLICIES}")
+    if policy not in POLICY_NAMES:
+        raise ValueError(f"unknown selection policy {policy!r}; the port has {POLICY_NAMES}")
 
 
 def make_policy(name: str, overprovision_factor: float = 1.0, **kw) -> SelectionPolicy:
@@ -232,7 +236,9 @@ class ClientScheduler:
     (the ``scheduler/policy`` and ``scheduler/selected`` rows of
     summary.json). The memo of the last ``selection_memo_rounds`` rounds
     and the loss map are the checkpoint's ``sched`` slot
-    (:meth:`state_dict`), in the reference's layout."""
+    (:meth:`state_dict`), in the reference's layout. ``health`` is the client health registry ``straggler_aware``
+    reads; ``memoize=False`` is for callers keyed by an unbounded counter
+    (FedBuff's dispatches)."""
 
     def __init__(
         self,
@@ -242,7 +248,10 @@ class ClientScheduler:
         seed: int = 0,
         overprovision_factor: float = 1.0,
         sample_counts: Optional[Sequence[int]] = None,
+        health: Optional[object] = None,
         on_select: Optional[Callable[[int, np.ndarray], None]] = None,
+        memoize: bool = True,
+        ocohort_threshold: int = 65536,
         loss_map_capacity: int = 65536,
         selection_memo_rounds: int = 64,
     ):
@@ -256,16 +265,20 @@ class ClientScheduler:
             num_clients=self.num_clients,
             sample_counts=None if sample_counts is None else np.asarray(sample_counts, np.int64),
             losses=BoundedLossMap(loss_map_capacity),
+            health=health,
+            ocohort_threshold=int(ocohort_threshold),
         )
         self._memo_rounds = int(selection_memo_rounds)
         self._on_select = on_select
+        self._memoize = bool(memoize)
         self._selections: Dict[int, np.ndarray] = {}
 
     @classmethod
-    def from_config(cls, config, num_clients: int, data=None, log_fn=None) -> "ClientScheduler":
+    def from_config(cls, config, num_clients: int, data=None, log_fn=None, **kw) -> "ClientScheduler":
         """Build from a RunConfig. ``data`` (a FederatedDataset) gives the
         weighted policy its sample counts when its client count is the
-        federation's; ``log_fn`` receives each round's selection row."""
+        federation's; ``log_fn`` receives each round's selection row; ``kw``
+        goes to the constructor (``health``, ``memoize``)."""
         pop = config.population
         if num_clients >= pop.ocohort_threshold:
             # the reference draws such populations through its packed
@@ -289,8 +302,9 @@ class ClientScheduler:
             num_clients, config.fed.client_num_per_round, policy=policy, seed=config.seed,
             overprovision_factor=config.fed.overprovision_factor,
             sample_counts=counts, on_select=on_select,
+            ocohort_threshold=pop.ocohort_threshold,
             loss_map_capacity=pop.loss_map_capacity,
-            selection_memo_rounds=pop.selection_memo_rounds,
+            selection_memo_rounds=pop.selection_memo_rounds, **kw,
         )
 
     def cohort_size(self) -> int:
@@ -298,19 +312,25 @@ class ClientScheduler:
         count a transport federation spawns."""
         return overprovisioned_k(self.k, self.overprovision_factor, self.num_clients)
 
-    def select(self, round_idx: int) -> np.ndarray:
+    def select(self, round_idx: int, k: Optional[int] = None) -> np.ndarray:
         """This round's cohort of :meth:`cohort_size` clients (memoized; the
         live memo keeps the most recent ``max(selection_memo_rounds, 64)``
         rounds — evicted rounds re-derive, every policy being a pure
-        function of (seed, round))."""
+        function of (seed, round)). ``k`` overrides the cohort size
+        verbatim, past the overprovisioning wrapper."""
         r = int(round_idx)
-        if r in self._selections:
+        if self._memoize and r in self._selections:
             return self._selections[r]
-        sel = np.asarray(self._policy.select(r, self.k, self._ctx), np.int64)
-        self._selections[r] = sel
-        cap = max(self._memo_rounds, 64)
-        while len(self._selections) > cap:
-            del self._selections[next(iter(self._selections))]
+        if k is None:
+            sel = self._policy.select(r, self.k, self._ctx)
+        else:
+            sel = getattr(self._policy, "inner", self._policy).select(r, int(k), self._ctx)
+        sel = np.asarray(sel, np.int64)
+        if self._memoize:
+            self._selections[r] = sel
+            cap = max(self._memo_rounds, 64)
+            while len(self._selections) > cap:
+                del self._selections[next(iter(self._selections))]
         if self._on_select is not None:
             self._on_select(r, sel)
         return sel

@@ -1,6 +1,6 @@
-"""Zero-dependency structured tracer (port of ``fedml_tpu/telemetry/spans.py``,
-the recording half; the Chrome-trace export and span listeners are not
-ported).
+"""Zero-dependency structured tracer (port of ``fedml_tpu/telemetry/spans.py``:
+recording, listeners and the scope-aware accessor; the Chrome-trace export
+is not ported, ROADMAP.md §1 item 1).
 
 A span is a named wall-clock interval with attributes::
 
@@ -21,14 +21,20 @@ ends in a receive handler) use the explicit handle API::
 
 Timestamps are epoch-anchored microseconds: wall clock at the tracer's
 creation plus the monotonic time since, so they compare across processes
-but never jump with clock adjustments mid-run."""
+but never jump with clock adjustments mid-run.
+
+Listeners (``add_listener``) receive every finished :class:`SpanEvent`,
+outside the tracer's lock; a failing listener is logged and never breaks
+the span — the client health registry feeds on ``local_train`` spans this
+way."""
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 # Bounded recording: past the cap, new events are dropped and counted.
 DEFAULT_MAX_EVENTS = 1_000_000
@@ -98,6 +104,7 @@ class Tracer:
         self.dropped = 0
         self._epoch_us = time.time() * 1e6
         self._anchor_ns = time.perf_counter_ns()
+        self._listeners: List[Callable[[SpanEvent], None]] = []
 
     def now_us(self) -> float:
         """This tracer's epoch-anchored clock (us) — the timebase of every
@@ -144,6 +151,12 @@ class Tracer:
                 self._events.append(ev)
             else:
                 self.dropped += 1
+            listeners = list(self._listeners)
+        for fn in listeners:
+            try:
+                fn(ev)
+            except Exception:  # noqa: BLE001 — a listener must never break training
+                logging.exception("telemetry span listener failed")
 
     # -- public API --
     def span(self, name: str, **attrs) -> Span:
@@ -153,6 +166,21 @@ class Tracer:
     def start_span(self, name: str, **attrs) -> Span:
         """Explicit-handle span for intervals that end on another thread."""
         return Span(self, name, attrs)
+
+    def add_listener(self, fn: Callable[[SpanEvent], None]) -> None:
+        with self._lock:
+            if fn not in self._listeners:
+                self._listeners.append(fn)
+
+    def remove_listener(self, fn: Callable[[SpanEvent], None]) -> None:
+        with self._lock:
+            if fn in self._listeners:
+                self._listeners.remove(fn)
+
+    def listeners(self) -> List[Callable[[SpanEvent], None]]:
+        """Snapshot of the subscribed listeners."""
+        with self._lock:
+            return list(self._listeners)
 
     def events(self) -> List[SpanEvent]:
         with self._lock:
@@ -166,7 +194,19 @@ class Tracer:
 
 _GLOBAL = Tracer()
 
+from fedml_tpu_torch.telemetry.scope import current_scope  # noqa: E402 — after
+# Tracer so scope.py's lazy constructor can import it (no cycle)
+
 
 def get_tracer() -> Tracer:
-    """The process-wide tracer."""
+    """The tracer for the calling thread: the active
+    :class:`~fedml_tpu_torch.telemetry.scope.TelemetryScope`'s tracer when
+    one is installed, else the process-wide tracer every single-run path
+    records into."""
+    sc = current_scope()
+    return sc.tracer if sc is not None else _GLOBAL
+
+
+def get_global_tracer() -> Tracer:
+    """The process-wide tracer, regardless of any active scope."""
     return _GLOBAL

@@ -202,11 +202,13 @@ UNPORTED = {
     "mesh": ["--runtime", "mesh"],
     "grpc": ["--runtime", "grpc", "--rank", "0"],
     "scaffold": ["--algorithm", "scaffold", "--state_store", "sharded"],
-    "fedbuff_over_loopback": ["--algorithm", "fedbuff", "--runtime", "loopback"],
+    # fedbuff runs over loopback, shm and mqtt; one process per rank waits
+    "fedbuff_over_loopback": ["--algorithm", "fedbuff", "--runtime", "grpc", "--rank", "0"],
     "warmup": ["--warmup"],
     "fused_rounds": ["--fused_rounds", "2"],
     "client_parallelism_vmap": ["--client_parallelism", "vmap"],
-    "straggler_aware": ["--selection", "straggler_aware"],
+    # straggler_aware runs; the gRPC straggler injection beside it waits
+    "straggler_aware": ["--selection", "straggler_aware", "--straggle_ms", "50"],
     "telemetry_dir": ["--telemetry_dir", "telemetry"],
     "prom_port": ["--prom_port", "0"],
     "recompile_budget": ["--recompile_budget", "10"],

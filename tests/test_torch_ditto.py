@@ -26,8 +26,8 @@ from fedml_tpu_torch.train.client import make_local_train, seeded_perm_fn  # noq
 from fedml_tpu_torch.train.evaluate import evaluate  # noqa: E402
 
 from torch_parity import (  # noqa: E402
-    SLICE, algorithm_pair, assert_slice_close, flat_params, jax_ditto_personal_perm_fn,
-    lr_pair, private_reference_programs,
+    SLICE, assert_slice_close, flat_params, jax_ditto_personal_perm_fn,
+    lr_pair, private_reference_programs, trained_pair,
 )
 
 
@@ -39,14 +39,15 @@ def _private_programs(tmp_path_factory):
 
 def test_slice_matches_reference():
     kw = {"lam": 0.1}
-    japi, tapi = algorithm_pair(
+    japi, tapi = trained_pair(
         JaxDitto, DittoAPI, jax_kw=kw,
         torch_kw={**kw, "personal_perm_fn": jax_ditto_personal_perm_fn(SLICE["seed"],
                                                                         SLICE["per_round"])},
+        extras={"v_stack": lambda j: flat_params(jax.device_get(j.v_stack))},
     )
-    jfinal, tfinal = japi.train(), tapi.train()
+    jfinal, tfinal = japi.final, tapi.train()
     assert_slice_close(japi, tapi)
-    want = flat_params(jax.device_get(japi.v_stack))
+    want = japi.v_stack
     got = flat_params(to_flax_variables(tapi.state.stack, 1))
     assert got.keys() == want.keys()
     for k in want:

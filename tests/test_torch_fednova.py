@@ -23,8 +23,8 @@ from fedml_tpu_torch.algorithms.fednova import FedNovaAPI, _accum_factor  # noqa
 from fedml_tpu_torch.data.synthetic import synthetic_classification  # noqa: E402
 
 from torch_parity import (  # noqa: E402
-    algorithm_pair, assert_slice_close, lr_config, lr_data, lr_pair, private_reference_programs,
-    torch_lr_model,
+    assert_slice_close, lr_config, lr_data, lr_pair, private_reference_programs,
+    torch_lr_model, trained_pair,
 )
 
 
@@ -35,8 +35,7 @@ def _private_programs(tmp_path_factory):
 
 
 def test_fednova_slice_matches_reference():
-    japi, tapi = algorithm_pair(JaxFedNova, FedNovaAPI)
-    japi.train()
+    japi, tapi = trained_pair(JaxFedNova, FedNovaAPI)
     tapi.train()
     assert_slice_close(japi, tapi)
 

@@ -112,8 +112,14 @@ def test_overprovision_below_one_and_unknown_policies_are_refused():
         make_policy("uniform", 0.5)
     with pytest.raises(ValueError, match="candidate_factor must be >= 1.0"):
         make_policy("power_of_choice", candidate_factor=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_policy("straggler_aware")
+    with pytest.raises(ValueError, match="unknown selection policy"):
+        make_policy("no_such_policy")
+    # straggler_aware is ported; its draw over a population-tier-sized
+    # population (the reference's rejection sampling) is not
+    from fedml_tpu_torch.scheduler.policies import SelectionContext
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
+        make_policy("straggler_aware").select(0, 2, SelectionContext(num_clients=8, ocohort_threshold=8))
 
 
 def test_simulator_power_of_choice_selects_the_reference_cohorts():

@@ -21,8 +21,8 @@ from fedml_tpu_torch.algorithms.qfedavg import QFedAvgAPI, qfedavg_update  # noq
 from fedml_tpu_torch.data.synthetic import synthetic_classification  # noqa: E402
 
 from torch_parity import (  # noqa: E402
-    algorithm_pair, assert_slice_close, lr_config, lr_data, private_reference_programs,
-    torch_lr_model,
+    assert_slice_close, lr_config, lr_data, private_reference_programs,
+    torch_lr_model, trained_pair,
 )
 
 
@@ -67,8 +67,7 @@ def test_q0_is_the_uniform_mean():
 
 
 def test_q1_slice_matches_reference():
-    japi, tapi = algorithm_pair(JaxQFedAvg, QFedAvgAPI, jax_kw={"q": 1.0}, torch_kw={"q": 1.0})
-    japi.train()
+    japi, tapi = trained_pair(JaxQFedAvg, QFedAvgAPI, jax_kw={"q": 1.0}, torch_kw={"q": 1.0})
     tapi.train()
     assert_slice_close(japi, tapi)
 

@@ -23,13 +23,13 @@ from fedml_tpu.utils.checkpoint import save_checkpoint as jax_save  # noqa: E402
 
 import fedml_tpu_torch.config as tcfg  # noqa: E402
 from fedml_tpu_torch.algorithms.scaffold import ScaffoldAPI, make_scaffold_cohort_body  # noqa: E402
-from fedml_tpu_torch.bridge import to_flax  # noqa: E402
+from fedml_tpu_torch.bridge import from_flax, to_flax  # noqa: E402
 from fedml_tpu_torch.data.synthetic import synthetic_classification  # noqa: E402
 from fedml_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 
 from torch_parity import (  # noqa: E402
-    algorithm_pair, assert_slice_close, flat_params, lr_config, lr_data, lr_pair,
-    private_reference_programs, torch_lr_model,
+    assert_slice_close, flat_params, lr_config, lr_data, lr_pair,
+    port_api, private_reference_programs, torch_lr_model, trained_pair,
 )
 
 C_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -56,9 +56,14 @@ def _reference_stack(japi) -> dict:
     return flat_params(japi._c_store.gather(np.arange(japi._c_store.n)))
 
 
-def _assert_control_close(tapi, japi, **tol):
-    got_c, want_c = flat_params(to_flax(tapi.c_server)), flat_params(japi.c_server)
-    got, want = _port_stack(tapi), _reference_stack(japi)
+def _reference_control(japi) -> tuple:
+    """The reference's (c, c_i stack), flat."""
+    return flat_params(jax.device_get(japi.c_server)), _reference_stack(japi)
+
+
+def _assert_control_close(tapi, want_control, **tol):
+    got_c, got = flat_params(to_flax(tapi.c_server)), _port_stack(tapi)
+    want_c, want = want_control
     for k in want_c:
         np.testing.assert_allclose(got_c[k], want_c[k], err_msg=f"c/{k}", **tol)
         np.testing.assert_allclose(got[k], want[k], err_msg=f"c_i/{k}", **tol)
@@ -67,9 +72,9 @@ def _assert_control_close(tapi, japi, **tol):
 @pytest.fixture(scope="module")
 def slice_runs():
     """The reference's 3 slice rounds, and the port's in each mode."""
-    japi, tdev = algorithm_pair(JaxScaffold, ScaffoldAPI, fed={"state_store": "device"})
-    _, tmm = algorithm_pair(JaxScaffold, ScaffoldAPI, fed={"state_store": "mmap"})
-    japi.train()
+    japi, tdev = trained_pair(JaxScaffold, ScaffoldAPI, fed={"state_store": "device"},
+                              extras={"control": _reference_control})
+    tmm = port_api(ScaffoldAPI, from_flax(japi.init), fed={"state_store": "mmap"})
     tdev.train()
     tmm.train()
     return japi, tdev, tmm
@@ -79,7 +84,7 @@ def test_slice_matches_reference(slice_runs):
     japi, tdev, _ = slice_runs
     assert tdev.state.mode == "device"
     assert_slice_close(japi, tdev)
-    _assert_control_close(tdev, japi, **C_TOL)
+    _assert_control_close(tdev, japi.control, **C_TOL)
 
 
 def test_mmap_is_bit_equal_to_device(slice_runs):
@@ -180,10 +185,10 @@ def test_checkpoint_resumes_across_packages(writer, src_mode, dst_mode, tmp_path
         japi.restore_state(algo)
     form = "c_stack" if src_mode == "device" else "c_rows_idx"
     assert form in algo
-    _assert_control_close(tapi, japi, rtol=0, atol=1e-6)
+    _assert_control_close(tapi, _reference_control(japi), rtol=0, atol=1e-6)
     japi.train_round(2)
     tapi.train_round(2)
     got, want = to_flax(tapi.global_vars), jax.device_get(japi.global_vars["params"])
     for k, v in flat_params(want).items():
         np.testing.assert_allclose(flat_params(got)[k], v, rtol=0, atol=1e-6)
-    _assert_control_close(tapi, japi, rtol=0, atol=1e-5)
+    _assert_control_close(tapi, _reference_control(japi), rtol=0, atol=1e-5)

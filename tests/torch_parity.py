@@ -1,8 +1,9 @@
 """Shared inputs for the parity tests of the PyTorch port
 (tests/test_torch_*.py): the reference's shuffle permutations, computed with
 JAX and handed to the port, the small FedAvg slice both packages run, the
-logistic-regression fixture of the transport tests, and a private program
-cache for the reference's compiled programs.
+logistic-regression fixture of the transport tests, a private program
+cache for the reference's compiled programs, and an on-disk cache of the
+reference's slice runs (:func:`reference_record`).
 
 The port cannot reproduce JAX's threefry stream, so its local train takes a
 permutation source ``perm_fn(round, client_slot, epoch, mask_flat)``; these
@@ -15,12 +16,22 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
+import inspect
+import io
+import json
+import os
 import random
 import signal
 import socket
+import tempfile
+import types
+from pathlib import Path
 
 import numpy as np
 import torch
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def jax_epoch_perm(client_rng, epoch: int, m_flat: torch.Tensor) -> torch.Tensor:
@@ -277,15 +288,9 @@ def run_slice(robust: dict | None = None, server: dict | None = None,
     from the reference's init and with its permutations (and its noise).
     ``robust`` holds RobustConfig fields, ``server`` ServerConfig fields for
     FedOptAPI (both None: plain FedAvgAPI); ``per_round`` the cohort size.
-    Returns ``(reference_api, port_api)`` after ``rounds`` rounds of
-    training."""
-    import fedml_tpu.config as jcfg
-    from fedml_tpu.algorithms import FedAvgAPI as JaxFedAvg
-    from fedml_tpu.algorithms.fedavg_robust import RobustFedAvgAPI as JaxRobust
-    from fedml_tpu.data.femnist_synth import femnist_synthetic as jax_femnist
-    from fedml_tpu.models import create_model as jax_create_model
-    from fedml_tpu.robustness import RobustConfig as JaxRobustConfig
-
+    Returns ``(reference_record, port_api)`` after ``rounds`` rounds of
+    training: the record's ``global_vars`` and ``history`` are the
+    reference API's (:func:`reference_record`, cached on disk)."""
     import fedml_tpu_torch.config as tcfg
     from fedml_tpu_torch.algorithms import FedAvgAPI, RobustFedAvgAPI
     from fedml_tpu_torch.bridge import from_flax
@@ -293,44 +298,52 @@ def run_slice(robust: dict | None = None, server: dict | None = None,
     from fedml_tpu_torch.models import create_model
     from fedml_tpu_torch.robustness import RobustConfig
 
-    shape, classes = (28, 28, 1), 62
-    data_kw = dict(num_clients=SLICE["num_clients"], mean_samples=SLICE["mean_samples"])
-    jdata, tdata = jax_femnist(**data_kw), femnist_synthetic(**data_kw)
-    jmodel = jax_create_model("cnn", "femnist", shape, classes)
-    tmodel = create_model("cnn", "femnist", shape, classes)
-    jconf = _slice_config(jcfg, rounds, server, per_round=per_round)
-    tconf = _slice_config(tcfg, rounds, server, per_round=per_round)
-    if server is not None:
-        from fedml_tpu.algorithms.fedopt import FedOptAPI as JaxFedOpt
+    def run():
+        import jax
 
+        import fedml_tpu.config as jcfg
+        from fedml_tpu.algorithms import FedAvgAPI as JaxFedAvg
+        from fedml_tpu.algorithms.fedavg_robust import RobustFedAvgAPI as JaxRobust
+        from fedml_tpu.algorithms.fedopt import FedOptAPI as JaxFedOpt
+        from fedml_tpu.data.femnist_synth import femnist_synthetic as jax_femnist
+        from fedml_tpu.models import create_model as jax_create_model
+        from fedml_tpu.robustness import RobustConfig as JaxRobustConfig
+
+        jdata = jax_femnist(num_clients=SLICE["num_clients"], mean_samples=SLICE["mean_samples"])
+        jmodel = jax_create_model("cnn", "femnist", (28, 28, 1), 62)
+        jconf = _slice_config(jcfg, rounds, server, per_round=per_round)
+        if server is not None:
+            japi = JaxFedOpt(jconf, jdata, jmodel)
+        elif robust is None:
+            japi = JaxFedAvg(jconf, jdata, jmodel)
+        else:
+            japi = JaxRobust(jconf, jdata, jmodel, robust=JaxRobustConfig(**robust))
+        init = jax.device_get(japi.global_vars)
+        japi.train()
+        return dict(init=init, global_vars=jax.device_get(japi.global_vars),
+                    history=list(japi.history))
+
+    ref = reference_record(
+        "run_slice", dict(robust=robust, server=server, rounds=rounds, per_round=per_round), run
+    )
+    tdata = femnist_synthetic(num_clients=SLICE["num_clients"], mean_samples=SLICE["mean_samples"])
+    tmodel = create_model("cnn", "femnist", (28, 28, 1), 62)
+    tconf = _slice_config(tcfg, rounds, server, per_round=per_round)
+    perm_fn = jax_round_perm_fn(SLICE["seed"], per_round)
+    if server is not None:
         from fedml_tpu_torch.algorithms import FedOptAPI
 
-        japi = JaxFedOpt(jconf, jdata, jmodel)
-        tapi = FedOptAPI(
-            tconf, tdata, tmodel, device="cpu",
-            perm_fn=jax_round_perm_fn(SLICE["seed"], per_round),
-        )
+        tapi = FedOptAPI(tconf, tdata, tmodel, device="cpu", perm_fn=perm_fn)
     elif robust is None:
-        japi = JaxFedAvg(jconf, jdata, jmodel)
-        tapi = FedAvgAPI(
-            tconf, tdata, tmodel, device="cpu",
-            perm_fn=jax_round_perm_fn(SLICE["seed"], per_round),
-        )
+        tapi = FedAvgAPI(tconf, tdata, tmodel, device="cpu", perm_fn=perm_fn)
     else:
-        japi = JaxRobust(jconf, jdata, jmodel, robust=JaxRobustConfig(**robust))
         tapi = RobustFedAvgAPI(
-            tconf, tdata, tmodel, robust=RobustConfig(**robust), device="cpu",
-            perm_fn=jax_round_perm_fn(SLICE["seed"], per_round),
+            tconf, tdata, tmodel, robust=RobustConfig(**robust), device="cpu", perm_fn=perm_fn,
             noise_fn=jax_noise_fn(SLICE["seed"]),
         )
-    init = {
-        layer: {k: np.array(v) for k, v in leaves.items()}
-        for layer, leaves in japi.global_vars["params"].items()
-    }
-    tapi.global_vars = from_flax(init)
-    japi.train()
+    tapi.global_vars = from_flax(ref.init["params"])
     tapi.train()
-    return japi, tapi
+    return ref, tapi
 
 
 def assert_slice_close(japi, tapi, rtol=1e-4, atol=1e-5, row_tol=1e-4, rounds=SLICE["rounds"]):
@@ -393,14 +406,10 @@ def _lm_config(cfg_mod, compute_dtype, optimizer, lr):
 def run_lm_slice(compute_dtype: str, optimizer: str, lr: float):
     """FedAvgAPI(task="nwp") on the LM slice through the reference (client
     schedule "scan") and through the port on the CPU, from the reference's
-    init with its permutations. Returns ``(reference_api, port_api, init)``
-    with ``init`` the shared initial params (flat, numpy)."""
-    import fedml_tpu.config as jcfg
-    from fedml_tpu.algorithms import FedAvgAPI as JaxFedAvg
-    from fedml_tpu.data.synthetic import synthetic_shakespeare as jax_shakespeare
-    from fedml_tpu.models import create_model as jax_create_model
-    from fedml_tpu.ops.flash_attention import flash_attention_bthd as jax_flash
-
+    init with its permutations. Returns ``(reference_record, port_api,
+    init)`` with ``init`` the shared initial params (flat, numpy); the
+    record's ``global_vars`` and ``history`` are the reference API's
+    (:func:`reference_record`, cached on disk)."""
     import fedml_tpu_torch.config as tcfg
     from fedml_tpu_torch.algorithms import FedAvgAPI
     from fedml_tpu_torch.bridge import from_flax
@@ -410,21 +419,38 @@ def run_lm_slice(compute_dtype: str, optimizer: str, lr: float):
 
     s = LM_SLICE
     shape = (s["seq_len"],)
-    jmodel = jax_create_model("transformer", "shakespeare_synth", shape, s["vocab"],
-                              **lm_model_kw(jax_flash))
+    args = (compute_dtype, optimizer, lr)
+
+    def run():
+        import jax
+
+        import fedml_tpu.config as jcfg
+        from fedml_tpu.algorithms import FedAvgAPI as JaxFedAvg
+        from fedml_tpu.data.synthetic import synthetic_shakespeare as jax_shakespeare
+        from fedml_tpu.models import create_model as jax_create_model
+        from fedml_tpu.ops.flash_attention import flash_attention_bthd as jax_flash
+
+        jmodel = jax_create_model("transformer", "shakespeare_synth", shape, s["vocab"],
+                                  **lm_model_kw(jax_flash))
+        japi = JaxFedAvg(_lm_config(jcfg, *args), jax_shakespeare(**lm_data_kw()), jmodel,
+                         task="nwp")
+        init = jax.device_get(japi.global_vars)
+        japi.train()
+        return dict(init=init, global_vars=jax.device_get(japi.global_vars),
+                    history=list(japi.history))
+
+    ref = reference_record(
+        "run_lm_slice", dict(compute_dtype=compute_dtype, optimizer=optimizer, lr=lr), run
+    )
     tmodel = create_model("transformer", "shakespeare_synth", shape, s["vocab"],
                           **lm_model_kw(flash_attention_bthd))
-    args = (compute_dtype, optimizer, lr)
-    japi = JaxFedAvg(_lm_config(jcfg, *args), jax_shakespeare(**lm_data_kw()), jmodel, task="nwp")
     tapi = FedAvgAPI(
         _lm_config(tcfg, *args), synthetic_shakespeare(**lm_data_kw()), tmodel, task="nwp",
         device="cpu", perm_fn=jax_round_perm_fn(s["seed"], s["num_clients"]),
     )
-    init = flat_params(japi.global_vars["params"])
-    tapi.global_vars = from_flax(japi.global_vars["params"])
-    japi.train()
+    tapi.global_vars = from_flax(ref.init["params"])
     tapi.train()
-    return japi, tapi, init
+    return ref, tapi, flat_params(ref.init["params"])
 
 
 def flat_params(tree, prefix: str = "") -> dict:
@@ -502,3 +528,130 @@ def lr_pair(jax_cls, torch_cls, jax_kw=None, torch_kw=None, fed=None, train=None
         data=data or (lr_data(jax_synthetic), lr_data(synthetic_classification)),
         models=(jax_lr_model(), torch_lr_model()),
     )
+
+
+# -- the reference's slice runs, cached on disk --------------------------------
+#
+# A reference CNN round costs ~18 s on one CPU core, and the parity tests
+# compare the port with the same few reference runs every time. A run's
+# outputs (params as arrays, history rows, cohorts, whatever else a test
+# reads) are kept under the system temp directory, keyed by a SHA-256 of
+# every ``fedml_tpu/**/*.py`` and of the call's arguments, so any edit of
+# the reference, or another call, misses and runs the reference as before.
+# Entries are written atomically (several xdist workers may race on one).
+# FEDML_REF_CACHE=0 turns the cache off.
+
+REF_CACHE_DIR = Path(tempfile.gettempdir()) / f"fedml_torch_refcache_u{os.getuid()}"
+
+
+@functools.lru_cache(maxsize=None)
+def reference_source_digest() -> str:
+    """SHA-256 over the path and bytes of every ``fedml_tpu/**/*.py``."""
+    h = hashlib.sha256()
+    src = ROOT / "fedml_tpu"
+    for path in sorted(src.rglob("*.py")):
+        h.update(str(path.relative_to(src)).encode() + b"\0")
+        h.update(path.read_bytes() + b"\0")
+    return h.hexdigest()
+
+
+def _encode(obj, path: str, arrays: dict):
+    """A JSON skeleton of ``obj`` with its arrays moved into ``arrays``."""
+    if isinstance(obj, dict):
+        return {"d": {str(k): _encode(v, f"{path}/{k}", arrays) for k, v in obj.items()}}
+    if isinstance(obj, (list, tuple)):
+        return {"l": [_encode(v, f"{path}/{i}", arrays) for i, v in enumerate(obj)]}
+    if isinstance(obj, np.generic):
+        return {"v": obj.item()}
+    if hasattr(obj, "shape") and hasattr(obj, "dtype"):  # numpy or JAX array
+        arrays[path] = np.asarray(obj)
+        return {"a": path}
+    return {"v": obj}
+
+
+def _decode(node, arrays):
+    if "d" in node:
+        return {k: _decode(v, arrays) for k, v in node["d"].items()}
+    if "l" in node:
+        return [_decode(v, arrays) for v in node["l"]]
+    if "a" in node:
+        return arrays[node["a"]]
+    return node["v"]
+
+
+def reference_record(kind: str, args: dict, run) -> types.SimpleNamespace:
+    """``run()``'s record (a dict of trees of arrays and JSON values) for
+    the reference call ``kind`` with ``args``, from the cache when the
+    reference's sources and the arguments are the ones it was made from;
+    ``run()`` is called, and its record stored, on a miss."""
+    key = hashlib.sha256(json.dumps(
+        {"src": reference_source_digest(), "kind": kind, "args": args}, sort_keys=True, default=str,
+    ).encode()).hexdigest()
+    path = REF_CACHE_DIR / f"{key}.npz"
+    if os.environ.get("FEDML_REF_CACHE", "1") != "0" and path.exists():
+        with np.load(path, allow_pickle=False) as z:
+            arrays = {k[2:]: z[k] for k in z.files if k.startswith("a:")}
+            skeleton = json.loads(bytes(z["json"]).decode())
+        return types.SimpleNamespace(**_decode(skeleton, arrays))
+    record = run()
+    arrays: dict = {}
+    skeleton = _encode(record, "", arrays)
+    buf = io.BytesIO()
+    np.savez(buf, json=np.frombuffer(json.dumps(skeleton).encode(), np.uint8),
+             **{f"a:{k}": v for k, v in arrays.items()})
+    REF_CACHE_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_bytes(buf.getvalue())
+    os.replace(tmp, path)
+    return types.SimpleNamespace(**record)
+
+
+def port_api(torch_cls, init, per_round=SLICE["per_round"], torch_kw=None,
+             rounds=SLICE["rounds"], batch_size=20, fed=None, train=None):
+    """The port's ``torch_cls`` on the slice, built from the port-layout
+    ``init`` with the reference's shuffles (see :func:`algorithm_pair`)."""
+    import dataclasses
+
+    _, tdata = slice_data()
+    _, tmodel = slice_models()
+    _, tconf = slice_configs(rounds, per_round, batch_size)
+    tconf = tconf.replace(fed=dataclasses.replace(tconf.fed, **(fed or {})),
+                          train=dataclasses.replace(tconf.train, **(train or {})))
+    tmodel.init = lambda generator: {k: v.clone() for k, v in init.items()}
+    kw = dict(device="cpu", perm_fn=jax_round_perm_fn(SLICE["seed"], per_round))
+    kw.update(torch_kw or {})
+    return torch_cls(tconf, tdata, tmodel, **kw)
+
+
+def trained_pair(jax_cls, torch_cls, jax_kw=None, torch_kw=None, rounds: int = SLICE["rounds"],
+                 per_round: int = SLICE["per_round"], batch_size: int = 20, fed=None, train=None,
+                 extras=None):
+    """:func:`algorithm_pair` on the CNN slice with the reference TRAINED:
+    ``(record, port_api)``, the port built from the reference's init and
+    not trained. The record holds the reference's ``global_vars``,
+    ``history`` and ``final`` (what its ``train()`` returned), and one
+    field a name of ``extras`` ({name: fn(trained reference api)}); it
+    comes from :func:`reference_record`'s cache when it can."""
+    from fedml_tpu_torch.bridge import from_flax
+
+    extras = extras or {}
+    args = dict(cls=f"{jax_cls.__module__}.{jax_cls.__qualname__}", jax_kw=jax_kw, rounds=rounds,
+                per_round=per_round, batch_size=batch_size, fed=fed, train=train,
+                extras={k: inspect.getsource(fn) for k, fn in sorted(extras.items())})
+
+    def run():
+        import jax
+
+        japi, _ = algorithm_pair(jax_cls, torch_cls, jax_kw, torch_kw, rounds, per_round,
+                                 batch_size, fed, train)
+        init = jax.device_get(japi.global_vars)
+        final = japi.train()
+        out = dict(init=init, global_vars=jax.device_get(japi.global_vars),
+                   history=list(japi.history), final=final)
+        out.update({k: fn(japi) for k, fn in extras.items()})
+        return out
+
+    ref = reference_record("algorithm_pair", args, run)
+    tapi = port_api(torch_cls, from_flax(ref.init), per_round, torch_kw, rounds, batch_size, fed,
+                    train)
+    return ref, tapi
