@@ -155,7 +155,22 @@ Phases, each of which raises on failure:
     equal a replay of the policy over the run's ``local_train`` spans,
     no cohort holds a flagged client while ten unflagged ones exist, and
     a slow client gets flagged. A ``[fedbuff]`` JSON line gives the
-    readings.
+    readings;
+19. the population tier (``phase_population``) on the reference's two
+    scale rows at full width: (a) the StackOverflow RNN (10,004 symbols,
+    LSTM 670) under FedAvgAPI over 100,000 clients read from a disk mmap
+    store (~1.2 GB, written first), 10 a round, against the same
+    generator's 2,000 clients in RAM — round times, the time of a
+    client's step, cohort reads, a profiled round, peak memory; (b)
+    SCAFFOLD on ``lr`` at 1,000,000 clients with ``weighted`` selection
+    drawn from the population index's alias table and the sharded
+    record-major state tier, against the same at 100,000 — the ratio of
+    their round times, the spill's gather and scatter ms, a synchronous
+    gather beside the prefetched one; (c) SCAFFOLD at 100,000 on the
+    device, mmap and sharded tiers, bit-equal; (d) every cohort equal to
+    a host replay of the draw; (e) one full-width RNN round, card against
+    CPU (RNN_CARD_VS_CPU). A ``[population]`` JSON line gives the
+    readings. It needs ~4 GB free under the temporary directory.
 
 Then it prints each phase's seconds (``phase_s``), the kernels' JSON line,
 the ``nvidia-smi`` line, and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -606,7 +621,7 @@ def phase_profile_round():
     api = RobustFedAvgAPI(cfg, data, model, robust=RobustConfig(defense_type="median"), device="cuda")
     api.train_round(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         api.train_round(1)
         torch.cuda.synchronize()
@@ -955,7 +970,9 @@ def phase_lm_path(device="cuda", rounds=LM_ROUNDS, layers=LM["layers"], **smalle
 
 def phase_profile_lm_round():
     """Where a warm LM round's time goes: round 1 under torch.profiler
-    after round 0; device kernel time by name against the round's wall."""
+    after round 0; device kernel time by name against the round's wall.
+    The profiler traces the device only: collecting the host-side events
+    of the round's ~200k launches took over two minutes of the script."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -965,7 +982,7 @@ def phase_profile_lm_round():
     api = FedAvgAPI(cfg, data, model, task="nwp", device="cuda")
     api.train_round(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         api.train_round(1)
         torch.cuda.synchronize()
@@ -2519,6 +2536,284 @@ def phase_fedbuff(smi: str, device="cuda", num_clients=128, workers=FEDBUFF["wor
     return report
 
 
+# phase 19: the population tier, the reference's two scale rows at full width
+SCALE_100K = dict(num_clients=100_000, mean_samples=64, vocab=10_000, seq_len=20, seed=0)
+SCALE_RAM_CLIENTS = 2_000  # the in-RAM partner of the 100k row
+SCALE_1M, SCALE_MID = 1_000_000, 100_000  # the 1M row and its 100k partner
+SCALE_WARM, SCALE_TIMED = 3, 5  # rounds; the reference times 15 (100k) and 10 (1M)
+SCALE_TIERS_ROUNDS = 2
+SCALE_MIN_FREE_BYTES = 4 << 30  # the 100k store (~1.2 GB) and the state tiers' rows
+# one full-width StackOverflow RNN round, 2 clients, full batch, card against
+# CPU: cuDNN's LSTM and the CPU's sum the gates in other orders, one step at
+# lr 0.1 (the CNN's full-batch bound, CARD_VS_CPU[-1])
+RNN_CARD_VS_CPU = CARD_VS_CPU[-1]
+
+
+def _scale_config(n: int, rounds: int, batch_size: int = 16, pad_bucket: int = 1, **fed):
+    """The scale rows' RunConfig: ``n`` clients, 10 a round, E = 1, SGD lr
+    0.1, no device cache, no eval inside ``rounds``."""
+    from fedml_tpu_torch.config import DataConfig, FedConfig, RunConfig, TrainConfig
+
+    return RunConfig(
+        data=DataConfig(batch_size=batch_size, pad_bucket=pad_bucket, device_cache=False),
+        fed=FedConfig(client_num_in_total=n, client_num_per_round=COHORT, comm_round=rounds,
+                      epochs=1, frequency_of_the_test=10_000, **fed),
+        train=TrainConfig(client_optimizer="sgd", lr=0.1),
+        seed=0,
+    )
+
+
+def _sync_rounds(api, rounds) -> list:
+    """Seconds of each ``api.train_round`` (its loss read on the host,
+    which waits for the device); raises on a non-finite loss."""
+    secs = []
+    for r in rounds:
+        t0 = time.perf_counter()
+        _, mets = api.train_round(r)
+        loss = float(mets["loss_sum"]) / max(float(mets["count"]), 1e-9)
+        secs.append(time.perf_counter() - t0)
+        if not math.isfinite(loss):
+            raise AssertionError(f"round {r}: non-finite train loss {loss}")
+    return secs
+
+
+def _cohort_replay(api, policy: str, counts, rounds) -> None:
+    """The run's cohorts against a host replay: ``uniform`` is
+    ``np.random.seed(round)`` then ``choice``; ``weighted`` at population
+    scale an AliasSampler over the counts drawn from the (seed, round, 1)
+    generator."""
+    import numpy as np
+
+    from fedml_tpu_torch.population import AliasSampler
+
+    seen = api.scheduler.selections()
+    alias = AliasSampler(np.asarray(counts, np.float64)) if policy == "weighted" else None
+    n = len(counts)
+    for r in rounds:
+        if policy == "uniform":
+            np.random.seed(r)
+            want = np.random.choice(range(n), COHORT, replace=False)
+        else:
+            want = alias.draw_distinct(np.random.default_rng([api.config.seed & 0x7FFFFFFF, r, 1]),
+                                       COHORT)
+        if seen[r] != [int(c) for c in want]:
+            raise AssertionError(f"{policy} round {r}: cohort {seen[r]}, replay {want.tolist()}")
+
+
+def _tiled(base, n: int):
+    """``base``'s shards tiled over ``n`` client ids (the 1M row's data)."""
+    import dataclasses
+
+    k = base.num_clients
+    return dataclasses.replace(base, client_x=[base.client_x[i % k] for i in range(n)],
+                               client_y=[base.client_y[i % k] for i in range(n)])
+
+
+def phase_population(smi: str, device="cuda", so=SCALE_100K, ram_clients=SCALE_RAM_CLIENTS,
+                     big_n=SCALE_1M, mid_n=SCALE_MID, warm=SCALE_WARM, timed=SCALE_TIMED,
+                     rnn_kw=None) -> dict:
+    """The population tier on the reference's two scale rows (phase 19):
+
+    (a) the StackOverflow next-word RNN (``RNNStackOverFlow`` at full
+        width: 10,004 symbols, embed 96, LSTM 670) under FedAvgAPI(task
+        "nwp") over ``so`` clients written to a disk mmap store
+        (``synth_stackoverflow_mmap``, ~77 windows of 20 a client),
+        batch 16, pad_bucket 4, no device cache, 10 clients a round:
+        ``warm`` rounds, then ``timed``; the in-RAM partner (the same
+        generator at ``ram_clients`` clients, as lists) the same; the
+        store's build seconds, each round's bucketed steps and cohort
+        read (host ms), the time of one client's step (the two
+        populations' cohorts bucket to other step counts), one profiled
+        round's launches and busy share, the peak device memory;
+    (b) ScaffoldAPI on ``lr`` over 64 synthetic shards (10 classes, 32
+        features) tiled over ``big_n`` ids, ``weighted`` selection (the
+        population index's alias table engaged) and the sharded state
+        tier in a fresh directory: ``warm`` then ``timed`` rounds, then
+        the same at ``mid_n``; the ratio of the round times (the
+        reference's gate: within about 2×), the API's build seconds, the
+        state's logical bytes and rows touched, the spill's gather and
+        scatter ms, and a synchronous gather of a cohort beside the
+        prefetched one;
+    (c) SCAFFOLD at ``mid_n`` for SCALE_TIERS_ROUNDS rounds with the state
+        on the device, in the mmap tier and in the sharded tier: params,
+        c and every touched row bit-equal;
+    (d) each run's cohorts equal a host replay (``_cohort_replay``);
+    (e) one RNN round at full width, 2 clients, full batch, on the card
+        against the CPU (RNN_CARD_VS_CPU).
+
+    Every temporary directory is removed at the end. Prints the
+    ``[population]`` line. ``device="cpu"`` rehearses it at the sizes
+    given (``rnn_kw`` narrows the RNN; device readings "not measured")."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI, ScaffoldAPI
+    from fedml_tpu_torch.data.base import FederatedDataset
+    from fedml_tpu_torch.data.mmap_store import synth_stackoverflow_mmap
+    from fedml_tpu_torch.data.synthetic import synthetic_classification
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.population.state_tier import ShardedClientState
+
+    on_card = device == "cuda"
+    rnn_kw = dict(vocab_size=so["vocab"], **(rnn_kw or {}))
+    report = {"card": smi, "device": device}
+    with tempfile.TemporaryDirectory(prefix="fedml_population_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        report["tmp_free_bytes"] = free
+        if on_card and free < SCALE_MIN_FREE_BYTES:
+            raise AssertionError(f"phase 19 needs {SCALE_MIN_FREE_BYTES} B free under {tmp}, "
+                                 f"has {free}")
+
+        # (a) the 100k StackOverflow row off the disk store, and its partner
+        t0 = time.perf_counter()
+        store = synth_stackoverflow_mmap(str(Path(tmp) / "so"), **so)
+        row = {"clients": store.num_clients, "store_build_s": time.perf_counter() - t0,
+               "store_bytes": store.total_train_bytes}
+        small = synth_stackoverflow_mmap(str(Path(tmp) / "so_ram"), **{**so,
+                                                                        "num_clients": ram_clients})
+        ram = FederatedDataset(name="so_ram", client_x=[np.asarray(c) for c in small.client_x],
+                               client_y=[np.asarray(c) for c in small.client_y],
+                               test_x=small.test_x, test_y=small.test_y,
+                               num_classes=small.num_classes)
+        rounds = warm + timed
+        for name, data in (("mmap", store), ("ram", ram)):
+            model = create_model("rnn", "stackoverflow", (so["seq_len"],), so["vocab"], **rnn_kw)
+            cfg = _scale_config(data.num_clients, rounds + 1, pad_bucket=4)
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            api = FedAvgAPI(cfg, data, model, task="nwp", device=device)
+            if api._store is not None:
+                raise AssertionError(f"{name}: the device cache is on")
+            read_ms, steps, stack = [], [], api._stack
+
+            def timed_stack(ids, seed, stack=stack, read_ms=read_ms, steps=steps):
+                t = time.perf_counter()
+                batch = stack(ids, seed)
+                read_ms.append((time.perf_counter() - t) * 1e3)
+                steps.append(int(batch.x.shape[1]))
+                return batch
+
+            api._stack = timed_stack
+            secs = _sync_rounds(api, range(rounds))
+            _cohort_replay(api, "uniform", data.train_sample_counts, range(rounds))
+            # a round's time follows its cohort's bucketed step count (the
+            # largest shard's), which differs between the two populations'
+            # cohorts: the time of one client's step compares them
+            step_ms = [s * 1e3 / (COHORT * k) for s, k in zip(secs[warm:], steps[warm:])]
+            entry = {"round_s": secs, "warm_round_s": float(np.mean(secs[warm:])),
+                     "steps": steps, "ms_per_client_step": float(np.mean(step_ms)),
+                     "cohort_read_ms": read_ms[warm:],
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card
+                     else "not measured"}
+            if on_card and name == "mmap":
+                entry["profiled"] = _profile_round(api, rounds)
+            row[name] = entry
+            log(f"[population] so {name}: " + json.dumps(entry))
+            del api
+            gc.collect()
+        row["mmap_over_ram_slowdown"] = row["mmap"]["warm_round_s"] / row["ram"]["warm_round_s"]
+        row["mmap_over_ram_per_step"] = (row["mmap"]["ms_per_client_step"]
+                                         / row["ram"]["ms_per_client_step"])
+        report["so_100k"] = row
+        del store, small, ram
+
+        # (e) one full-width RNN round on the card against the CPU
+        pair = synth_stackoverflow_mmap(str(Path(tmp) / "so_pair"), **{**so, "num_clients": 2})
+        outs = {}
+        for dev in ((device, "cpu") if on_card else ("cpu",)):
+            model = create_model("rnn", "stackoverflow", (so["seq_len"],), so["vocab"], **rnn_kw)
+            cfg = _scale_config(2, 1, batch_size=-1)
+            cfg = _with_fed(cfg, client_num_per_round=2)
+            api = FedAvgAPI(cfg, pair, model, task="nwp", device=dev)
+            with _deterministic_convs():
+                _sync_rounds(api, range(1))
+            outs[dev] = _host(api.global_vars)
+        rtol, atol = RNN_CARD_VS_CPU
+        err = max(float((outs[device][k] - v).abs().max()) for k, v in outs["cpu"].items())
+        for k, v in outs["cpu"].items():
+            if not torch.allclose(outs[device][k], v, rtol=rtol, atol=atol):
+                raise AssertionError(f"RNN card vs CPU: {k} off by "
+                                     f"{float((outs[device][k] - v).abs().max())}")
+        report["rnn_card_vs_cpu"] = {"max_abs_err": err, "rtol": rtol, "atol": atol}
+        log("[population] rnn card vs cpu: " + json.dumps(report["rnn_card_vs_cpu"]))
+
+        # (b) SCAFFOLD at 1M clients on the sharded tier, weighted, and at 100k
+        base = synthetic_classification(num_clients=64, num_classes=10, feat_shape=(32,),
+                                        samples_per_client=32, partition_method="hetero", seed=0)
+        model = create_model("lr", "synthetic", (32,), 10)
+        scale = {}
+        for n in (big_n, mid_n):
+            data = _tiled(base, n)
+            cfg = _scale_config(n, rounds + 1, selection="weighted", state_store="sharded",
+                                state_dir=str(Path(tmp) / f"state_{n}"))
+            t0 = time.perf_counter()
+            api = ScaffoldAPI(cfg, data, model, device=device)
+            build_s = time.perf_counter() - t0
+            if api.state.mode != "sharded" or not isinstance(api.state.store, ShardedClientState):
+                raise AssertionError(f"scaffold at {n}: state in {api.state.mode}")
+            if api.scheduler._ctx.index is None:
+                raise AssertionError(f"scaffold at {n}: the O(cohort) draw is off")
+            secs = _sync_rounds(api, range(rounds))
+            _cohort_replay(api, "weighted", data.train_sample_counts, range(rounds))
+            spill = api.state.spill_ms[warm:]
+            # a synchronous read of a cohort no round has read (the pending
+            # prefetch joined first), beside the rounds' prefetched takes
+            api.state.close()
+            store = api.state.store
+            ids = api.scheduler.select(rounds + 7)
+            t0 = time.perf_counter()
+            store.gather(ids)
+            sync_gather_ms = (time.perf_counter() - t0) * 1e3
+            scale[n] = {"api_build_s": build_s, "round_s": secs,
+                        "warm_round_s": float(np.mean(secs[warm:])),
+                        "state_bytes_logical": store.state_bytes_total,
+                        "state_rows_touched": store.initialized_count(),
+                        "shards": len(store._shards),
+                        "gather_ms": [s["gather_ms"] for s in spill],
+                        "scatter_ms": [s["scatter_ms"] for s in spill],
+                        "sync_gather_ms": sync_gather_ms}
+            log(f"[population] scaffold {n}: " + json.dumps(scale[n]))
+            del api, data, store
+            gc.collect()
+        big, mid = scale[big_n], scale[mid_n]
+        report["scaffold_scale"] = {
+            "by_clients": scale,
+            "ratio_1m_over_100k": big["warm_round_s"] / mid["warm_round_s"],
+            # the prefetch hides the gather when the round's take() waits
+            # less than a synchronous read of a cohort
+            "prefetch_hides_gather": float(np.median(big["gather_ms"])) < big["sync_gather_ms"],
+        }
+
+        # (c) the three tiers bit-equal at mid_n
+        tiers = {}
+        data = _tiled(base, mid_n)
+        with _deterministic_convs():
+            for mode in ("device", "mmap", "sharded"):
+                cfg = _scale_config(mid_n, SCALE_TIERS_ROUNDS, selection="weighted",
+                                    state_store=mode, state_dir=str(Path(tmp) / f"tier_{mode}"))
+                api = ScaffoldAPI(cfg, data, model, device=device)
+                if api.state.mode != mode:
+                    raise AssertionError(f"tiers: state in {api.state.mode}, asked for {mode}")
+                _sync_rounds(api, range(SCALE_TIERS_ROUNDS))
+                touched = sorted({c for r in range(SCALE_TIERS_ROUNDS)
+                                  for c in api.scheduler.select(r).tolist()})
+                tiers[mode] = _stateful_snapshot(api, touched)
+                api.state.close()
+                del api
+        for mode in ("mmap", "sharded"):
+            for part in ("global", "c_server", "rows"):
+                _assert_bit_equal(tiers[mode][part], tiers["device"][part], f"tiers {mode} {part}")
+        report["tiers_bit_equal"] = {"clients": mid_n, "rounds": SCALE_TIERS_ROUNDS,
+                                     "rows_compared": len(touched)}
+    report["tmp_removed"] = not Path(tmp).exists()
+    log("[population] " + json.dumps(report, default=str))
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -2554,6 +2849,7 @@ def main() -> int:
     defense_launches = timed(phase_defenses, smi)
     timed(phase_longtail, smi, main_warm_s["median"])
     timed(phase_fedbuff, smi)
+    timed(phase_population, smi)
     log(json.dumps({"phase_s": phase_s}))
 
     from fedml_tpu_torch.ops import flash_attention as fa

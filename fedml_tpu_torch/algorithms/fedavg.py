@@ -31,7 +31,7 @@ import torch
 
 from fedml_tpu_torch.config import RunConfig
 from fedml_tpu_torch.data.base import FederatedDataset, stack_clients
-from fedml_tpu_torch.data.device_store import DeviceDataStore
+from fedml_tpu_torch.data.device_store import DeviceDataStore, fits_on_device
 from fedml_tpu_torch.device import DeviceLike, fp32_math, resolve_device
 from fedml_tpu_torch.models import ModelDef
 from fedml_tpu_torch.scheduler import ClientScheduler, FaultInjector, select_clients
@@ -244,7 +244,9 @@ class FedAvgAPI:
         # (power_of_choice); the others report the cohort mean
         self._client_loss_rounds: set = set()
         self._store = None
-        if config.data.device_cache:
+        # past the byte cap (an mmap store of 100k clients) the data stays on
+        # the host and each round stacks only its cohort
+        if config.data.device_cache and fits_on_device(data):
             try:
                 self._store = DeviceDataStore(data, self.device)
             except ValueError:

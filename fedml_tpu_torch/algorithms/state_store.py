@@ -20,12 +20,13 @@ A round reads and writes only its cohort's rows.
 
 Gather and scatter are exact row copies (float32 in, float32 out), so a
 spilled run equals the run that keeps the stack on the card bit for bit
-(tests/test_torch_state_store.py)."""
+(tests/test_torch_state_store.py). At population scale the same rows live
+in the sharded record-major tier instead (population/state_tier.py, mode
+"sharded"), which keeps this store's API."""
 
 from __future__ import annotations
 
 import json
-import mmap
 import os
 import shutil
 import tempfile
@@ -38,18 +39,9 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+from fedml_tpu_torch.data.mmap_store import advise_random
 
 Tree = Dict[str, np.ndarray]
-
-
-def advise_random(arr) -> None:
-    """``madvise(MADV_RANDOM)`` on a numpy memmap: cohort rows are random,
-    and the kernel's default readahead would turn each row fault into a
-    whole window of (sparse, zero) pages. A hint only; the bytes read are
-    the same. No-op where the memmap or the platform lacks ``madvise``."""
-    mm = getattr(arr, "_mmap", None)
-    if mm is not None and hasattr(mm, "madvise") and hasattr(mmap, "MADV_RANDOM"):
-        mm.madvise(mmap.MADV_RANDOM)
 
 
 class MmapClientState:
@@ -230,8 +222,8 @@ def resolve_state_store(config_fed, state_bytes: int, n_clients: int = 0, popula
     """"device" | "mmap" | "sharded" from ``FedConfig.state_store``, the
     state's size and the population. "auto" keeps the stack on the card
     while it fits ``state_budget_bytes``; past it the state spills to the
-    mmap tier, or at or above the population threshold to the sharded tier
-    (which the port does not have yet: :func:`make_spill_store` raises)."""
+    mmap tier, or at or above the population threshold to the sharded
+    record-major tier."""
     mode = config_fed.state_store
     if mode == "auto":
         if state_bytes <= config_fed.state_budget_bytes:
@@ -247,12 +239,14 @@ def resolve_state_store(config_fed, state_bytes: int, n_clients: int = 0, popula
 
 def make_spill_store(mode: str, init_tree: Tree, n_clients: int, path=None, population=None):
     """The spill tier a resolved non-device mode names (shared by SCAFFOLD
-    and Ditto)."""
+    and Ditto): "mmap" one memmap per leaf, "sharded" the record-major
+    tier (population/state_tier.py), ``1 << population.state_shard_bits``
+    clients a shard file."""
     if mode == "sharded":
-        raise NotImplementedError(
-            "state_store 'sharded' (the record-major tier, fedml_tpu/population/state_tier.py) "
-            "is not ported yet (ROADMAP.md §1 item 9)"
-        )
+        from fedml_tpu_torch.population.state_tier import ShardedClientState
+
+        bits = population.state_shard_bits if population is not None else 16
+        return ShardedClientState(init_tree, n_clients, path, shard_bits=bits)
     if mode == "mmap":
         return MmapClientState(init_tree, n_clients, path)
     raise ValueError(f"not a spill-store mode: {mode!r}")
@@ -266,8 +260,8 @@ class ClientState:
     device. Mode "device" keeps one [N, ...] float32 stack per leaf on the
     device; a round gathers its cohort's rows with ``index_select`` and
     writes them back in place with ``index_copy_`` (never a second copy of
-    the stack). A spill mode keeps the rows in :class:`MmapClientState`,
-    initialised lazily to ``init``; the next cohort's rows are read on a
+    the stack). A spill mode keeps the rows in :class:`MmapClientState` or
+    the sharded record-major tier, initialised lazily to ``init``; the next cohort's rows are read on a
     thread (:class:`CohortPrefetcher`) while the device runs this round,
     and ``spill_ms`` records each round's gather (disk → device) and
     scatter (device → disk) milliseconds on the host clock."""

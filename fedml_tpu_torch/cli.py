@@ -9,8 +9,8 @@ choices, and the same invocation trains the same way:
   reference's name) with ``fedavg``, ``fedprox``, ``fedopt``, ``fednova``,
   ``qfedavg`` (``--qffl_q``), ``hierarchical`` (``--group_num``,
   ``--group_comm_round``), ``scaffold`` and ``ditto`` (``--ditto_lambda``;
-  both keep per-client state on the card or spilled, ``--state_store``,
-  ``--state_dir``), ``dp_fedavg`` and ``fedavg_robust`` (``median`` and
+  both keep per-client state on the card, in the mmap spill tier or in
+  the sharded record-major tier, ``--state_store``, ``--state_dir``), ``dp_fedavg`` and ``fedavg_robust`` (``median`` and
   ``trimmed_mean`` on kernel K1, ``krum``, ``multi_krum``,
   ``norm_diff_clipping``, ``weak_dp``, ``no_defense``; ``--attack
   backdoor`` adds the boosted attackers and ``Backdoor/ASR``), with the
@@ -513,11 +513,6 @@ def _check_ported(opt) -> None:
     if algo not in _PORTED_ALGORITHMS:
         item = _ALGORITHM_ITEMS.get(algo, 8)
         raise NotImplementedError(f"--algorithm {algo} is not ported yet (ROADMAP.md §1 item {item})")
-    if opt["state_store"] == "sharded":
-        raise NotImplementedError(
-            "--state_store sharded (the record-major state tier) is not ported yet (ROADMAP.md §1 "
-            "item 9)"
-        )
     for name, (off, item) in _UNPORTED_OPTIONS.items():
         if opt[name] != off:
             flag = "--" + name

@@ -9,7 +9,7 @@ line: the same cohort gives the same [C, S, B] shapes in both packages."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +48,43 @@ def bucket_steps(ns: Sequence[int], batch_size: int, pad_bucket: int):
     if batch_size != -1:
         steps = size_class(steps)
     return steps, bs, steps * bs
+
+
+# size_class as an exact integer table for steps <= 16, so the vectorized
+# form cannot drift from the scalar one
+_POW2_LUT = np.array([size_class(i) for i in range(17)], dtype=np.int64)
+
+
+def steps_class_array(counts, batch_size: int, pad_bucket: int) -> np.ndarray:
+    """Each client's singleton-bucket step count in one numpy pass:
+    ``steps_class_array(c, bs, pb)[i] == bucket_steps([c[i]], bs, pb)[0]``.
+    Full batch (``batch_size == -1``) has no shared bs and is refused."""
+    if batch_size == -1:
+        raise ValueError("steps_class_array: full-batch mode has no "
+                         "shared bs; use bucket_steps per client")
+    c = np.asarray(counts, np.int64)
+    steps = -(-np.maximum(c, 0) // batch_size)  # ceil(n / bs)
+    steps = -(-steps // pad_bucket) * pad_bucket  # ceil_to pad_bucket
+    small = steps <= 16
+    out = np.where(small, _POW2_LUT[np.minimum(steps, 16)], -(-steps // 8) * 8)
+    return out.astype(np.int64)
+
+
+def partition_shape_classes(counts, batch_size: int, pad_bucket: int):
+    """Every (steps, bs) shape class a partition can produce, as
+    ``{(steps, bs): first client index in that class}``. A cohort's class
+    reads only ``max(ns)``, which is some client's count, so the reachable
+    classes are the per-client singleton buckets: one numpy pass and
+    ``np.unique`` for a fixed batch size, the scalar loop at full batch."""
+    if batch_size == -1:
+        classes: Dict[tuple, int] = {}
+        for i, n in enumerate(counts):
+            klass = bucket_steps([int(n)], batch_size, pad_bucket)[:2]
+            classes.setdefault(klass, i)
+        return classes
+    steps = steps_class_array(counts, batch_size, pad_bucket)
+    uniq, first = np.unique(steps, return_index=True)
+    return {(int(s), int(batch_size)): int(i) for s, i in zip(uniq, first)}
 
 
 @dataclasses.dataclass
@@ -89,6 +126,18 @@ class FederatedDataset:
     @property
     def train_sample_counts(self) -> np.ndarray:
         return np.array([len(y) for y in self.client_y], dtype=np.int64)
+
+    def total_train_samples(self) -> int:
+        return int(self.train_sample_counts.sum())
+
+    def population_index(self):
+        """This partition's metadata (counts, weights, shape classes) as a
+        packed :class:`~fedml_tpu_torch.population.PopulationIndex`, built
+        once from :attr:`train_sample_counts` (the mmap store's is an
+        ``np.diff`` of its offsets)."""
+        from fedml_tpu_torch.population import PopulationIndex
+
+        return PopulationIndex.from_dataset(self)
 
     def centralized_train(self) -> tuple:
         """Every client's shard concatenated (the centralized trainer's

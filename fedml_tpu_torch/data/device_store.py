@@ -6,16 +6,36 @@ each round only a [C, S·B] index matrix crosses the bus and the sampled
 clients' rows are gathered on the device. The index matrix is built on the
 host exactly as the reference builds it (same bucket contract, same
 ``default_rng(seed)`` permutations), so a gathered round equals
-:func:`fedml_tpu_torch.data.base.stack_clients` for the same seed."""
+:func:`fedml_tpu_torch.data.base.stack_clients` for the same seed.
+
+:func:`fits_on_device` guards the upload: a dataset past the cap (4 GB by
+default, ``FEDML_TPU_DEVICE_CACHE_MAX_BYTES`` overrides it, the
+reference's name and default) stays on the host and the round stacks its
+cohort there; an mmap store reports its bytes in O(1), so the guard never
+walks its lazy client views."""
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from fedml_tpu_torch.data.base import ClientBatch, FederatedDataset, bucket_steps
+
+
+_DEFAULT_MAX_BYTES = 4_000_000_000
+
+
+def fits_on_device(data: FederatedDataset) -> bool:
+    """Whether every client's train shard together is within the device
+    cache's byte cap."""
+    cap = int(os.environ.get("FEDML_TPU_DEVICE_CACHE_MAX_BYTES", _DEFAULT_MAX_BYTES))
+    total = getattr(data, "total_train_bytes", None)
+    if total is None:
+        total = sum(cx.nbytes for cx in data.client_x) + sum(cy.nbytes for cy in data.client_y)
+    return total <= cap
 
 
 def _gather(flat_x, flat_y, idx, mask):

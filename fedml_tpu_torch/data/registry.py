@@ -4,7 +4,8 @@
 Ported: the synthetic datasets (``synthetic``, ``synthetic_<a>_<b>``,
 ``femnist_synth``, ``shakespeare_synth``, ``shakespeare_synth_lm``), the
 LEAF and TFF-h5 file loaders (``mnist``, ``shakespeare``, ``femnist``,
-``fed_shakespeare``, ``fed_cifar100``) and the centralised image sets with
+``fed_shakespeare``, ``fed_cifar100``, ``stackoverflow_lr``,
+``stackoverflow_nwp``) and the centralised image sets with
 their LDA/homo split (``cifar10``, ``cifar100``, ``cinic10``). The other names of ``TASKS`` raise
 NotImplementedError naming ROADMAP.md."""
 
@@ -43,13 +44,13 @@ _FILE_LOADERS = {
     "shakespeare": ("fedml_tpu_torch.data.leaf", "load_shakespeare"),
     "fed_shakespeare": ("fedml_tpu_torch.data.tff_h5", "load_fed_shakespeare"),
     "fed_cifar100": ("fedml_tpu_torch.data.tff_h5", "load_fed_cifar100"),
+    "stackoverflow_lr": ("fedml_tpu_torch.data.stackoverflow", "load_stackoverflow_lr"),
+    "stackoverflow_nwp": ("fedml_tpu_torch.data.stackoverflow", "load_stackoverflow_nwp"),
 }
 
 # the reference's other names, by the ROADMAP.md item that brings them
 _NOT_PORTED = {
     "seg_synth": 7,  # the segmentation task
-    "stackoverflow_lr": 7,
-    "stackoverflow_nwp": 7,
     "imagenet": 7,
     "landmarks": 7,
 }

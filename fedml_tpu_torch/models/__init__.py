@@ -55,10 +55,13 @@ def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 def init_param_(module: nn.Module, leaf: str, t: torch.Tensor, generator: torch.Generator):
     """Fill ``t``, the parameter ``leaf`` of ``module``, with its flax
     initializer: a normal of the std in the module's own
-    ``normal_init_std`` entry for ``leaf`` if it has one, else by name —
-    dense/conv ``weight``: lecun_normal; ``bias``: zeros; norm ``scale``:
-    ones; ``embedding`` [V, C]: flax's ``default_embed_init``, an
-    untruncated normal of std 1/√C."""
+    ``normal_init_std`` entry for ``leaf`` if it has one, an orthogonal
+    matrix where the module lists ``leaf`` in ``orthogonal_init`` (flax's
+    recurrent kernels), else by name — dense/conv ``weight``: lecun_normal;
+    ``bias``: zeros; norm ``scale``: ones; ``embedding`` [V, C]: flax's
+    ``default_embed_init``, an untruncated normal of std 1/√C."""
+    if leaf in getattr(module, "orthogonal_init", ()):
+        return nn.init.orthogonal_(t, generator=generator)
     std = getattr(module, "normal_init_std", {}).get(leaf)
     if leaf == "embedding":
         std = math.sqrt(1.0 / t.shape[-1])

@@ -1,10 +1,12 @@
 """Model registry: model-name × dataset → ModelDef (port of
 ``fedml_tpu/models/registry.py``).
 
-Ported: ``lr``, ``cnn``, ``cnn_dropout``, ``transformer``, ``resnet56``,
-``resnet110``, ``resnet18_gn`` … ``resnet152_gn``, ``mobilenet`` and
-``mobilenet_v3``, each with the reference's ``has_batch_stats`` and
-``has_dropout``; ``pretrained=`` pours a ``.pth`` or ``.npz`` checkpoint
+Ported: ``lr``, ``cnn``, ``cnn_dropout``, ``rnn`` (the dataset picks the
+variant: ``RNNStackOverFlow`` for ``stackoverflow``/``stackoverflow_nwp``,
+else ``RNNOriginalFedAvg``, per-position for ``fed_shakespeare``),
+``transformer``, ``resnet56``, ``resnet110``, ``resnet18_gn`` …
+``resnet152_gn``, ``mobilenet`` and ``mobilenet_v3``, each with the
+reference's ``has_batch_stats`` and ``has_dropout``; ``pretrained=`` pours a ``.pth`` or ``.npz`` checkpoint
 over the init (models/pretrained.py). The reference's other names raise
 NotImplementedError naming ROADMAP.md."""
 
@@ -19,7 +21,7 @@ from fedml_tpu_torch.models import ModelDef
 
 # the reference's other models, each waiting on ROADMAP.md §1 item 7
 _NOT_PORTED = (
-    "rnn", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn", "vgg16_bn", "vgg19_bn",
+    "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn", "vgg16_bn", "vgg19_bn",
     "efficientnet", "segnet", "darts", "mnistgan", "gkt_resnet", "vfl",
 )
 _RESNET_GN = ("resnet18_gn", "resnet34_gn", "resnet50_gn", "resnet101_gn", "resnet152_gn")
@@ -62,6 +64,18 @@ def create(
 
         return ModelDef(CNNDropOut(num_classes=num_classes, input_shape=shape, **kw),
                         shape, num_classes, has_dropout=True, name=name)
+    if name == "rnn":
+        # the dataset picks the variant; num_classes is the model's own
+        # vocabulary, as in the reference
+        from fedml_tpu_torch.models import rnn
+
+        ds = dataset_name.lower()
+        if ds in ("stackoverflow_nwp", "stackoverflow"):
+            m = rnn.RNNStackOverFlow(**kw)
+            return ModelDef(m, shape, m.vocab_size + 3 + m.num_oov_buckets,
+                            name="rnn_stackoverflow", input_dtype=torch.int32)
+        m = rnn.RNNOriginalFedAvg(seq_output=ds == "fed_shakespeare", **kw)
+        return ModelDef(m, shape, m.vocab_size, name="rnn", input_dtype=torch.int32)
     if name == "transformer":
         # the federated causal LM: num_classes is the vocabulary; it trains
         # under task="nwp". Options (num_layers, num_heads, embed_dim,
@@ -106,7 +120,7 @@ def create(
             f"model {model_name!r} is not ported yet (ROADMAP.md §1 item 7)"
         )
     raise KeyError(
-        f"unknown model {model_name!r}; the port has: lr, cnn, cnn_dropout, transformer, "
+        f"unknown model {model_name!r}; the port has: lr, cnn, cnn_dropout, rnn, transformer, "
         "resnet56, resnet110, resnet18_gn..resnet152_gn, mobilenet, mobilenet_v3"
     )
 

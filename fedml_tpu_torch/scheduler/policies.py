@@ -20,10 +20,17 @@ its selection memo and checkpoint state).
 - overprovisioning selects ``ceil(k·factor)`` clients of the wrapped
   policy, so a deadline round still closes with about k uploads.
 
-Every policy is a pure function of (seed, round, policy inputs). The
-population tier's O(cohort) draws at ``ocohort_threshold`` clients and
-above are still to port (ROADMAP.md §1 item 9) and raise; fault plans are
-in scheduler/faults.py."""
+Every policy is a pure function of (seed, round, policy inputs).
+
+At or above ``PopulationConfig.ocohort_threshold`` clients the non-uniform
+policies draw in O(cohort) through the packed
+:class:`~fedml_tpu_torch.population.PopulationIndex`: the alias table for
+``weighted`` and the ``power_of_choice`` candidates, rejection sampling for
+``straggler_aware``'s draw that excludes the flagged clients. The switch is
+keyed on the population size only, so the simulator and every transport
+draw the same cohorts; below it the exact numpy draws run. ``uniform``
+stays the round-seeded draw at every size. Fault plans are in
+scheduler/faults.py."""
 
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from fedml_tpu_torch.population import BoundedLossMap
+from fedml_tpu_torch.population import BoundedLossMap, PopulationIndex, draw_uniform_distinct
 
 #: the policy names a config or the CLI may name
 POLICY_NAMES = ("uniform", "weighted", "power_of_choice", "straggler_aware")
@@ -52,7 +59,34 @@ class SelectionContext:
     # ClientHealthRegistry-shaped object (straggler_aware): straggler_ids()
     # and mean_train_s(cid)
     health: Optional[object] = None
+    # the PopulationIndex of the O(cohort) draws; built from sample_counts
+    # at or above ocohort_threshold when absent
+    index: Optional[PopulationIndex] = None
     ocohort_threshold: int = 65536
+
+
+def _population_index(ctx: SelectionContext) -> Optional[PopulationIndex]:
+    """The index the O(cohort) draws read: the context's own, or one built
+    from the sample counts once the population reaches the threshold. None
+    below it (the exact draws) or without counts."""
+    if ctx.index is not None:
+        return ctx.index
+    if (ctx.sample_counts is not None and ctx.num_clients >= ctx.ocohort_threshold
+            and len(ctx.sample_counts) == ctx.num_clients):
+        ctx.index = PopulationIndex(np.asarray(ctx.sample_counts, np.int64))
+        return ctx.index
+    return None
+
+
+def _weighted_cohort(ctx: SelectionContext, rng, n: int, size: int) -> np.ndarray:
+    """The size-weighted distinct draw of ``weighted`` and the
+    ``power_of_choice`` candidates: the alias table's O(cohort) draw at
+    population scale, the exact numpy draw below it (the same distribution
+    on another stream)."""
+    pop = _population_index(ctx)
+    if pop is not None and pop.num_clients == n and pop.total_samples() > 0:
+        return pop.alias_table().draw_distinct(rng, size)
+    return _weighted_draw(rng, n, size, _size_probs(ctx))
 
 
 def _rng(ctx: SelectionContext, round_idx: int, salt: int = 0) -> np.random.Generator:
@@ -113,7 +147,7 @@ class WeightedPolicy(SelectionPolicy):
 
     def select(self, round_idx, k, ctx):
         n = ctx.num_clients
-        return _weighted_draw(_rng(ctx, round_idx, salt=1), n, min(k, n), _size_probs(ctx))
+        return _weighted_cohort(ctx, _rng(ctx, round_idx, salt=1), n, min(k, n))
 
 
 class PowerOfChoicePolicy(SelectionPolicy):
@@ -134,7 +168,7 @@ class PowerOfChoicePolicy(SelectionPolicy):
         k = min(k, n)
         d = min(n, max(k, int(math.ceil(self.candidate_factor * k))))
         rng = _rng(ctx, round_idx, salt=2)
-        candidates = _weighted_draw(rng, n, d, _size_probs(ctx))
+        candidates = _weighted_cohort(ctx, rng, n, d)
         losses = ctx.losses or {}
         tiebreak = rng.permutation(d)
         order = sorted(
@@ -148,26 +182,27 @@ class StragglerAwarePolicy(SelectionPolicy):
     stragglers (``ClientHealthRegistry.straggler_ids``: the slowest decile
     AND more than 1.2× the median mean). When fewer than k fast clients
     exist, the cohort tops up from the flagged set, slowest last, then by
-    id. With no registry attached this is a seeded uniform draw."""
+    id. With no registry attached this is a seeded uniform draw. At
+    population scale the draw rejection-samples around the flagged set
+    (bounded by the registry's active set) instead of building the O(N)
+    eligible set."""
 
     name = "straggler_aware"
 
     def select(self, round_idx, k, ctx):
         n = ctx.num_clients
         k = min(k, n)
-        if n >= ctx.ocohort_threshold:
-            # the reference rejection-samples here, another stream
-            raise NotImplementedError(
-                f"straggler_aware over {ctx.ocohort_threshold}+ clients (the population tier's "
-                "rejection draw) is not ported yet (ROADMAP.md §1 item 9)"
-            )
         rng = _rng(ctx, round_idx, salt=3)
         flagged: List[int] = []
         if ctx.health is not None:
             flagged = [c for c in ctx.health.straggler_ids() if c < n]
-        eligible = np.setdiff1d(np.arange(n), np.asarray(flagged, np.int64))
-        take = min(k, len(eligible))
-        sel = rng.choice(eligible, size=take, replace=False) if take else np.empty(0, np.int64)
+        if n >= ctx.ocohort_threshold:
+            take = min(k, n - len(flagged))
+            sel = draw_uniform_distinct(rng, n, take, exclude=np.asarray(flagged, np.int64))
+        else:
+            eligible = np.setdiff1d(np.arange(n), np.asarray(flagged, np.int64))
+            take = min(k, len(eligible))
+            sel = rng.choice(eligible, size=take, replace=False) if take else np.empty(0, np.int64)
         if take < k:
             by_speed = sorted(flagged, key=lambda c: (ctx.health.mean_train_s(c) or 0.0, c))
             sel = np.concatenate([sel, np.asarray(by_speed[: k - take], np.int64)])
@@ -251,6 +286,7 @@ class ClientScheduler:
         health: Optional[object] = None,
         on_select: Optional[Callable[[int, np.ndarray], None]] = None,
         memoize: bool = True,
+        index: Optional[PopulationIndex] = None,
         ocohort_threshold: int = 65536,
         loss_map_capacity: int = 65536,
         selection_memo_rounds: int = 64,
@@ -266,6 +302,7 @@ class ClientScheduler:
             sample_counts=None if sample_counts is None else np.asarray(sample_counts, np.int64),
             losses=BoundedLossMap(loss_map_capacity),
             health=health,
+            index=index,
             ocohort_threshold=int(ocohort_threshold),
         )
         self._memo_rounds = int(selection_memo_rounds)
@@ -277,20 +314,24 @@ class ClientScheduler:
     def from_config(cls, config, num_clients: int, data=None, log_fn=None, **kw) -> "ClientScheduler":
         """Build from a RunConfig. ``data`` (a FederatedDataset) gives the
         weighted policy its sample counts when its client count is the
-        federation's; ``log_fn`` receives each round's selection row; ``kw``
-        goes to the constructor (``health``, ``memoize``)."""
+        federation's, and at or above ``ocohort_threshold`` clients the
+        packed population index is built from them here, once (with
+        ``index_dir`` and ``index_mmap_bytes``), so the simulator, the
+        transports and FedBuff, which all build their schedulers here, draw
+        the same cohorts. ``log_fn`` receives each round's selection row;
+        ``kw`` goes to the constructor (``health``, ``memoize``)."""
         pop = config.population
-        if num_clients >= pop.ocohort_threshold:
-            # the reference draws such populations through its packed
-            # population index, another stream than these draws
-            raise NotImplementedError(
-                f"populations of {pop.ocohort_threshold}+ clients (the population tier) are "
-                "not ported yet (ROADMAP.md §1 item 9)"
-            )
         policy = config.fed.selection
-        counts = None
+        counts = index = None
         if data is not None and data.num_clients == num_clients:
+            # np.diff of the offsets for the mmap store; one len() pass for
+            # list datasets
             counts = np.asarray(data.train_sample_counts, np.int64)
+            if num_clients >= pop.ocohort_threshold:
+                index = PopulationIndex.from_counts(
+                    counts, path=pop.index_dir or None,
+                    mmap_threshold_bytes=pop.index_mmap_bytes,
+                )
         on_select = None
         if log_fn is not None:
             on_select = lambda r, sel: log_fn({  # noqa: E731
@@ -301,7 +342,7 @@ class ClientScheduler:
         return cls(
             num_clients, config.fed.client_num_per_round, policy=policy, seed=config.seed,
             overprovision_factor=config.fed.overprovision_factor,
-            sample_counts=counts, on_select=on_select,
+            sample_counts=counts, on_select=on_select, index=index,
             ocohort_threshold=pop.ocohort_threshold,
             loss_map_capacity=pop.loss_map_capacity,
             selection_memo_rounds=pop.selection_memo_rounds, **kw,

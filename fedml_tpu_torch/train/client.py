@@ -56,8 +56,9 @@ def seeded_perm_fn(seed: int) -> PermFn:
 
 
 def make_task_loss(task: str) -> Callable:
-    """task → (loss, correct, total): classification and nwp (next-word
-    prediction over token windows) so far."""
+    """task → (loss, correct, total): classification, nwp (next-word
+    prediction over token windows) and tag (multi-label, a sigmoid per
+    label; every label of every example counts toward the accuracy)."""
 
     def classification(logits, y, mask):
         loss = L.masked_softmax_ce(logits, y, mask)
@@ -69,7 +70,14 @@ def make_task_loss(task: str) -> Callable:
         correct, total = L.masked_seq_accuracy_stats(logits, y, mask)
         return loss, correct, total
 
-    tasks = {"classification": classification, "nwp": nwp}
+    def tag(logits, y, mask):
+        loss = L.masked_sigmoid_bce(logits, y, mask)
+        pred = (logits > 0).to(torch.float32)
+        correct = torch.sum((pred == y).to(torch.float32) * mask[:, None])
+        total = torch.sum(mask) * y.shape[-1]
+        return loss, correct, total
+
+    tasks = {"classification": classification, "nwp": nwp, "tag": tag}
     if task not in tasks:
         raise NotImplementedError(
             f"task {task!r} is not ported yet (ROADMAP.md); the port has {sorted(tasks)}"

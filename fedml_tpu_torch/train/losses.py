@@ -1,5 +1,5 @@
 """Mask-weighted losses and metrics (port of ``fedml_tpu/train/losses.py``,
-the classification, next-word and proximal-term parts). Zero-padded
+the classification, multi-label tag, next-word and proximal-term parts). Zero-padded
 examples carry mask 0 and contribute nothing."""
 
 from __future__ import annotations
@@ -25,6 +25,17 @@ def masked_accuracy_stats(logits, labels, mask):
     pred = torch.argmax(logits, dim=-1)
     correct = torch.sum((pred == labels.long()).to(torch.float32) * mask)
     return correct, torch.sum(mask)
+
+
+def masked_sigmoid_bce(logits, labels, mask):
+    """Multi-label BCE for tag prediction: per example the sum over labels
+    of the sigmoid cross-entropy, mean over masked examples. labels: float
+    [B, C] (multi-hot)."""
+    per_ex = torch.sum(
+        F.binary_cross_entropy_with_logits(logits, labels.to(logits.dtype), reduction="none"),
+        dim=-1,
+    )
+    return _safe_div(torch.sum(per_ex * mask), torch.sum(mask))
 
 
 def masked_seq_ce(logits, labels, mask, pad_token: int = 0):

@@ -201,7 +201,6 @@ def test_resume_over_a_transport_is_refused(tmp_path):
 UNPORTED = {
     "mesh": ["--runtime", "mesh"],
     "grpc": ["--runtime", "grpc", "--rank", "0"],
-    "scaffold": ["--algorithm", "scaffold", "--state_store", "sharded"],
     # fedbuff runs over loopback, shm and mqtt; one process per rank waits
     "fedbuff_over_loopback": ["--algorithm", "fedbuff", "--runtime", "grpc", "--rank", "0"],
     "warmup": ["--warmup"],
@@ -213,7 +212,7 @@ UNPORTED = {
     "prom_port": ["--prom_port", "0"],
     "recompile_budget": ["--recompile_budget", "10"],
     "model_zoo": ["--model", "vgg11"],
-    "dataset": ["--dataset", "stackoverflow_lr"],
+    "dataset": ["--dataset", "imagenet"],
 }
 
 

@@ -31,7 +31,7 @@ PORTED = [
     ("shakespeare_synth", 4, "hetero"),
     ("shakespeare_synth_lm", 4, "hetero"),
 ]
-NOT_PORTED = ["seg_synth", "stackoverflow_lr", "stackoverflow_nwp", "imagenet", "landmarks"]
+NOT_PORTED = ["seg_synth", "imagenet", "landmarks"]
 
 
 def _config(cfg_mod, name, clients, partition="hetero", data_dir="./data", seed=3):

@@ -114,12 +114,17 @@ def test_overprovision_below_one_and_unknown_policies_are_refused():
         make_policy("power_of_choice", candidate_factor=0.5)
     with pytest.raises(ValueError, match="unknown selection policy"):
         make_policy("no_such_policy")
-    # straggler_aware is ported; its draw over a population-tier-sized
-    # population (the reference's rejection sampling) is not
+    # straggler_aware at the population tier's threshold is no refusal: it
+    # rejection-samples the reference's cohort
+    from fedml_tpu.scheduler.policies import SelectionContext as JaxContext
+    from fedml_tpu.scheduler.policies import get_policy
+
     from fedml_tpu_torch.scheduler.policies import SelectionContext
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
-        make_policy("straggler_aware").select(0, 2, SelectionContext(num_clients=8, ocohort_threshold=8))
+    got = make_policy("straggler_aware").select(0, 2, SelectionContext(num_clients=8,
+                                                                       ocohort_threshold=8))
+    want = get_policy("straggler_aware").select(0, 2, JaxContext(num_clients=8, ocohort_threshold=8))
+    assert got.tolist() == np.asarray(want).tolist()
 
 
 def test_simulator_power_of_choice_selects_the_reference_cohorts():

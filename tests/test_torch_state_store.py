@@ -27,7 +27,7 @@ from fedml_tpu.config import FedConfig as JaxFedConfig  # noqa: E402
 from fedml_tpu_torch.algorithms.ditto import DittoAPI  # noqa: E402
 from fedml_tpu_torch.algorithms.scaffold import ScaffoldAPI  # noqa: E402
 from fedml_tpu_torch.algorithms.state_store import (  # noqa: E402
-    CohortPrefetcher, MmapClientState, make_spill_store, resolve_state_store,
+    CohortPrefetcher, MmapClientState, resolve_state_store,
 )
 from fedml_tpu_torch.config import FedConfig  # noqa: E402
 
@@ -108,11 +108,6 @@ def test_resolve_state_store_matches_reference(mode, state_bytes, n):
     assert resolve_state_store(FedConfig(state_store=mode), state_bytes, n_clients=n) == want
     with pytest.raises(ValueError):
         resolve_state_store(FedConfig(state_store="disk"), state_bytes)
-
-
-def test_sharded_tier_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_spill_store("sharded", _init_tree(), 4)
 
 
 @pytest.mark.parametrize("jax_cls,torch_cls", [(JaxScaffold, ScaffoldAPI), (JaxDitto, DittoAPI)])

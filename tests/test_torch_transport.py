@@ -352,17 +352,6 @@ def test_secure_agg_refuses_an_overprovisioned_worker_count():
         run_loopback_federation(over(cfg), data, model, device="cpu")
 
 
-@pytest.mark.parametrize("section,field,value", [("fed", "selection", "straggler_aware")])
-def test_unported_options_raise(section, field, value):
-    # the policy runs; over a population at the population tier's
-    # threshold (the reference's O(cohort) draws) it is still refused
-    cfg, data, model = _port()
-    cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **{field: value})},
-                      population=dataclasses.replace(cfg.population, ocohort_threshold=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
-        run_loopback_federation(cfg, data, model, device="cpu")
-
-
 def test_unported_entry_points_raise():
     cfg, data, model = _port()
     for run in (run_loopback_federation, run_mqtt_federation):

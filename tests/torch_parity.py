@@ -655,3 +655,81 @@ def trained_pair(jax_cls, torch_cls, jax_kw=None, torch_kw=None, rounds: int = S
     tapi = port_api(torch_cls, from_flax(ref.init), per_round, torch_kw, rounds, batch_size, fed,
                     train)
     return ref, tapi
+
+
+# -- the population tier ------------------------------------------------------
+
+
+class FlaggedHealth:
+    """A client health registry as ``straggler_aware`` reads it: a fixed
+    flagged set and each flagged client's mean train seconds."""
+
+    def __init__(self, flagged, slow):
+        self.flagged, self.slow = list(flagged), dict(slow)
+
+    def straggler_ids(self):
+        return list(self.flagged)
+
+    def mean_train_s(self, cid):
+        return self.slow.get(int(cid))
+
+
+def population_config(cfg_mod, n: int, selection: str = "uniform", per_round: int = 4,
+                      rounds: int = 3, seed: int = 0, batch_size: int = 8, **population):
+    """A RunConfig in either package's config module over ``n`` clients with
+    the named selection and PopulationConfig fields (lr 0.1, no device
+    cache, the test round only at the end)."""
+    return cfg_mod.RunConfig(
+        data=cfg_mod.DataConfig(batch_size=batch_size, device_cache=False),
+        fed=cfg_mod.FedConfig(client_num_in_total=n, client_num_per_round=per_round,
+                              comm_round=rounds, epochs=1, selection=selection,
+                              frequency_of_the_test=100),
+        train=cfg_mod.TrainConfig(lr=0.1),
+        population=cfg_mod.PopulationConfig(**population),
+        seed=seed,
+    )
+
+
+def write_stackoverflow(path, words: int = 10000, tags: int = 600, clients: int = 5,
+                        seed: int = 0) -> None:
+    """The StackOverflow files in the TFF layout under ``path``: the word
+    and tag count files (``words`` and ``tags`` entries, most frequent
+    first) and train/test h5 files of ``clients`` clients, each 1-4 posts
+    of tokens (some out of the vocabulary), a title and ``|``-joined
+    tags."""
+    import h5py
+
+    rng = np.random.default_rng(seed)
+    path = Path(path)
+    (path / "stackoverflow.word_count").write_text(
+        "".join(f"w{i} {words * 2 - i}\n" for i in range(words)))
+    (path / "stackoverflow.tag_count").write_text(json.dumps({f"t{i}": tags - i for i in range(tags)}))
+
+    def sentence(n):
+        return " ".join(f"w{int(i)}" if i < words else f"oov{int(i)}"
+                        for i in rng.integers(0, words + 20, n))
+
+    for fname in ("stackoverflow_train.h5", "stackoverflow_test.h5"):
+        with h5py.File(path / fname, "w") as f:
+            for c in range(clients):
+                g = f.create_group(f"examples/u{c:03d}")
+                posts = int(rng.integers(1, 5))
+                g.create_dataset("tokens", data=[sentence(int(rng.integers(2, 30))).encode()
+                                                 for _ in range(posts)])
+                g.create_dataset("title", data=[sentence(3).encode() for _ in range(posts)])
+                g.create_dataset("tags", data=[
+                    "|".join(f"t{int(t)}" for t in rng.integers(0, tags + 5, 3)).encode()
+                    for _ in range(posts)])
+
+
+def assert_same_dataset(got, want) -> None:
+    """Two FederatedDatasets (either package) hold the same bytes."""
+    assert (got.name, got.num_classes, got.num_clients) == (want.name, want.num_classes,
+                                                             want.num_clients)
+    for part in ("client_x", "client_y", "client_test_x", "client_test_y"):
+        g, w = getattr(got, part), getattr(want, part)
+        assert (g is None) == (w is None), part
+        for a, b in zip(g or [], w or [], strict=True):
+            assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), part
+    for a, b in ((got.test_x, want.test_x), (got.test_y, want.test_y)):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
