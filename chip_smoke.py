@@ -170,7 +170,28 @@ Phases, each of which raises on failure:
     device, mmap and sharded tiers, bit-equal; (d) every cohort equal to
     a host replay of the draw; (e) one full-width RNN round, card against
     CPU (RNN_CARD_VS_CPU). A ``[population]`` JSON line gives the
-    readings. It needs ~4 GB free under the temporary directory.
+    readings. It needs ~4 GB free under the temporary directory;
+20. the model-bound algorithms (``phase_modelbound``) at the reference's
+    full widths, none of which launches K1-K4: (a) FedSeg, the width-32
+    encoder-decoder on ``synthetic_segmentation`` (21 classes, 128×128,
+    10 clients of 32, batch 8, lr 0.05), 3 rounds with eval each round —
+    round and eval seconds, mIoU and FWIoU in [0, 1], a profiled round,
+    the best-mIoU checkpoint's round, and one full-batch round of 2
+    clients on the card against the CPU (SEG_CARD_VS_CPU); (b) FedGKT, the
+    ResNet-56 cut (client blocks 2, server (6, 6)) on the cross-silo CIFAR
+    geometry (10 × 512, batch 64, lr 0.01), 2 rounds — the clients', the
+    server's and the logit return's seconds, finite losses, the features'
+    bytes a client, the accuracy; (c) FedGAN on the north star's
+    ``femnist_synthetic(128)``, 10 a round, batch 20, lr 2e-4, 3 rounds —
+    round seconds, finite G and D losses, ``generate(64)`` inside tanh's
+    range, and one full-batch round on the card against the CPU with the
+    same latents (GAN_CARD_VS_CPU); (d) FedNAS, ``DARTSNetwork`` at ch 16,
+    3 cells, 4 steps on CIFAR geometry (10 clients of 64, 4 a round, batch
+    16), 2 rounds with each architect — round seconds, peak device memory,
+    the genotype — and the second-order α-gradient of one step on the card
+    against the CPU (NAS_GRAD_CARD_VS_CPU); (e) each of the four through
+    ``cli.main`` for 1 round, its row's keys those of the reference's
+    ``_run_*`` function. A ``[modelbound]`` JSON line gives the readings.
 
 Then it prints each phase's seconds (``phase_s``), the kernels' JSON line,
 the ``nvidia-smi`` line, and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -2814,6 +2835,408 @@ def phase_population(smi: str, device="cuda", so=SCALE_100K, ram_clients=SCALE_R
     return report
 
 
+# phase 20: the model-bound algorithms at the reference's full widths
+MODELBOUND = dict(
+    # FedSeg: Pascal VOC's 21 classes at 128×128, 10 clients of 32 images,
+    # all in every round, batch 8, lr 0.05, 3 rounds, eval every round
+    seg=dict(classes=21, image=128, clients=10, samples=32, batch=8, lr=0.05, rounds=3,
+             width=32, cpu_clients=2),
+    # FedGKT: ResNet-56 cut after its stem (client blocks 2, server (6, 6))
+    # on the cross-silo CIFAR geometry, batch 64, lr 0.01, 2 rounds
+    gkt=dict(clients=10, samples=512, batch=64, lr=0.01, rounds=2, blocks=2, layers=(6, 6)),
+    # FedGAN: MNISTGan on the north star's femnist_synthetic(128), 10 a
+    # round, batch 20, lr 2e-4, 3 rounds
+    gan=dict(clients=128, per_round=10, batch=20, lr=2e-4, rounds=3, generate=64),
+    # FedNAS: DARTSNetwork at its class defaults on CIFAR geometry, 10
+    # clients of 64, 4 a round, batch 16
+    nas=dict(clients=10, samples=64, per_round=4, batch=16, ch=16, cells=3, steps=4),
+    cli=dict(clients=3, per_round=2),
+)
+# card vs CPU after one FedSeg round of one full-batch step (32 images) for
+# each of 2 clients, (rtol, atol) on the params and the running statistics:
+# the encoder-decoder's float32 convolutions sum in other orders on the
+# card, and BatchNorm divides by the batch's σ. On the CPU alone a 1e-7
+# relative nudge of the init moves this round's params by 3.6e-7 and its
+# running statistics by 6.2e-6; an NVIDIA H100 80GB HBM3 (700 W) moved the
+# params by 1.34e-5; the bound is 7x that.
+SEG_CARD_VS_CPU = (1e-5, 1e-4)
+# card vs CPU after one FedGAN round of one full-batch step a client with
+# the same latent draws. Adam's first step is lr·g/(|g| + 1e-8): an element
+# whose gradient is near 1e-8 (G's pre-BN biases, whose gradient BatchNorm
+# cancels, and others) moves by a share of lr that the gradient's rounding
+# sets. On the CPU alone a 1e-7 relative nudge of the init moves this
+# round's params by up to 4.5e-5 (G) and 2.0e-6 (D), its running
+# statistics by 1.2e-7 and its loss sums by < 1e-6; the params are held to
+# one step's lr, the statistics and loss sums to ~100x their nudge.
+GAN_CARD_VS_CPU = {"params": (0.0, MODELBOUND["gan"]["lr"]), "stats": (1e-5, 1e-5),
+                   "loss_rtol": 1e-5}
+# the second-order α-gradient of one step, card vs CPU: |err| <= tol ·
+# max|grad|. Two backward passes through 14 mixed edges of 6 ops in float32,
+# each summing in another order on the card
+NAS_GRAD_CARD_VS_CPU = 1e-3
+# the rows of the reference's runners (fedml_tpu/cli.py _run_fedseg,
+# _run_fedgkt, _run_fedgan, _run_fednas)
+MODELBOUND_ROW_KEYS = {
+    "fedseg": ["Test/Acc", "Test/Acc_class", "Test/FWIoU", "Test/mIoU", "Train/Acc",
+               "Train/Loss", "round"],
+    "fedgkt": ["Test/Acc", "round"],
+    "fedgan": ["Train/D_Loss", "Train/G_Loss", "round"],
+    "fednas": ["Test/Acc", "genotype", "round"],
+}
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _host_vars(variables) -> dict:
+    return {k: v.detach().float().cpu() for k, v in variables.items()}
+
+
+def _assert_close_vars(got: dict, want: dict, tol, what: str) -> float:
+    """max |got − want| over the variables, each within rtol·|want| + atol."""
+    rtol, atol = tol
+    worst = 0.0
+    for k, w in want.items():
+        err = (got[k] - w).abs()
+        bound = rtol * w.abs() + atol
+        if bool((err > bound).any()):
+            raise AssertionError(f"{what}: {k} off by {float(err.max())} (> its bound)")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def _profile_fn(fn) -> dict:
+    """One call of ``fn`` under torch.profiler, tracing the device only:
+    its wall ms, kernel launches, device kernel ms, busy share and top
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {
+        "wall_ms_profiled": wall_ms,
+        "kernel_launches": sum(e.count for e in kernels),
+        "device_kernel_ms": device_ms if kernels else "not measured",
+        "device_busy_share": device_ms / wall_ms if kernels else "not measured",
+        "top_kernels_ms_calls": {e.key[:60]: [e.self_device_time_total / 1e3, e.count]
+                                 for e in top},
+    }
+
+
+def _modelbound_seg(report, device, cfg_mod, seg, tmp):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedseg import FedSegAPI
+    from fedml_tpu_torch.data.synthetic import synthetic_segmentation
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    data = synthetic_segmentation(num_clients=seg["clients"], num_classes=seg["classes"],
+                                  image_size=seg["image"], samples_per_client=seg["samples"],
+                                  seed=0)
+    shape = (seg["image"], seg["image"], 3)
+    model = create_model("segnet", "seg_synth", shape, seg["classes"], width=seg["width"])
+    cfg = cfg_mod.RunConfig(
+        data=cfg_mod.DataConfig(batch_size=seg["batch"]),
+        fed=cfg_mod.FedConfig(client_num_in_total=seg["clients"],
+                              client_num_per_round=seg["clients"], comm_round=seg["rounds"],
+                              epochs=1, frequency_of_the_test=1),
+        train=cfg_mod.TrainConfig(lr=seg["lr"]), seed=0)
+    ckpt = str(Path(tmp) / "seg_best")
+    api = FedSegAPI(cfg, data, model, checkpoint_path=ckpt, device=device)
+    round_s, eval_s = [], []
+    orig_eval = api.evaluate_seg
+
+    def timed_eval(*a, **kw):
+        _sync(device)
+        t = time.perf_counter()
+        out = orig_eval(*a, **kw)
+        eval_s.append(time.perf_counter() - t)
+        return out
+
+    api.evaluate_seg = timed_eval
+    orig_round = api.train_round
+
+    def timed_round(r):
+        _sync(device)
+        t = time.perf_counter()
+        out = orig_round(r)
+        float(out[1]["count"])
+        round_s.append(time.perf_counter() - t)
+        return out
+
+    api.train_round = timed_round
+    api.train()
+    rows = api.history
+    _finite_rows(rows, "fedseg")
+    for row in rows:
+        for key in ("Test/mIoU", "Test/FWIoU", "Test/Acc", "Test/Acc_class"):
+            if not 0.0 <= row[key] <= 1.0:
+                raise AssertionError(f"fedseg: {key} = {row[key]} outside [0, 1]")
+        if sorted(row) != MODELBOUND_ROW_KEYS["fedseg"]:
+            raise AssertionError(f"fedseg: row keys {sorted(row)}")
+    mious = [row["Test/mIoU"] for row in rows]
+    best = int(np.argmax(mious))  # the first maximum, as the strict '>' promotes
+    _, ckpt_round, *_ = load_checkpoint(ckpt)
+    meta = json.load(open(ckpt + ".json"))
+    if ckpt_round != best or meta["best_miou"] != mious[best]:
+        raise AssertionError(f"fedseg: checkpoint of round {ckpt_round} ({meta}), best is {best}")
+    entry = {
+        "rows": rows, "round_s": round_s, "warm_round_s": round_s[1:], "eval_s": eval_s,
+        "best_round": best, "checkpoint_round": ckpt_round,
+        "params": model.num_params(),
+    }
+    if torch.device(device).type == "cuda":
+        entry["profile_round"] = _profile_round(api, seg["rounds"])
+    # one round of one full-batch step for each of 2 clients, card vs CPU
+    cpu_cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, batch_size=-1),
+        fed=dataclasses.replace(cfg.fed, client_num_per_round=seg["cpu_clients"], comm_round=1))
+    init = model.init(torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", device):
+        a = FedSegAPI(cpu_cfg, data, model, device=dev)
+        a.global_vars = {k: v.to(a.device) for k, v in init.items()}
+        a.train_round(0)
+        out[dev] = _host_vars(a.global_vars)
+    entry["card_vs_cpu_max_abs"] = _assert_close_vars(out[device], out["cpu"], SEG_CARD_VS_CPU,
+                                                      "fedseg card vs CPU")
+    entry["card_vs_cpu_tol"] = SEG_CARD_VS_CPU
+    entry["phase_s"] = time.perf_counter() - t0
+    report["fedseg"] = entry
+
+
+def _modelbound_gkt(report, device, gkt, profile):
+    import numpy as np
+
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
+
+    t0 = time.perf_counter()
+    data = _cifar_geometry(gkt["clients"], RESNET["classes"], gkt["samples"])
+    clients = [(data.client_x[i], data.client_y[i]) for i in range(gkt["clients"])]
+    api = FedGKTAPI(num_classes=RESNET["classes"], input_shape=RESNET["shape"],
+                    client_blocks=gkt["blocks"], server_layers=gkt["layers"], lr=gkt["lr"],
+                    device=device)
+    cache, rounds = None, []
+    for r in range(gkt["rounds"]):
+        t = time.perf_counter()
+        cache = api.train_round(clients, batch_size=gkt["batch"], server_logits_cache=cache)
+        rounds.append({"round_s": time.perf_counter() - t, "stage_s": api.stage_s,
+                       "mean_loss": api.losses})
+        if not all(np.isfinite(v) for v in api.losses.values()):
+            raise AssertionError(f"fedgkt: round {r} losses {api.losses}")
+    if sorted(cache) != list(range(gkt["clients"])) or any(
+            c.shape != (gkt["samples"], RESNET["classes"]) for c in cache.values()):
+        raise AssertionError("fedgkt: the server-logit cache")
+    h, w, _ = RESNET["shape"]
+    acc = api.evaluate(data.test_x, data.test_y, client_id=0)
+    profiled = None
+    if profile:
+        profiled = _profile_fn(lambda: api.train_round(clients, batch_size=gkt["batch"],
+                                                       server_logits_cache=cache))
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"fedgkt: accuracy {acc}")
+    report["fedgkt"] = {
+        "rounds": rounds, "test_acc": acc, "profile_round": profiled,
+        "upload_feature_bytes_a_client": gkt["samples"] * h * w * 16 * 4,
+        "client_params": api.client_model.num_params(),
+        "server_params": api.server_model.num_params(),
+        "phase_s": time.perf_counter() - t0,
+    }
+
+
+def _modelbound_gan(report, device, cfg_mod, gan, profile):
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedgan import FedGANAPI, make_gan_model_def
+    from fedml_tpu_torch.data.femnist_synth import femnist_synthetic
+
+    t0 = time.perf_counter()
+    data = femnist_synthetic(num_clients=gan["clients"], seed=0)
+    cfg = cfg_mod.RunConfig(
+        data=cfg_mod.DataConfig(batch_size=gan["batch"]),
+        fed=cfg_mod.FedConfig(client_num_in_total=gan["clients"],
+                              client_num_per_round=gan["per_round"], comm_round=gan["rounds"],
+                              epochs=1),
+        train=cfg_mod.TrainConfig(lr=gan["lr"]), seed=0)
+    api = FedGANAPI(cfg, data, device=device)
+    losses, secs = [], []
+    for r in range(gan["rounds"]):
+        _sync(device)
+        t = time.perf_counter()
+        _, mets = api.train_round(r)
+        count = float(mets["count"])
+        secs.append(time.perf_counter() - t)
+        losses.append([float(mets["loss_sum"]) / count, float(mets["correct"]) / count])
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError(f"fedgan: losses {losses}")
+    profiled = None
+    if profile:
+        profiled = _profile_fn(lambda: float(api.train_round(gan["rounds"])[1]["count"]))
+    fake = api.generate(gan["generate"])
+    if tuple(fake.shape) != (gan["generate"], 28, 28, 1) or float(fake.abs().max()) > 1.0:
+        raise AssertionError("fedgan: generate() outside tanh's range")
+    # one round of one full-batch step a client on the card against the
+    # CPU, the same latent draws (a CPU generator), from one init
+    init = make_gan_model_def().init(torch.Generator().manual_seed(1))
+
+    def z_fn(r, slot, step, shape):
+        key = int(np.random.SeedSequence([7, r, slot, step]).generate_state(1)[0])
+        return torch.randn(shape, generator=torch.Generator().manual_seed(key))
+
+    out = {}
+    for dev in ("cpu", device):
+        a = FedGANAPI(_full_batch(cfg), data, device=dev, z_fn=lambda *z: z_fn(*z).to(dev))
+        a.global_vars = {k: v.to(a.device) for k, v in init.items()}
+        _, mets = a.train_round(0)
+        out[dev] = (_host_vars(a.global_vars), float(mets["loss_sum"]), float(mets["correct"]))
+    errs = {}
+    for kind in ("params", "stats"):
+        pick = lambda t: {k: v for k, v in t.items() if k.startswith("batch_stats.") == (
+            kind == "stats")}
+        errs[kind] = _assert_close_vars(pick(out[device][0]), pick(out["cpu"][0]),
+                                        GAN_CARD_VS_CPU[kind], f"fedgan card vs CPU {kind}")
+    for i in (1, 2):
+        if not math.isclose(out[device][i], out["cpu"][i], rel_tol=GAN_CARD_VS_CPU["loss_rtol"]):
+            raise AssertionError(f"fedgan card vs CPU: loss sums {out[device][i]} {out['cpu'][i]}")
+    report["fedgan"] = {
+        "round_s": secs, "warm_round_s": secs[1:], "G_D_loss": losses,
+        "profile_round": profiled,
+        "generate_max_abs": float(fake.abs().max()), "card_vs_cpu_max_abs": errs,
+        "card_vs_cpu_tol": GAN_CARD_VS_CPU,
+        "params": make_gan_model_def().num_params(), "phase_s": time.perf_counter() - t0,
+    }
+
+
+def _modelbound_nas(report, device, nas, profile):
+    import torch
+
+    from fedml_tpu_torch.algorithms.fednas import FedNASAPI
+    from fedml_tpu_torch.device import fp32_math
+
+    t0 = time.perf_counter()
+    data = _cifar_geometry(nas["clients"], RESNET["classes"], nas["samples"])
+    kw = dict(num_classes=RESNET["classes"], input_shape=RESNET["shape"], ch=nas["ch"],
+              cells=nas["cells"], steps=nas["steps"], batch_size=nas["batch"])
+    on_card = torch.device(device).type == "cuda"
+    entry = {}
+    for arch_grad in ("first", "second"):
+        api = FedNASAPI(data, arch_grad=arch_grad, device=device, **kw)
+        if on_card:  # the peak above what earlier phases still hold
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        secs = []
+        for r in range(2):  # round 0 the warm-up
+            _sync(device)
+            t = time.perf_counter()
+            geno = api.train_round(r, client_num_per_round=nas["per_round"])
+            _sync(device)
+            secs.append(time.perf_counter() - t)
+        alpha = api.variables["alpha_normal"]
+        if not bool(torch.isfinite(alpha).all()) or len(geno) != 2 * nas["steps"]:
+            raise AssertionError(f"fednas {arch_grad}: α or genotype {geno}")
+        entry[arch_grad] = {
+            "round_s": secs, "genotype": [list(g) for g in geno],
+            "peak_mem_bytes": (torch.cuda.max_memory_allocated() - base) if on_card
+            else "not measured",
+            "profile_round": _profile_fn(lambda: api.train_round(
+                2, client_num_per_round=nas["per_round"])) if profile else None,
+            "test_acc": api.evaluate(data.test_x, data.test_y),
+        }
+    entry["params"] = api.model.num_params()
+    # the unrolled α-gradient of one step, card vs CPU, from one init
+    x = torch.from_numpy(data.client_x[0][: 2 * nas["batch"]])
+    y = torch.from_numpy(data.client_y[0][: 2 * nas["batch"]]).long()
+    grads = {}
+    for dev in ("cpu", device):
+        a = FedNASAPI(data, arch_grad="second", device=dev, init_vars=api.model.init(
+            torch.Generator().manual_seed(2)), **kw)
+        B = nas["batch"]
+        xd, yd = x.to(a.device), y.to(a.device)
+        with fp32_math():
+            _, g = a.unrolled_arch_grads(a.variables, xd[B:], yd[B:], xd[:B], yd[:B])
+        grads[dev] = _host_vars(g)
+    scale = max(float(g.abs().max()) for g in grads["cpu"].values())
+    err = max(float((grads[device][k] - grads["cpu"][k]).abs().max()) for k in grads["cpu"])
+    if not err <= NAS_GRAD_CARD_VS_CPU * scale:
+        raise AssertionError(f"fednas: second-order α-gradient card vs CPU {err} (scale {scale})")
+    entry.update(second_order_grad_card_vs_cpu=err, grad_scale=scale,
+                 tol=NAS_GRAD_CARD_VS_CPU, phase_s=time.perf_counter() - t0)
+    report["fednas"] = entry
+
+
+def _modelbound_cli(report, device, tmp, cli_sizes):
+    from fedml_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    small = ["--comm_round", "1", "--client_num_in_total", str(cli_sizes["clients"]),
+             "--client_num_per_round", str(cli_sizes["per_round"])]
+    runs = {
+        "fedseg": ["--model", "segnet", "--dataset", "seg_synth", "--batch_size", "8"],
+        "fedgkt": ["--dataset", "femnist_synth", "--batch_size", "16"],
+        "fedgan": ["--model", "mnistgan", "--dataset", "femnist_synth", "--batch_size", "16",
+                   "--lr", "2e-4"],
+        "fednas": ["--dataset", "synthetic", "--batch_size", "16", "--variant", "second"],
+    }
+    out = {}
+    for algo, extra in runs.items():
+        log_dir = Path(tmp) / f"cli_{algo}"
+        t = time.perf_counter()
+        cli.main(["--algorithm", algo, "--log_dir", str(log_dir)] + small + extra, device=device)
+        lines = (log_dir / "metrics.jsonl").read_text().splitlines()
+        rows = [{k: v for k, v in json.loads(line).items() if not k.startswith("_")}
+                for line in lines]
+        want = MODELBOUND_ROW_KEYS[algo]
+        final = [r for r in rows if set(want) <= set(r)]
+        if not final or sorted(final[-1]) != want:
+            raise AssertionError(f"cli {algo}: rows {rows}")
+        out[algo] = {"s": time.perf_counter() - t, "row": final[-1]}
+    out["phase_s"] = time.perf_counter() - t0
+    report["cli"] = out
+
+
+def phase_modelbound(smi: str, device="cuda", profile=False, **smaller) -> dict:
+    """FedSeg, FedGKT, FedGAN and FedNAS at the reference's full widths
+    (phase 20); see the module docstring. ``smaller`` overrides entries of
+    MODELBOUND for a rehearsal on the CPU. ``profile`` also traces a warm
+    round of FedGKT, FedGAN and each FedNAS architect on the card (their
+    80k-360k launches take ~3 min of host time to collect, so the
+    whole-script run leaves them out; FedSeg's round is always traced).
+    This phase launches none of K1-K4: its models compute with
+    cuDNN/cuBLAS and PyTorch's own kernels."""
+    import tempfile
+
+    import fedml_tpu_torch.config as cfg_mod
+
+    sizes = {k: {**v, **smaller.get(k, {})} for k, v in MODELBOUND.items()}
+    report = {"card": smi, "kernels": "none: slice 11's path runs no kernel of K1-K4"}
+    with tempfile.TemporaryDirectory() as tmp:
+        _modelbound_seg(report, device, cfg_mod, sizes["seg"], tmp)
+        _modelbound_gkt(report, device, sizes["gkt"], profile)
+        _modelbound_gan(report, device, cfg_mod, sizes["gan"], profile)
+        _modelbound_nas(report, device, sizes["nas"], profile)
+        _modelbound_cli(report, device, tmp, sizes["cli"])
+    log("[modelbound] " + json.dumps(report, default=str))
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -2850,6 +3273,7 @@ def main() -> int:
     timed(phase_longtail, smi, main_warm_s["median"])
     timed(phase_fedbuff, smi)
     timed(phase_population, smi)
+    timed(phase_modelbound, smi)
     log(json.dumps({"phase_s": phase_s}))
 
     from fedml_tpu_torch.ops import flash_attention as fa

@@ -16,9 +16,12 @@ choices, and the same invocation trains the same way:
   backdoor`` adds the boosted attackers and ``Backdoor/ASR``), with the
   ``uniform``, ``weighted`` and ``power_of_choice`` policies,
   ``--overprovision_factor``, fault plans and ``--eval_on_clients``;
-- ``centralized`` (the pooled data, ``--comm_round`` epochs) and
+- ``centralized`` (the pooled data, ``--comm_round`` epochs),
   ``decentralized`` (DSGD or push-sum, ``--variant``, over the clients'
-  streams), which run loops of their own;
+  streams) and the model-bound algorithms ``fedseg`` (with
+  ``--checkpoint_path``, its best-mIoU model), ``fedgkt``, ``fedgan`` and
+  ``fednas`` (``--variant first|second``, the architect), which run loops
+  of their own;
 - ``--runtime loopback|shm|mqtt`` with ``fedavg``, ``fedprox`` and
   ``fedopt`` through ``run_*_federation``, with deadlines and quorum, fault
   plans, overprovisioning, codecs, secure aggregation and send retries;
@@ -493,10 +496,11 @@ _UNPORTED_OPTIONS = {
 }
 _PORTED_ALGORITHMS = (
     "fedavg", "fedprox", "fedopt", "fedavg_robust", "dp_fedavg", "fednova", "scaffold", "ditto",
-    "qfedavg", "hierarchical", "centralized", "decentralized", "fedbuff",
+    "qfedavg", "hierarchical", "centralized", "decentralized", "fedbuff", "fedseg", "fedgkt",
+    "fedgan", "fednas",
 )
 # the ROADMAP.md §1 item of each algorithm still to port (8 where unnamed)
-_ALGORITHM_ITEMS = {"secagg": 1, "fedgkt": 7, "fedgan": 7, "fedseg": 7, "fednas": 7}
+_ALGORITHM_ITEMS = {"secagg": 1}
 
 
 def _check_ported(opt) -> None:
@@ -646,7 +650,7 @@ def _validate_longtail(opt) -> None:
     allowed = ("vmap", "mesh") if algo == "centralized" else ("vmap",)
     if opt["runtime"] not in allowed:
         raise UsageError(f"algorithm={algo} supports only --runtime {'|'.join(allowed)}")
-    if opt["checkpoint_path"]:
+    if opt["checkpoint_path"] and algo != "fedseg":
         raise UsageError(
             f"--checkpoint_path is not supported for algorithm={algo} (supported: the FedAvg "
             "family and fedseg)"
@@ -684,7 +688,72 @@ def _run_decentralized(config, data, model, task, log_fn, opt, device):
     return api, final
 
 
-_LONGTAIL_RUNNERS = {"centralized": _run_centralized, "decentralized": _run_decentralized}
+def _client_shards_list(data, limit=None):
+    ids = range(data.num_clients if limit is None else min(limit, data.num_clients))
+    return [(data.client_x[i], data.client_y[i]) for i in ids]
+
+
+def _run_fedgkt(config, data, model, task, log_fn, opt, device):
+    """The first ``client_num_per_round`` clients exchange features and
+    logits with the server each round; the row is client 0's end-to-end
+    test accuracy."""
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
+
+    api = FedGKTAPI(num_classes=data.num_classes, input_shape=tuple(data.client_x[0].shape[1:]),
+                    lr=config.train.lr, seed=config.seed, device=device)
+    clients = _client_shards_list(data, config.fed.client_num_per_round)
+    cache, final = None, {}
+    for r in range(config.fed.comm_round):
+        cache = api.train_round(clients, local_epochs=config.fed.epochs,
+                                server_epochs=config.fed.epochs,
+                                batch_size=config.data.batch_size, server_logits_cache=cache)
+        final = {"round": r, "Test/Acc": float(api.evaluate(data.test_x, data.test_y, client_id=0))}
+        log_fn(final)
+    return api, final
+
+
+def _run_fedgan(config, data, model, task, log_fn, opt, device):
+    from fedml_tpu_torch.algorithms.fedgan import FedGANAPI
+
+    api = FedGANAPI(config, data, log_fn=log_fn, device=device)
+    return api, api.train()
+
+
+def _run_fedseg(config, data, model, task, log_fn, opt, device):
+    from fedml_tpu_torch.algorithms.fedseg import FedSegAPI
+
+    api = FedSegAPI(config, data, model, log_fn=log_fn, device=device,
+                    checkpoint_path=str(opt["checkpoint_path"]) if opt["checkpoint_path"] else None)
+    return api, api.train()
+
+
+def _run_fednas(config, data, model, task, log_fn, opt, device):
+    """The search at FedNASAPI's default space; each row has the test
+    accuracy and the round's genotype."""
+    from fedml_tpu_torch.algorithms.fednas import FedNASAPI
+
+    api = FedNASAPI(data, num_classes=data.num_classes,
+                    input_shape=tuple(data.client_x[0].shape[1:]),
+                    batch_size=config.data.batch_size, seed=config.seed,
+                    arch_grad=opt["variant"] or "first", device=device)
+    final = {}
+    for r in range(config.fed.comm_round):
+        geno = api.train_round(r, client_num_per_round=config.fed.client_num_per_round,
+                               epochs=config.fed.epochs)
+        final = {"round": r, "Test/Acc": float(api.evaluate(data.test_x, data.test_y)),
+                 "genotype": str(geno)}
+        log_fn(final)
+    return api, final
+
+
+_LONGTAIL_RUNNERS = {
+    "centralized": _run_centralized,
+    "decentralized": _run_decentralized,
+    "fedgkt": _run_fedgkt,
+    "fedgan": _run_fedgan,
+    "fedseg": _run_fedseg,
+    "fednas": _run_fednas,
+}
 
 
 def _attack(opt, config, data):

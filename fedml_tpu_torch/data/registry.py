@@ -2,7 +2,8 @@
 ``fedml_tpu/data/registry.py``).
 
 Ported: the synthetic datasets (``synthetic``, ``synthetic_<a>_<b>``,
-``femnist_synth``, ``shakespeare_synth``, ``shakespeare_synth_lm``), the
+``femnist_synth``, ``shakespeare_synth``, ``shakespeare_synth_lm``,
+``seg_synth``), the
 LEAF and TFF-h5 file loaders (``mnist``, ``shakespeare``, ``femnist``,
 ``fed_shakespeare``, ``fed_cifar100``, ``stackoverflow_lr``,
 ``stackoverflow_nwp``) and the centralised image sets with
@@ -50,7 +51,6 @@ _FILE_LOADERS = {
 
 # the reference's other names, by the ROADMAP.md item that brings them
 _NOT_PORTED = {
-    "seg_synth": 7,  # the segmentation task
     "imagenet": 7,
     "landmarks": 7,
 }
@@ -86,6 +86,10 @@ def load(config) -> FederatedDataset:
         parts = name.split("_")
         alpha, beta = float(parts[1]), float(parts[2])
         return synthetic_fedprox(alpha=alpha, beta=beta, num_clients=n_clients, seed=config.seed)
+    if name == "seg_synth":
+        from fedml_tpu_torch.data.synthetic import synthetic_segmentation
+
+        return synthetic_segmentation(num_clients=n_clients, seed=config.seed)
     if name == "femnist_synth":
         from fedml_tpu_torch.data.femnist_synth import femnist_synthetic
 

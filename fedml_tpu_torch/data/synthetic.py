@@ -1,7 +1,6 @@
 """Synthetic federated datasets (port of ``fedml_tpu/data/synthetic.py``:
-``synthetic_classification``, ``synthetic_shakespeare`` and the FedProx
-family ``synthetic_fedprox``; the segmentation data is still to port,
-ROADMAP.md).
+``synthetic_classification``, ``synthetic_segmentation``,
+``synthetic_shakespeare`` and the FedProx family ``synthetic_fedprox``).
 
 A copy of the reference's numpy generators, drawing in the reference's
 order: the same seed gives byte-identical arrays
@@ -55,6 +54,43 @@ def synthetic_classification(
     xt = xt.reshape((n_test,) + tuple(feat_shape))
     return FederatedDataset(
         name="synthetic", client_x=client_x, client_y=client_y, test_x=xt, test_y=yt,
+        num_classes=num_classes,
+    )
+
+
+def synthetic_segmentation(
+    num_clients: int = 4,
+    num_classes: int = 4,
+    image_size: int = 16,
+    samples_per_client: int = 16,
+    seed: int = 0,
+) -> FederatedDataset:
+    """Per-pixel labelled images for the segmentation task: x [n, H, H, 3]
+    unit normals, y [n, H, H] uniform classes, and 1.5·c added to channel
+    0 of every pixel of class c so a model can learn the map. The test set
+    holds max(16, samples_per_client) images."""
+    rng = np.random.default_rng(seed)
+    H = image_size
+
+    def gen(n):
+        x = rng.normal(size=(n, H, H, 3)).astype(np.float32)
+        y = rng.integers(0, num_classes, size=(n, H, H)).astype(np.int32)
+        for c in range(num_classes):
+            x[..., 0] += 1.5 * c * (y == c)
+        return x, y
+
+    client_x, client_y = [], []
+    for _ in range(num_clients):
+        x, y = gen(samples_per_client)
+        client_x.append(x)
+        client_y.append(y)
+    tx, ty = gen(max(16, samples_per_client))
+    return FederatedDataset(
+        name="seg_synth",
+        client_x=client_x,
+        client_y=client_y,
+        test_x=tx,
+        test_y=ty,
         num_classes=num_classes,
     )
 

@@ -13,7 +13,12 @@ reference's arithmetic:
   x̂·γ+β > 0 and takes the full BN gradient, the terms through μ and σ²
   included;
 - the ``mean`` and ``var`` outputs feed the running-stat EMA only: they
-  get no gradient.
+  get no gradient;
+- differentiated twice (``create_graph=True``, FedNAS's unrolled
+  architect), the backward recomputes μ and σ² from x with recorded ops, so
+  the second derivative carries their dependence on x, as JAX's does when
+  it differentiates the custom VJP's forward rule under grad-of-grad; with
+  grad mode off it uses the saved statistics (the same arithmetic).
 
 ``channel_axis`` names the channel dimension: −1 is the reference's NHWC
 layout, 1 the NCHW layout the port's convolutional models run in; every
@@ -70,6 +75,10 @@ class _BnAct(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, gamma, beta, mean, var = ctx.saved_tensors
         eps, relu, channel_axis = ctx.cfg
+        if torch.is_grad_enabled():
+            # a graph is being built (create_graph=True): the saved
+            # statistics are constants to autograd, recomputed ones are not
+            mean, var = _stats_f32(x, channel_axis)
         reduce, shape = _axes(x, channel_axis)
         inv = torch.rsqrt(var + eps)
         xhat = (x.float() - mean.view(shape)) * inv.view(shape)

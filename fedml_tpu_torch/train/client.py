@@ -57,8 +57,9 @@ def seeded_perm_fn(seed: int) -> PermFn:
 
 def make_task_loss(task: str) -> Callable:
     """task → (loss, correct, total): classification, nwp (next-word
-    prediction over token windows) and tag (multi-label, a sigmoid per
-    label; every label of every example counts toward the accuracy)."""
+    prediction over token windows), tag (multi-label, a sigmoid per
+    label; every label of every example counts toward the accuracy) and
+    segmentation (per-pixel CE; pixels labelled 255 count nowhere)."""
 
     def classification(logits, y, mask):
         loss = L.masked_softmax_ce(logits, y, mask)
@@ -77,7 +78,13 @@ def make_task_loss(task: str) -> Callable:
         total = torch.sum(mask) * y.shape[-1]
         return loss, correct, total
 
-    tasks = {"classification": classification, "nwp": nwp, "tag": tag}
+    def segmentation(logits, y, mask):
+        loss = L.masked_pixel_ce(logits, y, mask)
+        correct, total = L.masked_pixel_accuracy_stats(logits, y, mask)
+        return loss, correct, total
+
+    tasks = {"classification": classification, "nwp": nwp, "tag": tag,
+             "segmentation": segmentation}
     if task not in tasks:
         raise NotImplementedError(
             f"task {task!r} is not ported yet (ROADMAP.md); the port has {sorted(tasks)}"

@@ -1,6 +1,7 @@
 """Mask-weighted losses and metrics (port of ``fedml_tpu/train/losses.py``,
-the classification, multi-label tag, next-word and proximal-term parts). Zero-padded
-examples carry mask 0 and contribute nothing."""
+the classification, multi-label tag, next-word, per-pixel segmentation and
+proximal-term parts). Zero-padded examples carry mask 0 and contribute
+nothing."""
 
 from __future__ import annotations
 
@@ -57,6 +58,28 @@ def masked_seq_accuracy_stats(logits, labels, mask, pad_token: int = 0):
     tok_mask = (labels != pad_token).to(torch.float32) * mask[:, None]
     correct = torch.sum((pred == labels.long()).to(torch.float32) * tok_mask)
     return correct, torch.sum(tok_mask)
+
+
+SEG_IGNORE_INDEX = 255  # the label of a pixel the segmentation loss skips
+
+
+def masked_pixel_ce(logits, labels, mask, ignore_index: int = SEG_IGNORE_INDEX):
+    """Per-pixel CE for segmentation over the pixels whose label is not
+    ``ignore_index``, of the examples with mask 1. logits [B, H, W, C] (the
+    reference's layout; a permuted view of the model's NCHW output),
+    labels int [B, H, W], mask float [B]."""
+    safe = torch.where(labels == ignore_index, torch.zeros_like(labels), labels).long()
+    per_px = F.cross_entropy(logits.permute(0, 3, 1, 2), safe, reduction="none")
+    px_mask = (labels != ignore_index).to(torch.float32) * mask[:, None, None]
+    return _safe_div(torch.sum(per_px * px_mask), torch.sum(px_mask))
+
+
+def masked_pixel_accuracy_stats(logits, labels, mask, ignore_index: int = SEG_IGNORE_INDEX):
+    """(correct pixels, counted pixels) as float32 sums."""
+    pred = torch.argmax(logits, dim=-1)
+    px_mask = (labels != ignore_index).to(torch.float32) * mask[:, None, None]
+    correct = torch.sum((pred == labels.long()).to(torch.float32) * px_mask)
+    return correct, torch.sum(px_mask)
 
 
 def tree_sq_dist(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):

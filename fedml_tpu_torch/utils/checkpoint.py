@@ -104,13 +104,15 @@ def save_checkpoint(
     server_opt_state=None,
     sched_state=None,
     algo_state=None,
+    extra_meta=None,
 ) -> None:
     """Write ``<path>.npz`` atomically (a per-process temporary file moved
     into place with ``os.replace``, the metadata inside it), then the
     ``<path>.json`` sidecar. ``global_vars`` are port variables;
     ``algo_state`` an algorithm's own state (DP-FedAvg's
-    ``checkpoint_state()``: numpy arrays). The reference's ``rng`` slot
-    stays empty: the port's round keys derive from the seed."""
+    ``checkpoint_state()``: numpy arrays); ``extra_meta`` JSON values
+    merged into the metadata (FedSeg's ``best_miou``). The reference's
+    ``rng`` slot stays empty: the port's round keys derive from the seed."""
     if not _is_writer():
         return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -128,6 +130,7 @@ def save_checkpoint(
         "has_algo": algo_state is not None,
         "has_sched": sched_state is not None,
     }
+    meta.update(extra_meta or {})
     flat["__meta__"] = np.frombuffer(json.dumps(meta).encode("utf-8"), dtype=np.uint8)
     tmp = f"{path}.tmp.{os.getpid()}.npz"
     np.savez(tmp, **flat)

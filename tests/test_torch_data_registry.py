@@ -30,8 +30,9 @@ PORTED = [
     ("femnist_synth", 5, "hetero"),
     ("shakespeare_synth", 4, "hetero"),
     ("shakespeare_synth_lm", 4, "hetero"),
+    ("seg_synth", 3, "hetero"),
 ]
-NOT_PORTED = ["seg_synth", "imagenet", "landmarks"]
+NOT_PORTED = ["imagenet", "landmarks"]
 
 
 def _config(cfg_mod, name, clients, partition="hetero", data_dir="./data", seed=3):

@@ -105,8 +105,8 @@ def test_tag_task_matches_the_references():
     want = jax_task_loss("tag")(jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(mask))
     np.testing.assert_allclose([float(v) for v in got], [float(v) for v in want], rtol=1e-6)
     assert float(got[2]) == 5 * 12
-    with pytest.raises(NotImplementedError, match="segmentation"):
-        make_task_loss("segmentation")
+    with pytest.raises(NotImplementedError, match="no_such_task"):
+        make_task_loss("no_such_task")
 
 
 FED = dict(per_round=3, rounds=2)

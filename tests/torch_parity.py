@@ -84,6 +84,30 @@ def private_reference_programs(path):
         restore()
 
 
+def variables_digest(variables) -> str:
+    """SHA-256 of port variables (names and bytes): a ``reference_record``
+    argument for a reference run that starts from the port's init."""
+    h = hashlib.sha256()
+    for k in sorted(variables):
+        h.update(k.encode() + variables[k].numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run the block with ``n`` intra-op threads, then restore the count.
+    The model-bound slice's tests run models of a few thousand weights,
+    whose ops gain nothing from threads; on a loaded host (6 test workers)
+    8 threads a process spin against each other and make a round ~20×
+    slower."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
 def time_limit(seconds: float):
     """Fail the decorated test with TimeoutError once it has run
     ``seconds`` (SIGALRM in the main thread, which interrupts a blocked
