@@ -41,7 +41,8 @@ Phases, each of which raises on failure:
    ``scaled_dot_product_attention`` (forward; backward as forward+backward
    minus forward), with each kernel's achieved TFLOP/s, share of its bound,
    registers, local memory and blocks resident on an SM, and K3 + K4 over
-   SDPA's backward; then the SASS of the built library (``cuobjdump``):
+   SDPA's backward, and the float32 kernels beside float32 SDPA and their
+   float32 bounds; then the SASS of the built library (``cuobjdump``):
    every bfloat16 K2/K3/K4 instantiation must hold tensor-core (HMMA)
    instructions;
 9. the LM path: FedAvgAPI(task="nwp") on the flagship LM (6 layers, 8
@@ -192,6 +193,22 @@ Phases, each of which raises on failure:
     against the CPU (NAS_GRAD_CARD_VS_CPU); (e) each of the four through
     ``cli.main`` for 1 round, its row's keys those of the reference's
     ``_run_*`` function. A ``[modelbound]`` JSON line gives the readings.
+
+21. the batched client schedule and the ImageNet-size models
+    (``phase_batched_and_zoo``): (a) the flagship LM under
+    ``client_parallelism="vmap"`` beside the loop, 2 rounds each, with
+    the K2/K3/K4 launches exact (one a layer a batched step: the cohort
+    folded into BH), no plain-version or SDPA call, warm round time and
+    peak memory of each, launches a step and busy share of a profiled
+    vmap round (the loop's are phase 10's), the two runs
+    within BATCHED_LM_TOL, and the folded launch on [8·32·8, 256, 96]
+    bit-equal to per-client launches; (b) VGG-11 (1000 classes) over a
+    written ImageNet tree through ``load_imagenet_streaming`` (10 clients,
+    batch 32, 2 rounds) and (c) EfficientNet-B0 over a written gld23k
+    tree through ``load_landmarks`` (203 classes, 10 users × 32), each
+    with round times, launches, busy share, peak memory and one step on 2
+    images on the card against the CPU (ZOO_CARD_VS_CPU). A ``[batched]``
+    JSON line gives the readings.
 
 Then it prints each phase's seconds (``phase_s``), the kernels' JSON line,
 the ``nvidia-smi`` line, and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -827,6 +844,7 @@ def phase_flash_timing(name: str, smi: str):
         bounds[kname] = (max(tb, tf), "bytes" if tb >= tf else "operations", nbytes, flops)
     library = {fa.FWD: sdpa_fwd, fa.BWD_DQ: sdpa_bwd, fa.BWD_DKV: sdpa_bwd}
     info = {kn: fa.kernel_info(kn, torch.bfloat16, d) for kn in fa.KERNEL_NAMES}
+    f32 = _flash_timing_f32(fa, q, k, v, do, scale, blk, work, bw)
     log(json.dumps({
         "flash_timing_ms": {kn: {"kernel": t[kn], "plain": plain[kn], "bound": bounds[kn][0],
                                  "bound_by": bounds[kn][1], "bytes": bounds[kn][2],
@@ -839,6 +857,7 @@ def phase_flash_timing(name: str, smi: str):
         "not_causal_ms": {"k2": k2_full, "sdpa_fwd": sdpa_fwd_full,
                           "k2_over_sdpa_fwd": k2_full / sdpa_fwd_full},
         "k3_plus_k4_over_sdpa_bwd": (t[fa.BWD_DQ] + t[fa.BWD_DKV]) / sdpa_bwd,
+        "float32": f32,
         "shape": {"B": B, "H": H, "S": S, "d": d, "dtype": "bfloat16", "causal": True},
         "rates": f"{card} data sheet: {bw / 1e12} TB/s, {bf16_peak / 1e12} TFLOP/s dense bf16",
         "card": smi,
@@ -848,7 +867,67 @@ def phase_flash_timing(name: str, smi: str):
                  "FLOPs over the kernel's time; registers, local_bytes (spills), smem_bytes "
                  "and blocks_per_sm from the CUDA runtime for the bfloat16 kernels",
     }))
-    return t, plain, bounds, library
+    return t, plain, bounds, library, f32
+
+
+def _flash_timing_f32(fa, q, k, v, do, scale, blk, work, bw) -> dict:
+    """The float32 K2/K3/K4 (the CUDA-core kernels: the flagship LM
+    trains in bfloat16, and its eval forward launches the float32 K2) at
+    the same shape beside float32 SDPA, forward and backward, all with
+    TF32 off; bounds from the
+    same work at 4 bytes an element over the card's float32 non-tensor
+    peak. {kernel: {kernel, plain, bound, bound_by, bytes, flops,
+    sdpa_fwd, sdpa_bwd, registers, local_bytes, blocks_per_sm}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.device import fp32_math
+
+    _, (_, fp32_peak, _) = card_rates(torch.cuda.get_device_name(0))
+    B, H, S, d = LM["batch"], LM["heads"], LM["seq"], LM["width"] // LM["heads"]
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    before = dict(fa.LAUNCHES)
+    with fp32_math():
+        of, lsef = fa.flash_forward(qf, kf, vf, scale, True, blk, blk)
+        bwd = (qf, kf, vf, dof, lsef, torch.sum(dof * of, dim=-1), scale, True, blk, blk)
+        t = {
+            fa.FWD: device_ms(lambda: fa.flash_forward(qf, kf, vf, scale, True, blk, blk)),
+            fa.BWD_DQ: device_ms(lambda: fa.flash_backward_dq(*bwd)),
+            fa.BWD_DKV: device_ms(lambda: fa.flash_backward_dkv(*bwd)),
+        }
+        plain = {
+            fa.FWD: device_ms(lambda: fa.flash_forward_plain(qf, kf, vf, scale, True, blk, blk),
+                              iters=5),
+            fa.BWD_DQ: device_ms(lambda: fa.flash_backward_dq_plain(*bwd), iters=5),
+            fa.BWD_DKV: device_ms(lambda: fa.flash_backward_dkv_plain(*bwd), iters=5),
+        }
+        qs, ks, vs = (x.view(B, H, S, d).detach().clone().requires_grad_(True)
+                      for x in (qf, kf, vf))
+        dos = dof.view(B, H, S, d)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            torch.autograd.grad(out, (qs, ks, vs), dos)
+
+        sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
+        sdpa_bwd = device_ms(sdpa_fwd_bwd) - sdpa_fwd
+    fa.LAUNCHES.update(before)  # timing launches are not a path's
+    # each input read once, each output written once, at 4 bytes an element
+    tensor, row = B * H * S * d * 4, B * H * S * 4
+    nbytes_of = {fa.FWD: 4 * tensor + row, fa.BWD_DQ: 5 * tensor + 2 * row,
+                 fa.BWD_DKV: 6 * tensor + 2 * row}
+    out = {}
+    for kname, (_, flops) in work.items():
+        nbytes = nbytes_of[kname]
+        tb, tf = nbytes / bw * 1e3, flops / fp32_peak * 1e3
+        info = fa.kernel_info(kname, torch.float32, d)
+        out[kname] = {"kernel": t[kname], "plain": plain[kname], "bound": max(tb, tf),
+                      "bound_by": "bytes" if tb >= tf else "operations", "bytes": nbytes,
+                      "flops": flops, "bound_share": max(tb, tf) / t[kname],
+                      "sdpa_fwd": sdpa_fwd, "sdpa_bwd": sdpa_bwd,
+                      "registers": info["registers"], "local_bytes": info["local_bytes"],
+                      "blocks_per_sm": info["blocks_per_sm"]}
+    return out
 
 
 def _cuobjdump():
@@ -965,10 +1044,9 @@ def phase_lm_path(device="cuda", rounds=LM_ROUNDS, layers=LM["layers"], **smalle
     api = FedAvgAPI(cfg, data, model, task="nwp", device=None if device == "cuda" else device,
                     log_fn=lambda row: log("[lm] " + json.dumps(row)))
     want = expected_flash_launches(api, layers)
-    for name in fa.KERNEL_NAMES:
-        fa.LAUNCHES[name] = 0  # zeroed just before the main path
+    fa.reset_launches()  # zeroed just before the main path
     api.train()
-    launches = {name: fa.LAUNCHES[name] for name in fa.KERNEL_NAMES}  # read just after
+    launches = fa.launch_totals()  # read just after
     rows = api.history
     for row in rows:
         for key in ("Train/Loss", "Train/Acc"):
@@ -1245,12 +1323,11 @@ def phase_transport(smi: str, device="cuda", num_clients=128, per_round=COHORT,
     # 2. the flagship LM over loopback, K2-K4 in the client actors
     cfg, data, model = _flagship_lm(TRANSPORT_ROUNDS, lm_layers, **lm_smaller)
     want = expected_transport_flash_launches(cfg, data, lm_layers)
-    for name in fa.KERNEL_NAMES:
-        fa.LAUNCHES[name] = 0  # zeroed just before the transport's LM run
+    fa.reset_launches()  # zeroed just before the transport's LM run
     fed, report["lm_loopback"] = _traced_federation(
         run_loopback_federation, cfg, data, model, task="nwp", device=dev,
         log_fn=lambda row: log("[transport:lm] " + json.dumps(row)))
-    launches = {name: fa.LAUNCHES[name] for name in fa.KERNEL_NAMES}  # read just after
+    launches = fa.launch_totals()  # read just after
     losses = fed.train_losses
     if not all(x is not None and math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"transport LM: Train/Loss not finite and falling: {losses}")
@@ -3237,6 +3314,525 @@ def phase_modelbound(smi: str, device="cuda", profile=False, **smaller) -> dict:
     return report
 
 
+# ---------------------------------------------------------------- phase 21
+
+# (a) the flagship LM under the batched schedule beside the loop, 2 rounds
+# each (round 0 the warm-up), then one profiled round each
+BATCHED_LM_ROUNDS = 2
+# vmap against the loop after those rounds (bf16 compute, AMSGrad lr 1e-3,
+# 16 steps a client a round). Batched and single bf16 matmuls round at
+# different places (~1 bf16 ulp, 2^-8), and AMSGrad divides each gradient
+# by its own running magnitude, so a near-zero coordinate's rounding noise
+# becomes a step of up to ~lr in either direction: no elementwise bound
+# below lr·steps holds. What must hold is that both schedules move the
+# model the same way and report the same losses: the two global updates'
+# cosine over every parameter, and each round's Train/Loss within the
+# relative bound, which is ~4 bf16 ulps of a loss averaged over 131,072
+# tokens.
+BATCHED_LM_TOL = {"cosine": 0.95, "loss_rtol": 2.0**-6}
+# a cohort the card cannot hold at once: the LM's geometry with 24
+# clients of 64 samples (2 steps each), 2 rounds: the first's full
+# cohort runs out of memory and is retried in halves, the second runs in
+# the groups that fit (BatchedLocalTrain.max_clients)
+BATCHED_LM_COHORT = dict(clients=24, samples=64)
+# (b) VGG-11 on an ImageNet-format tree: 1000 classes, one 224×224 image a
+# class (the tree ~602 MB, the store as much again), 10 homo clients,
+# batch 32, SGD lr 0.01, 2 rounds; (c) EfficientNet-B0 on a gld23k-format
+# tree: 203 classes over the train and test mappings, 10 users × 32
+# images, 32 test images, batch 32, SGD lr 0.01, 2 rounds
+ZOO = dict(image=224, vgg_classes=1000, clients=10, batch=32, lr=0.01, rounds=2,
+           gld_classes=203, gld_users=10, gld_per_user=32, gld_test=32, cpu_images=2)
+ZOO_MIN_FREE_BYTES = 2 << 30
+# card vs CPU after one full-batch SGD step on 2 images at 224, every
+# dropout rate 0 (the two devices' generators draw different masks), with
+# TF32 off: the float32 convolutions sum in other orders on the card, and
+# one step moves a parameter by lr·g, so the bound is on lr·|Δg|; the
+# running statistics (EfficientNet) are batch moments of 2 images
+ZOO_CARD_VS_CPU = {"params": (1e-4, 1e-6), "stats": (1e-4, 1e-5)}
+
+
+def expected_batched_flash_launches(api, layers: int) -> dict:
+    """K2/K3/K4 launches of ``api.train()`` under the batched schedule:
+    one launch per layer of each kernel for every batched step that holds
+    data for some client (the longest shard's ceil(n / batch) an epoch:
+    the shuffle puts each client's valid samples first), whatever the
+    cohort's size; and one K2 per layer for every eval batch."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    cfg = api.config
+    B, steps = cfg.data.batch_size, 0
+    for r in range(cfg.fed.comm_round):
+        counts = api.data.train_sample_counts[api.scheduler.select(r)]
+        steps += max(-(-int(n) // B) for n in counts) * cfg.fed.epochs
+    evals = sum(api._is_eval_round(r) for r in range(cfg.fed.comm_round))
+    eval_batches = evals * api._eval_batches()[0].shape[0]
+    return {fa.FWD: layers * (steps + eval_batches), fa.BWD_DQ: layers * steps,
+            fa.BWD_DKV: layers * steps, "steps": steps, "eval_batches": eval_batches}
+
+
+@contextlib.contextmanager
+def _counting_fallbacks(counts: dict):
+    """Count calls of the flash kernels' plain versions and of SDPA within
+    the block (the batched path must make none on the card)."""
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    def counted(owner, name):
+        real = getattr(owner, name)
+
+        def fn(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return real(*a, **k)
+
+        setattr(owner, name, fn)
+        return real
+
+    names = [(fa, n) for n in ("flash_forward_plain", "flash_backward_dq_plain",
+                               "flash_backward_dkv_plain")] + [(F, "scaled_dot_product_attention")]
+    saved = [(owner, n, counted(owner, n)) for owner, n in names]
+    try:
+        yield
+    finally:
+        for owner, n, real in saved:
+            setattr(owner, n, real)
+
+
+def _fold_bit_equality(device) -> dict:
+    """K2, K3 and K4 on the batched LM's folded shape [C·B·H, S, d] =
+    [8·32·8, 256, 96] bf16 causal, bit-equal to the same kernels launched
+    per client on [B·H, S, d]; then ``torch.func.vmap`` of flash attention
+    and of its gradient, which fold through the Functions' vmap rules,
+    bit-equal on the card to the per-client autograd path (one launch of
+    each kernel for the cohort against C). The launches are restored
+    after: they are no path's."""
+    import torch
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    C, BH, S, d = LM["clients"], LM["batch"] * LM["heads"], LM["seq"], LM["width"] // LM["heads"]
+    gen = torch.Generator(device=device).manual_seed(21)
+    q, k, v, do = (torch.randn(C * BH, S, d, generator=gen, device=device).bfloat16()
+                   for _ in range(4))
+    scale, blk = d**-0.5, fa.KERNEL_TILE
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_forward(q, k, v, scale, True, blk, blk)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    dq = fa.flash_backward_dq(q, k, v, do, lse, delta, scale, True, blk, blk)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta, scale, True, blk, blk)
+    for c in range(C):
+        sl = slice(c * BH, (c + 1) * BH)
+        args = (q[sl], k[sl], v[sl], do[sl], lse[sl], delta[sl], scale, True, blk, blk)
+        oc, lc = fa.flash_forward(q[sl], k[sl], v[sl], scale, True, blk, blk)
+        dqc = fa.flash_backward_dq(*args)
+        dkc, dvc = fa.flash_backward_dkv(*args)
+        for what, got, want in (("O", o[sl], oc), ("LSE", lse[sl], lc), ("dQ", dq[sl], dqc),
+                                ("dK", dk[sl], dkc), ("dV", dv[sl], dvc)):
+            if not torch.equal(got, want):
+                raise AssertionError(f"folded {what} of client {c} differs from its own launch "
+                                     f"by {(got.float() - want.float()).abs().max().item()}")
+    # through the vmap rules: [C, BH, S, d] with the client axis vmapped
+    qc, kc, vc, doc = (t.view(C, BH, S, d) for t in (q, k, v, do))
+
+    def attn(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True, block_q=blk, block_k=blk)
+
+    def loss(q, k, v, do):
+        return torch.sum(attn(q, k, v).float() * do.float())
+
+    mark = fa.launch_totals()
+    out_v = torch.func.vmap(attn)(qc, kc, vc)
+    grads_v = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(qc, kc, vc, doc)
+    vmap_launches = {kn: n - mark[kn] for kn, n in fa.launch_totals().items()}
+    mark = fa.launch_totals()
+    err = 0.0
+    for c in range(C):
+        qi, ki, vi = (t[c].clone().requires_grad_(True) for t in (qc, kc, vc))
+        out_c = attn(qi, ki, vi)
+        grads_c = torch.autograd.grad(torch.sum(out_c.float() * doc[c].float()), (qi, ki, vi))
+        for got, want in [(out_v[c], out_c)] + [(g[c], w) for g, w in zip(grads_v, grads_c)]:
+            err = max(err, (got.float() - want.float()).abs().max().item())
+    loop_launches = {kn: n - mark[kn] for kn, n in fa.launch_totals().items()}
+    fa.LAUNCHES.update(before)
+    want_v = {fa.FWD: 2, fa.BWD_DQ: 1, fa.BWD_DKV: 1}  # vmap(attn), then vmap(grad)'s forward
+    want_l = {kn: C for kn in fa.KERNEL_NAMES}  # one forward a client serves both
+    if device == "cuda" and (vmap_launches != want_v or loop_launches != want_l):
+        raise AssertionError(f"vmap rules launched {vmap_launches} (want {want_v}), the loop "
+                             f"{loop_launches} (want {want_l})")
+    if device == "cuda" and err != 0.0:
+        raise AssertionError(f"vmap through the Functions' rules differs from the per-client "
+                             f"autograd path by {err}")
+    return {"folded_shape": [C * BH, S, d], "bit_equal": err == 0.0,
+            "vmap_rule_launches": vmap_launches, "per_client_launches": loop_launches,
+            "vmap_rule_vs_per_client_max_abs_err": err}
+
+
+def _batched_lm_run(schedule: str, device, rounds: int, profile: bool = True,
+                    **smaller) -> dict:
+    """The flagship LM under ``schedule`` ("vmap" or "scan"): ``rounds``
+    rounds with K2-K4 counted exactly (zeroed just before, read just
+    after), fallback calls counted, peak memory; then, with ``profile``,
+    one profiled round."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    layers = smaller.pop("layers", LM["layers"])
+    cfg, data, model = _flagship_lm(rounds, layers, **smaller)
+    cfg = cfg.replace(fed=dataclasses.replace(cfg.fed, client_parallelism=schedule))
+    api = FedAvgAPI(cfg, data, model, task="nwp", device=device)
+    batched = api._client_schedule == "vmap"
+    if batched != (schedule == "vmap"):
+        raise AssertionError(f"client_parallelism={schedule} ran the {api._client_schedule}")
+    init = _host(api.global_vars)
+    want = (expected_batched_flash_launches if batched else expected_flash_launches)(api, layers)
+    fallbacks = {}
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated() if on_card else "not measured"
+    fa.reset_launches()  # zeroed just before the path
+    with _counting_fallbacks(fallbacks):
+        api.train()
+    launches = fa.launch_totals()  # read just after
+    by_dtype = {f"{kn}:{t}": n for (kn, t), n in fa.LAUNCHES.items()}
+    rows = api.history
+    for row in rows:
+        if not all(math.isfinite(row[k]) for k in ("Train/Loss", "Train/Acc")):
+            raise AssertionError(f"LM {schedule}: non-finite row {row}")
+    for name in fa.KERNEL_NAMES:
+        expect = want[name] if on_card else 0
+        if launches[name] != expect:
+            raise AssertionError(f"LM {schedule}: {launches[name]} {name} launches, want {expect}")
+    if on_card and fallbacks:
+        raise AssertionError(f"LM {schedule}: plain or SDPA calls on the card's path: {fallbacks}")
+    out = {"schedule": api._client_schedule, "launches": launches,
+           "launches_by_dtype": by_dtype, "expected": want, "fallback_calls": fallbacks,
+           "round_time_s": [r["round_time_s"] for r in rows],
+           "train_loss": [r["Train/Loss"] for r in rows],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else "not measured",
+           "base_mem_bytes": base_mem}
+    # the model after the counted rounds (a profiled round trains a third)
+    out["vars"], out["init"] = _host(api.global_vars), init
+    steps_a_round = want["steps"] // rounds
+    if on_card and profile:
+        prof = _profile_round(api, rounds)
+        prof["launches_a_step"] = prof["kernel_launches"] / steps_a_round
+        out["profile"] = prof
+    out["steps_a_round"] = steps_a_round
+    return out
+
+
+def _write_imagenet_tree(root, classes: int, image: int, seed: int = 0) -> None:
+    """An ImageFolder train/ tree, one ``.npy`` image a class (float32 in
+    [0, 1), as a decoded image), no val/: the loader holds out a tenth."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for c in range(classes):
+        d = os.path.join(root, "train", f"n{c:08d}")
+        os.makedirs(d)
+        np.save(os.path.join(d, "img0.npy"), rng.random((image, image, 3), dtype=np.float32))
+
+
+def _write_gld_tree(root, classes: int, users: int, per_user: int, test: int, image: int,
+                    seed: int = 0) -> None:
+    """gld23k's mapping files (``mini_gld_train_split.csv`` with user_id,
+    image_id, class; ``mini_gld_test.csv``) and ``images/<id>.npy``: the
+    train rows cover classes 0..classes-4, the test rows the last three
+    and others, so the class index needs both files."""
+    import csv
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"))
+    train_classes = classes - 3
+    train = [{"user_id": f"u{u:03d}", "image_id": f"t{u:03d}_{i:03d}",
+              "class": str((u * per_user + i) % train_classes)}
+             for u in range(users) for i in range(per_user)]
+    tests = [{"image_id": f"v{i:03d}", "class": str(train_classes + i if i < 3
+                                                    else i % train_classes)}
+             for i in range(test)]
+    for row in train + tests:
+        np.save(os.path.join(root, "images", row["image_id"] + ".npy"),
+                (rng.random((image, image, 3), dtype=np.float32) - 0.5) / 0.5)
+    for name, rows, fields in (("mini_gld_train_split.csv", train, ["user_id", "image_id", "class"]),
+                               ("mini_gld_test.csv", tests, ["image_id", "class"])):
+        with open(os.path.join(root, name), "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=fields)
+            w.writeheader()
+            w.writerows(rows)
+
+
+def _zoo_run(model, data, device, rounds: int, lr: float, batch: int, clients: int) -> dict:
+    """FedAvgAPI of ``model`` on ``data``, all ``clients`` every round:
+    round times, losses, peak memory, then a profiled warm round."""
+    import torch
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.config import DataConfig, FedConfig, RunConfig, TrainConfig
+
+    cfg = RunConfig(data=DataConfig(batch_size=batch),
+                    fed=FedConfig(client_num_in_total=clients, client_num_per_round=clients,
+                                  comm_round=rounds, epochs=1, frequency_of_the_test=10_000),
+                    train=TrainConfig(client_optimizer="sgd", lr=lr), seed=0)
+    api = FedAvgAPI(cfg, data, model, device=device)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    api.train()
+    rows = api.history
+    for row in rows:
+        if not all(math.isfinite(row[k]) for k in ("Train/Loss", "Test/Loss")
+                   if k in row):
+            raise AssertionError(f"{model.name}: non-finite row {row}")
+    steps = sum(-(-int(n) // batch) for n in data.train_sample_counts[:clients])
+    out = {"schedule": api._client_schedule, "client_mode": api._client_mode,
+           "params": model.num_params(), "round_time_s": [r["round_time_s"] for r in rows],
+           "train_loss": [r["Train/Loss"] for r in rows],
+           "test_acc": [r["Test/Acc"] for r in rows if "Test/Acc" in r],
+           "client_steps_a_round": steps,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else "not measured"}
+    if on_card:
+        prof = _profile_round(api, rounds)
+        prof["launches_a_step"] = prof["kernel_launches"] / steps
+        out["profile"] = prof
+    return out
+
+
+def _zoo_card_vs_cpu(make_model, x, y, device) -> dict:
+    """One full-batch SGD step of a one-client round on ``x`` (2 images) on
+    the card and on the CPU from the same init (ZOO_CARD_VS_CPU)."""
+    import torch
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.config import DataConfig, FedConfig, RunConfig, TrainConfig
+    from fedml_tpu_torch.data.base import FederatedDataset
+
+    data = FederatedDataset(name="two", client_x=[x], client_y=[y], test_x=x, test_y=y,
+                            num_classes=int(y.max()) + 1)
+    cfg = RunConfig(data=DataConfig(batch_size=-1),
+                    fed=FedConfig(client_num_in_total=1, client_num_per_round=1, comm_round=1,
+                                  epochs=1, frequency_of_the_test=10_000),
+                    train=TrainConfig(client_optimizer="sgd", lr=ZOO["lr"]), seed=0)
+    out, secs = {}, {}
+    model = make_model()
+    init = model.init(torch.Generator().manual_seed(cfg.seed))  # once, for both devices
+    model.init = lambda generator: {k: v.clone() for k, v in init.items()}
+    for dev in ("cpu", device):
+        api = FedAvgAPI(cfg, data, model, device=dev)
+        t0 = time.perf_counter()
+        api.train_round(0)
+        _sync(dev)
+        secs[dev] = time.perf_counter() - t0
+        out[dev] = _host_vars(api.global_vars)
+    from fedml_tpu_torch.models import split_stats
+
+    (cpu_p, cpu_s), (card_p, card_s) = split_stats(out["cpu"]), split_stats(out[device])
+    return {"params_max_abs_err": _assert_close_vars(card_p, cpu_p, ZOO_CARD_VS_CPU["params"],
+                                                     "card vs CPU params"),
+            "stats_max_abs_err": _assert_close_vars(card_s, cpu_s, ZOO_CARD_VS_CPU["stats"],
+                                                    "card vs CPU stats") if cpu_s else None,
+            "cpu_step_s": secs["cpu"], "card_step_s": secs[device]}
+
+
+@contextlib.contextmanager
+def _no_dropout_b0():
+    """EfficientNet-B0 with its head's dropout at 0, for the card-vs-CPU
+    step."""
+    from fedml_tpu_torch.models import efficientnet
+
+    saved = efficientnet.COEFFS["b0"]
+    efficientnet.COEFFS["b0"] = saved[:2] + (0.0,)
+    try:
+        yield
+    finally:
+        efficientnet.COEFFS["b0"] = saved
+
+
+def _batched_lm_report(device, lm: dict) -> dict:
+    """Phase 21 (a): the LM's vmap and loop runs, their agreement and the
+    fold's bit-equality."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    # the loop's profile is phase 10's (the same configuration): tracing
+    # its ~200k launches a round costs ~40 s of the script
+    runs = {s: _batched_lm_run(s, device, BATCHED_LM_ROUNDS, profile=s == "vmap", **lm)
+            for s in ("scan", "vmap")}
+    vm, lp = runs["vmap"], runs["scan"]
+    du = np.concatenate([(vm["vars"][k] - vm["init"][k]).double().numpy().ravel()
+                         for k in sorted(vm["init"])])
+    dw = np.concatenate([(lp["vars"][k] - lp["init"][k]).double().numpy().ravel()
+                         for k in sorted(lp["init"])])
+    cosine = float(du @ dw / (np.linalg.norm(du) * np.linalg.norm(dw)))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(vm["train_loss"], lp["train_loss"]))
+    max_abs = max((vm["vars"][k] - lp["vars"][k]).abs().max().item() for k in lp["vars"])
+    for r in runs.values():
+        del r["vars"], r["init"]
+    on_card = device == "cuda"
+    out = {"vmap": vm, "loop": lp, "update_cosine": cosine, "loss_max_rel": loss_rel,
+           "params_max_abs_diff": max_abs, "tol": BATCHED_LM_TOL,
+           # the batched schedule's device memory a client: the vmap run's
+           # peak above what was allocated before it, over its cohort
+           "vmap_bytes_a_client": ((vm["peak_mem_bytes"] - vm["base_mem_bytes"])
+                                   / lm.get("clients", LM["clients"]) if on_card
+                                   else "not measured"),
+           "fold": _fold_bit_equality(device) if on_card else None,
+           "groups": _batched_lm_groups(device, lm) if on_card else None,
+           "seconds": time.perf_counter() - t0}
+    log("[batched] " + json.dumps({"lm": out}))
+    if cosine < BATCHED_LM_TOL["cosine"] or loss_rel > BATCHED_LM_TOL["loss_rtol"]:
+        raise AssertionError(f"LM vmap vs loop: update cosine {cosine}, loss rel {loss_rel} "
+                             f"outside {BATCHED_LM_TOL}")
+    return out
+
+
+def _batched_lm_groups(device, lm: dict) -> dict:
+    """BATCHED_LM_COHORT's two rounds under vmap: the first round's full
+    cohort runs out of device memory and BatchedLocalTrain retries it in
+    groups half its size (its round time holds the failed attempt); the
+    second round runs in the groups that fit. Its peak memory is read
+    over the second round alone."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+
+    clients = BATCHED_LM_COHORT["clients"]
+    cfg, data, model = _flagship_lm(2, **{**lm, **BATCHED_LM_COHORT})
+    cfg = cfg.replace(fed=dataclasses.replace(cfg.fed, client_parallelism="vmap"))
+    api = FedAvgAPI(cfg, data, model, task="nwp", device=device)
+    batched = api.round_fn.batched_train
+    times, losses, base = [], [], None
+    for r in range(2):
+        if r == 1:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        _, mets = api.train_round(r)
+        loss = float(mets["loss_sum"]) / float(mets["count"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated()
+    if batched.max_clients is None or batched.max_clients >= clients:
+        raise AssertionError(f"a cohort of {clients} LM clients ran in one group: the card was "
+                             "expected not to hold it")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"grouped LM cohort: non-finite losses {losses}")
+    return {"clients": clients, "samples": BATCHED_LM_COHORT["samples"],
+            "group": batched.max_clients, "round_time_s": times, "train_loss": losses,
+            "second_round_peak_bytes": peak, "second_round_base_bytes": base,
+            "bytes_a_client": (peak - base) / batched.max_clients}
+
+
+def _zoo_report(device, z: dict) -> dict:
+    """Phase 21 (b) and (c): VGG-11 over an ImageNet tree, EfficientNet-B0
+    over a gld23k tree."""
+    import tempfile
+
+    import numpy as np
+
+    from fedml_tpu_torch.data.imagenet import load_imagenet_streaming
+    from fedml_tpu_torch.data.landmarks import load_landmarks
+    from fedml_tpu_torch.device import fp32_math
+    from fedml_tpu_torch.models import ModelDef, create_model
+    from fedml_tpu_torch.models import vgg as vgg_mod
+
+    report = {}
+    tmp_root = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp_root).free
+    if free < ZOO_MIN_FREE_BYTES:
+        raise RuntimeError(f"phase 21 needs {ZOO_MIN_FREE_BYTES} bytes free under {tmp_root}; "
+                           f"{free} are")
+    img = z["image"]
+    rng = np.random.default_rng(5)
+    x2 = rng.random((z["cpu_images"], img, img, 3), dtype=np.float32)
+    y2 = np.arange(z["cpu_images"], dtype=np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _write_imagenet_tree(os.path.join(tmp, "imagenet"), z["vgg_classes"], img)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = load_imagenet_streaming(os.path.join(tmp, "imagenet"), os.path.join(tmp, "store"),
+                                       num_clients=z["clients"], image_size=img)
+        store_s = time.perf_counter() - t0
+        if data.num_classes != z["vgg_classes"] or data.num_clients != z["clients"]:
+            raise AssertionError(f"imagenet store: {data.num_classes} classes, "
+                                 f"{data.num_clients} clients")
+        model = create_model("vgg11", "imagenet", (img, img, 3), z["vgg_classes"])
+        vgg = _zoo_run(model, data, device, z["rounds"], z["lr"], z["batch"], z["clients"])
+        vgg.update(tree_write_s=write_s, store_build_s=store_s,
+                   store_bytes=sum(os.path.getsize(os.path.join(tmp, "store", f))
+                                   for f in os.listdir(os.path.join(tmp, "store"))))
+        del data, model
+        with fp32_math():
+            vgg["card_vs_cpu"] = _zoo_card_vs_cpu(
+                lambda: ModelDef(vgg_mod.VGG(vgg_mod.CFGS["A"], z["vgg_classes"], dropout=0.0),
+                                 (img, img, 3), z["vgg_classes"], has_dropout=True, name="vgg11"),
+                x2, y2, device)
+        report["vgg11"] = vgg
+        log("[batched] " + json.dumps({"vgg11": vgg}))
+        shutil.rmtree(os.path.join(tmp, "imagenet"))
+        shutil.rmtree(os.path.join(tmp, "store"))
+        t0 = time.perf_counter()
+        _write_gld_tree(os.path.join(tmp, "gld"), z["gld_classes"], z["gld_users"],
+                        z["gld_per_user"], z["gld_test"], img)
+        data = load_landmarks(os.path.join(tmp, "gld"))
+        load_s = time.perf_counter() - t0
+        if data.num_classes != z["gld_classes"] or data.num_clients != z["gld_users"]:
+            raise AssertionError(f"gld tree: {data.num_classes} classes, "
+                                 f"{data.num_clients} clients")
+        model = create_model("efficientnet", "landmarks", (img, img, 3), z["gld_classes"])
+        eff = _zoo_run(model, data, device, z["rounds"], z["lr"], z["batch"], z["gld_users"])
+        eff["write_and_load_s"] = load_s
+        with fp32_math(), _no_dropout_b0():
+            eff["card_vs_cpu"] = _zoo_card_vs_cpu(
+                lambda: create_model("efficientnet", "landmarks", (img, img, 3), z["gld_classes"],
+                                     drop_connect_rate=0.0), x2, y2, device)
+        report["efficientnet_b0"] = eff
+        log("[batched] " + json.dumps({"efficientnet_b0": eff}))
+    return report
+
+
+def phase_batched_and_zoo(smi: str, device="cuda", lm=None, zoo=None) -> dict:
+    """The batched client schedule and the ImageNet-size models (phase 21):
+
+    (a) the flagship LM (LM's geometry, bf16, AMSGrad) with
+        ``client_parallelism="vmap"`` beside ``"scan"`` (the loop), 2
+        rounds each: warm round time, peak memory, launches a step and
+        busy share (a profiled vmap round; the loop's is phase 10's),
+        the exact K2/K3/K4 launches (one a layer a batched step against
+        one a layer a client step), no plain-version or SDPA call; vmap
+        against the loop within BATCHED_LM_TOL; the folded K2-K4 launch
+        on [8·32·8, 256, 96] bit-equal to per-client launches
+        (:func:`_fold_bit_equality`);
+    (b) VGG-11 (~133M params) over an ImageNet tree loaded through
+        ``load_imagenet_streaming`` into the mmap store, 10 homo clients,
+        2 rounds: round times, launches, busy, peak memory; one step on 2
+        images, card against CPU;
+    (c) EfficientNet-B0 over a gld23k tree through ``load_landmarks``,
+        2 rounds, the same readings.
+
+    ``lm`` and ``zoo`` override LM's and ZOO's entries for a rehearsal on
+    the CPU. Returns the K2-K4 launches of (a)'s vmap and loop runs, and
+    of their float32 kernels ("vmap_float32", "loop_float32")."""
+    lm_report = _batched_lm_report(device, dict(lm or {}))
+    _zoo_report(device, {**ZOO, **(zoo or {})})
+    log("[batched] " + json.dumps({"card": smi}))
+    out = {s: lm_report[s]["launches"] for s in ("vmap", "loop")}
+    for s in ("vmap", "loop"):  # the float32 (CUDA-core) kernels' share: the eval's K2
+        by_dtype = lm_report[s]["launches_by_dtype"]
+        out[s + "_float32"] = {kn: by_dtype[f"{kn}:float32"] for kn in out[s]}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3260,7 +3856,7 @@ def main() -> int:
     timed(phase_profile_round)
     timed(phase_card_vs_cpu)
     flash_err = timed(phase_flash_parity)
-    ft, fplain, fbounds, flib = timed(phase_flash_timing, name, smi)
+    ft, fplain, fbounds, flib, f32 = timed(phase_flash_timing, name, smi)
     timed(phase_sass)
     flash_launches = timed(phase_lm_path)
     timed(phase_profile_lm_round)
@@ -3274,6 +3870,7 @@ def main() -> int:
     timed(phase_fedbuff, smi)
     timed(phase_population, smi)
     timed(phase_modelbound, smi)
+    batched_launches = timed(phase_batched_and_zoo, smi)
     log(json.dumps({"phase_s": phase_s}))
 
     from fedml_tpu_torch.ops import flash_attention as fa
@@ -3289,12 +3886,24 @@ def main() -> int:
         "replaces": replaces[kn],
         "launches": flash_launches[kn],
         "transport_launches": transport_launches[kn],
+        # the flagship LM's 2 rounds under the batched schedule (phase 21
+        # (a)): one launch a layer a batched step; and its loop beside it
+        "vmap_launches": batched_launches["vmap"][kn],
+        "vmap_loop_launches": batched_launches["loop"][kn],
         "max_abs_err": flash_err[kn],
         "ms": ft[kn],
         "plain_ms": fplain[kn],
         "bound_ms": fbounds[kn][0],
         "bound_by": fbounds[kn][1],
         "library_ms": flib[kn],
+        # the float32 (CUDA-core) kernel at the same shape; the LM's eval
+        # forward launches the float32 K2, no path the float32 K3/K4
+        "float32": {"ms": f32[kn]["kernel"], "plain_ms": f32[kn]["plain"],
+                    "launches": {"vmap": batched_launches["vmap_float32"][kn],
+                                 "loop": batched_launches["loop_float32"][kn]},
+                    "bound_ms": f32[kn]["bound"],
+                    "bound_by": f32[kn]["bound_by"],
+                    "library_ms": f32[kn]["sdpa_fwd" if kn == fa.FWD else "sdpa_bwd"]},
     } for kn in fa.KERNEL_NAMES]
     log(json.dumps({"kernels": [{
         "name": rs.KERNEL_NAME,

@@ -6,14 +6,18 @@ plan drops), the sampled shards gathered from the device store into a
 padded [C, S, B] batch, each client's local train from the global model,
 then the sample-weighted float32 average (or a defense's aggregate). The
 reference lifts the local train over the clients with ``vmap`` or
-``lax.scan`` and proves the two schedules compute the same thing; the port
-runs every ``client_parallelism`` mode as the sequential loop — the
-schedule ``resolve_client_parallelism`` picks for the FEMNIST CNN, and the
-"scan" schedule the flagship LM runs. ``task`` is "classification" or
-"nwp" (next-word prediction, the transformer LM). Knobs that in the
-reference change only the schedule, never the numbers
-(``client_parallelism``, ``fused_rounds``, ``fused_plan``, ``pipeline``,
-``compile.*``), are not read here.
+``lax.scan`` (``resolve_client_parallelism`` picks one) and proves the two
+schedules compute the same thing. The port has two schedules: the batched
+one (``train/client.py`` :class:`BatchedLocalTrain`, every client's step
+at once under ``torch.func.vmap``) where the reference resolves to vmap
+and the model has neither running statistics, dropout, augmentation nor
+an LSTM; the sequential loop everywhere else (``train_clients``), which
+is also what "scan" means here. ``FedAvgAPI._client_mode`` is the
+reference's resolved mode and ``_client_schedule`` the schedule that ran
+("vmap" or "loop"). ``task`` is "classification" or "nwp" (next-word
+prediction, the transformer LM). Knobs that in the reference change only
+the schedule's speed, never the numbers (``fused_rounds``, ``fused_plan``,
+``pipeline``, ``compile.*``), are not read here.
 
 Two random streams are hooks, because PyTorch cannot reproduce JAX's
 threefry: the local shuffles (``perm_fn``, train/client.py) and the
@@ -37,12 +41,14 @@ from fedml_tpu_torch.models import ModelDef
 from fedml_tpu_torch.scheduler import ClientScheduler, FaultInjector, select_clients
 from fedml_tpu_torch.telemetry import ClientHealthRegistry
 from fedml_tpu_torch.train.client import (
-    EpochPerm, PermFn, client_step_seed, make_local_train, seeded_perm_fn,
+    BatchedLocalTrain, EpochPerm, PermFn, batched_schedule_refusal, client_step_seed,
+    make_local_train, seeded_perm_fn,
 )
 from fedml_tpu_torch.train.evaluate import make_eval_fn, metrics_to_loss_acc, pad_to_batches
 
 Tree = Dict[str, torch.Tensor]
 _METRIC_KEYS = ("correct", "count", "loss_sum", "steps")
+_LOCAL_METRICS = ("loss_sum", "correct", "count", "steps")  # a local train's mets order
 
 # the tag of the noise stream of weak DP, DP-FedAvg and the backdoor
 # harness (the reference folds it into the round key: NOISE_FOLD of
@@ -96,9 +102,50 @@ def round_client_perms(perm_fn: PermFn, round_idx: int, num_sampled: int) -> Lis
     ]
 
 
+def resolve_client_parallelism(mode: str, model: ModelDef) -> str:
+    """The reference's resolution of ``FedConfig.client_parallelism``:
+    "auto" is "scan" when some 4-D conv kernel has at most 64 output
+    channels and a kernel height of at most 7 (under-tiled on the TPU's
+    MXU) and a client's copy of the variables takes at least 1 MB, else
+    "vmap". The port's kernels are OIHW, so the reference's HWIO
+    ``shape[-1]`` and ``shape[0]`` are ``shape[0]`` and ``shape[2]`` here.
+    The shapes are the module's own, so nothing is initialised."""
+    if mode == "auto":
+        module = model.module
+        tensors = list(module.parameters()) + list(module.buffers())
+        param_bytes = sum(t.numel() * t.element_size() for t in tensors)
+        small_conv = any(
+            t.dim() == 4 and t.shape[0] <= 64 and t.shape[2] <= 7 for t in module.parameters()
+        )
+        mode = "scan" if (small_conv and param_bytes >= 1_000_000) else "vmap"
+    if mode not in ("vmap", "scan"):
+        raise ValueError(f"client_parallelism must be 'vmap', 'scan' or 'auto', got {mode!r}")
+    return mode
+
+
+def client_schedule(mode: str, model: ModelDef, tc) -> str:
+    """The schedule a resolved ``mode`` runs ``model`` on: "vmap" (the
+    batched schedule) where the mode is vmap and :class:`BatchedLocalTrain`
+    can train the model, else "loop"."""
+    return "vmap" if mode == "vmap" and batched_schedule_refusal(model, tc) is None else "loop"
+
+
+def train_clients_batched(batched_train: BatchedLocalTrain, global_vars, x, y, mask,
+                          client_perms):
+    """:func:`train_clients`'s result from the batched schedule: every
+    client's local train at once; the metric sums added in client order,
+    as the loop adds them."""
+    client_vars, mets = batched_train(global_vars, x, y, mask, client_perms, mask_host=mask.cpu())
+    per_client = list(mets[:, [_LOCAL_METRICS.index(k) for k in _METRIC_KEYS]].unbind(0))
+    sums = per_client[0]
+    for vec in per_client[1:]:
+        sums = sums + vec
+    return client_vars, per_client, sums
+
+
 def train_clients(local_train, global_vars, x, y, mask, client_perms, step_seeds=None):
     """Every client's local train from ``global_vars``, one after the other
-    (the schedule of every round here): ``(client_vars [C, ...], per-client
+    (the loop schedule): ``(client_vars [C, ...], per-client
     metric vectors [C] × [4] in ``_METRIC_KEYS`` order, their sum)``."""
     C = x.shape[0]
     mask_host = mask.cpu()  # which steps hold data is decided on the host
@@ -130,6 +177,7 @@ def make_fedavg_round(
     aggregate_fn: Optional[Callable] = None,
     robust=None,
     client_metrics: bool = False,
+    schedule: str = "loop",
 ):
     """The round function ``(global_vars, x, y, mask, num_samples,
     client_perms, step_seeds=None, *extra) -> (global_vars', metric
@@ -144,7 +192,11 @@ def make_fedavg_round(
     go to both. ``robust`` (a RobustConfig) derives the three hooks from
     the defense config; it excludes passing hooks directly.
     ``client_metrics`` adds the per-client ``client_loss_sum`` and
-    ``client_count`` vectors [C] to the sums (power-of-choice's signal)."""
+    ``client_count`` vectors [C] to the sums (power-of-choice's signal).
+    ``schedule`` "vmap" trains the clients with :class:`BatchedLocalTrain`
+    (it takes no ``local_train_fn``; the round function's ``batched_train``
+    is it, with the group size its device allowed), "loop" one after the
+    other."""
     if robust is not None:
         if any(h is not None for h in (post_train, post_aggregate, aggregate_fn)):
             raise ValueError(
@@ -154,14 +206,25 @@ def make_fedavg_round(
         from fedml_tpu_torch.algorithms.fedavg_robust import make_defense_hooks
 
         post_train, post_aggregate, aggregate_fn = make_defense_hooks(robust)
-    local_train = local_train_fn or make_local_train(
-        model, config.train, config.fed.epochs, task=task
-    )
+    if schedule == "vmap":
+        if local_train_fn is not None:
+            raise ValueError("the batched schedule trains with BatchedLocalTrain, not "
+                             "local_train_fn")
+        batched = BatchedLocalTrain(model, config.train, config.fed.epochs, task=task)
+
+        def train(global_vars, x, y, mask, client_perms, step_seeds):
+            return train_clients_batched(batched, global_vars, x, y, mask, client_perms)
+    elif schedule == "loop":
+        batched = None
+        local_train = local_train_fn or make_local_train(
+            model, config.train, config.fed.epochs, task=task
+        )
+        train = functools.partial(train_clients, local_train)
+    else:
+        raise ValueError(f"schedule must be 'vmap' or 'loop', got {schedule!r}")
 
     def round_fn(global_vars, x, y, mask, num_samples, client_perms, step_seeds=None, *extra):
-        client_vars, per_client, sums = train_clients(
-            local_train, global_vars, x, y, mask, client_perms, step_seeds
-        )
+        client_vars, per_client, sums = train(global_vars, x, y, mask, client_perms, step_seeds)
         if post_train is not None:
             client_vars = post_train(client_vars, global_vars, *extra)
         if aggregate_fn is not None:
@@ -177,6 +240,7 @@ def make_fedavg_round(
             metrics["client_count"] = stacked[:, _METRIC_KEYS.index("count")]
         return new_global, metrics
 
+    round_fn.batched_train = batched
     return round_fn
 
 
@@ -196,7 +260,13 @@ class FedAvgAPI:
     client health registry: after each round every sampled client is
     observed with the round's time (``straggler_aware`` reads it). With
     ``fed.eval_on_clients`` an eval round reports the global model on every
-    client's shards (:meth:`local_test_on_all_clients`)."""
+    client's shards (:meth:`local_test_on_all_clients`).
+
+    ``_client_mode`` is ``fed.client_parallelism`` as the reference
+    resolves it; ``_client_schedule`` says what trains the clients: "vmap"
+    (:class:`BatchedLocalTrain`) where the mode is vmap and the model and
+    the round allow it, else "loop". An explicit "vmap" that the port
+    cannot batch raises NotImplementedError."""
 
     def __init__(
         self,
@@ -215,6 +285,16 @@ class FedAvgAPI:
         self.data = data
         self.model = model
         self.task = task
+        self._client_mode = resolve_client_parallelism(config.fed.client_parallelism, model)
+        self._client_schedule = "loop"  # _build_round_fn sets "vmap" where it batches
+        explicit_vmap = config.fed.client_parallelism == "vmap"
+        reason = batched_schedule_refusal(model, config.train)
+        if explicit_vmap and reason is not None:
+            # refused before the model is initialised
+            raise NotImplementedError(
+                f"client_parallelism='vmap' does not run a model with {reason} yet "
+                "(ROADMAP.md §1 item 13); 'auto' and 'scan' train it as the loop"
+            )
         self.log_fn = log_fn or (lambda m: None)
         init = model.init(torch.Generator().manual_seed(config.seed))
         self.global_vars = {k: v.to(self.device) for k, v in init.items()}
@@ -231,6 +311,11 @@ class FedAvgAPI:
             health=self.health,
         )
         self.round_fn = self._build_round_fn(local_train_fn)
+        if explicit_vmap and self._client_schedule != "vmap":
+            raise NotImplementedError(
+                f"{type(self).__name__} trains its clients as the loop: client_parallelism="
+                "'vmap' is not ported for its round yet (ROADMAP.md §1 item 13)"
+            )
         self.eval_fn = make_eval_fn(model, task)
         self.history: list = []
         # --resume sets global_vars, start_round (and a FedOpt's
@@ -257,9 +342,13 @@ class FedAvgAPI:
         self._local_eval_dev = None
 
     def _build_round_fn(self, local_train_fn):
+        self._client_schedule = (
+            "loop" if local_train_fn is not None
+            else client_schedule(self._client_mode, self.model, self.config.train)
+        )
         return make_fedavg_round(
             self.model, self.config, task=self.task, local_train_fn=local_train_fn,
-            client_metrics=self.scheduler.wants_client_losses,
+            client_metrics=self.scheduler.wants_client_losses, schedule=self._client_schedule,
         )
 
     def train_round(self, round_idx: int):

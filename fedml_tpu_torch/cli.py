@@ -524,11 +524,6 @@ def _check_ported(opt) -> None:
                 f"{flag} {opt[name]} is not ported yet (ROADMAP.md §1 item {item}); "
                 f"it is accepted only at {off!r}"
             )
-    if opt["client_parallelism"] == "vmap":
-        raise NotImplementedError(
-            "--client_parallelism vmap is not ported yet (ROADMAP.md §1 item 7); every client "
-            "schedule runs as the sequential loop"
-        )
 
 
 def _jsonable(v):

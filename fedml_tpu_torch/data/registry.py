@@ -6,9 +6,9 @@ Ported: the synthetic datasets (``synthetic``, ``synthetic_<a>_<b>``,
 ``seg_synth``), the
 LEAF and TFF-h5 file loaders (``mnist``, ``shakespeare``, ``femnist``,
 ``fed_shakespeare``, ``fed_cifar100``, ``stackoverflow_lr``,
-``stackoverflow_nwp``) and the centralised image sets with
-their LDA/homo split (``cifar10``, ``cifar100``, ``cinic10``). The other names of ``TASKS`` raise
-NotImplementedError naming ROADMAP.md."""
+``stackoverflow_nwp``, ``imagenet`` in the ImageFolder layout,
+``landmarks`` from its CSV mappings) and the centralised image sets with
+their LDA/homo split (``cifar10``, ``cifar100``, ``cinic10``)."""
 
 from __future__ import annotations
 
@@ -47,12 +47,8 @@ _FILE_LOADERS = {
     "fed_cifar100": ("fedml_tpu_torch.data.tff_h5", "load_fed_cifar100"),
     "stackoverflow_lr": ("fedml_tpu_torch.data.stackoverflow", "load_stackoverflow_lr"),
     "stackoverflow_nwp": ("fedml_tpu_torch.data.stackoverflow", "load_stackoverflow_nwp"),
-}
-
-# the reference's other names, by the ROADMAP.md item that brings them
-_NOT_PORTED = {
-    "imagenet": 7,
-    "landmarks": 7,
+    "imagenet": ("fedml_tpu_torch.data.imagenet", "load_imagenet"),
+    "landmarks": ("fedml_tpu_torch.data.landmarks", "load_landmarks"),
 }
 
 
@@ -114,10 +110,6 @@ def load(config) -> FederatedDataset:
             partition_method=d.partition_method,
             partition_alpha=d.partition_alpha,
             seed=config.seed,
-        )
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {d.dataset!r} is not ported yet (ROADMAP.md §1 item {_NOT_PORTED[name]})"
         )
     available = ", ".join(
         ["synthetic", "synthetic_<a>_<b>", "femnist_synth", "shakespeare_synth",

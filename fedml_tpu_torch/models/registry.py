@@ -5,14 +5,15 @@ Ported: ``lr``, ``cnn``, ``cnn_dropout``, ``rnn`` (the dataset picks the
 variant: ``RNNStackOverFlow`` for ``stackoverflow``/``stackoverflow_nwp``,
 else ``RNNOriginalFedAvg``, per-position for ``fed_shakespeare``),
 ``transformer``, ``resnet56``, ``resnet110``, ``resnet18_gn`` …
-``resnet152_gn``, ``mobilenet``, ``mobilenet_v3``, ``segnet`` (FedSeg's
-encoder-decoder), ``darts`` (FedNAS's search network) and ``mnistgan``
-(FedGAN's G + D), each with the reference's ``has_batch_stats`` and
-``has_dropout``; ``pretrained=`` pours a ``.pth`` or ``.npz`` checkpoint
-over the init (models/pretrained.py). The reference's VGGs and
-EfficientNet raise NotImplementedError naming ROADMAP.md; a name the
-reference does not know either (``gkt_resnet``, ``vfl``: their algorithms
-build them) is a KeyError, as there."""
+``resnet152_gn``, ``mobilenet``, ``mobilenet_v3``, ``vgg11`` … ``vgg19``
+and their ``_bn`` forms, ``efficientnet`` (options ``variant`` b0–b7 and
+``drop_connect_rate``), ``segnet`` (FedSeg's encoder-decoder), ``darts``
+(FedNAS's search network) and ``mnistgan`` (FedGAN's G + D), each with
+the reference's ``has_batch_stats`` and ``has_dropout``; ``pretrained=``
+pours a ``.pth`` or ``.npz`` checkpoint over the init
+(models/pretrained.py). A name the reference does not know either
+(``gkt_resnet``, ``vfl``: their algorithms build them) is a KeyError, as
+there."""
 
 from __future__ import annotations
 
@@ -23,11 +24,7 @@ import torch
 
 from fedml_tpu_torch.models import ModelDef
 
-# the reference's other models, each waiting on ROADMAP.md §1 item 7
-_NOT_PORTED = (
-    "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn", "vgg16_bn", "vgg19_bn",
-    "efficientnet",
-)
+_VGG = ("vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn", "vgg16_bn", "vgg19_bn")
 _RESNET_GN = ("resnet18_gn", "resnet34_gn", "resnet50_gn", "resnet101_gn", "resnet152_gn")
 
 
@@ -119,6 +116,18 @@ def create(
 
         return ModelDef(MobileNetV3(num_classes=num_classes, in_ch=in_ch, **kw),
                         shape, num_classes, has_batch_stats=True, has_dropout=True, name=name)
+    if name in _VGG:
+        _no_options(name, kw)
+        from fedml_tpu_torch.models.vgg import vgg
+
+        bn = name.endswith("_bn")
+        return ModelDef(vgg(name[:-3] if bn else name, num_classes, batch_norm=bn, in_ch=in_ch),
+                        shape, num_classes, has_batch_stats=bn, has_dropout=True, name=name)
+    if name == "efficientnet":
+        from fedml_tpu_torch.models.efficientnet import EfficientNet
+
+        return ModelDef(EfficientNet(num_classes=num_classes, in_ch=in_ch, **kw),
+                        shape, num_classes, has_batch_stats=True, has_dropout=True, name=name)
     if name == "segnet":
         from fedml_tpu_torch.models.segnet import EncoderDecoder
 
@@ -133,14 +142,10 @@ def create(
         from fedml_tpu_torch.algorithms.fedgan import make_gan_model_def
 
         return make_gan_model_def(**kw)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported yet (ROADMAP.md §1 item 7)"
-        )
     raise KeyError(
-        f"unknown model {model_name!r}; the port has: lr, cnn, cnn_dropout, rnn, transformer, "
-        "resnet56, resnet110, resnet18_gn..resnet152_gn, mobilenet, mobilenet_v3, segnet, "
-        "darts, mnistgan"
+        f"unknown model {model_name!r}; available: lr, cnn, cnn_dropout, rnn, transformer, "
+        "resnet56, resnet110, resnet18_gn..resnet152_gn, mobilenet, mobilenet_v3, "
+        "vgg11..vgg19(_bn), efficientnet, segnet, darts, mnistgan"
     )
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Hashable
 
 _HERE = Path(__file__).resolve().parent
 CSRC_DIR = _HERE / "csrc"
@@ -27,9 +27,9 @@ CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(counts: Dict[str, int], name: str) -> None:
-    """Add one launch of kernel ``name`` to ``counts``, atomically across
-    threads."""
+def count_launch(counts: Dict[Hashable, int], name: Hashable) -> None:
+    """Add one launch of kernel ``name`` (a kernel's key in ``counts``) to
+    ``counts``, atomically across threads."""
     with _LAUNCH_LOCK:
         counts[name] += 1
 

@@ -29,8 +29,14 @@ k's type before dS·K (K3), K4 is float32 throughout, and every output is
 rounded to the inputs' type. δ = rowsum(dO∘O) is float32 torch ops outside
 any kernel, as in the reference.
 
-``LAUNCHES`` counts kernel launches (only the CUDA branches add to it), so a
-run can show that it went through the kernels. The v5e timings in the
+Under ``torch.func.vmap`` (the batched client schedule) each kernel's
+Function folds the client axis into BH: the whole cohort's attention is
+one K2, one K3 and one K4 launch a layer a step, on the card as on the
+CPU's plain versions.
+
+``LAUNCHES`` counts kernel launches by kernel and operand type (only the
+CUDA branches add to it; :func:`launch_totals` gives each kernel's sum),
+so a run can show that it went through the kernels. The v5e timings in the
 reference module's docstring are the TPU's, not this port's."""
 
 from __future__ import annotations
@@ -46,12 +52,25 @@ from fedml_tpu_torch.ops._build import count_launch, load_kernel_library
 
 FWD, BWD_DQ, BWD_DKV = "flash_attention.fwd", "flash_attention.bwd_dq", "flash_attention.bwd_dkv"
 KERNEL_NAMES = (FWD, BWD_DQ, BWD_DKV)
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+OPERAND_TYPES = ("float32", "bfloat16")  # the CUDA-core kernels, the tensor-core ones
+# launches by (kernel, operand type); launch_totals() sums the types
+LAUNCHES: Dict[Tuple[str, str], int] = {(name, t): 0 for name in KERNEL_NAMES
+                                        for t in OPERAND_TYPES}
 
 KERNEL_TILE = 64  # rows of the kernels' query and key tiles (csrc kTile)
 HEAD_DIMS = (16, 32, 64, 96, 128)  # the head dims the kernels are built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
+
+
+def launch_totals() -> Dict[str, int]:
+    """Each kernel's launches, both operand types together."""
+    return {name: sum(LAUNCHES[(name, t)] for t in OPERAND_TYPES) for name in KERNEL_NAMES}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 # ---------------------------------------------------------------- plain versions
@@ -207,7 +226,7 @@ def _launch(name: str, fn, q, operands, Sk: int, causal: bool, scale: float) -> 
                  BH, S, Sk, int(causal), scale, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    count_launch(LAUNCHES, name)
+    count_launch(LAUNCHES, (name, str(q.dtype).removeprefix("torch.")))
 
 
 def _device_kind(*ts) -> str:
@@ -257,25 +276,100 @@ def flash_backward_dkv(q, k, v, do, lse, delta, scale: float, causal: bool,
 # ---------------------------------------------------------------- autograd
 
 
+def _fold(info, in_dims, *ts):
+    """The client axis that ``torch.func.vmap`` peeled off each operand,
+    folded into the kernels' BH axis: [C, BH, ...] → [C·BH, ...],
+    contiguous (an operand without the axis is expanded to it)."""
+    out = []
+    for t, d in zip(ts, in_dims):
+        t = t.movedim(d, 0) if d is not None else t.expand((info.batch_size,) + tuple(t.shape))
+        out.append(t.reshape((-1,) + tuple(t.shape[2:])).contiguous())
+    return out
+
+
+def _unfold(info, *ts):
+    """[C·BH, ...] → [C, BH, ...]: a folded kernel's outputs, batched at 0."""
+    C = info.batch_size
+    return tuple(t.reshape((C, t.shape[0] // C) + tuple(t.shape[1:])) for t in ts)
+
+
 class _Flash(torch.autograd.Function):
-    """K2 forward; K3 and K4 backward. Saves (q, k, v, O, LSE)."""
+    """K2 forward, returning (O, LSE); K3 and K4 backward through
+    :class:`_FlashDq` and :class:`_FlashDkv`. Saves (q, k, v, O, LSE).
+
+    Under ``torch.func.vmap`` (the batched client schedule) the kernels
+    cannot see a batched tensor, so each of the three Functions has a
+    ``vmap`` rule that folds the client axis into BH and makes ONE launch
+    for the whole cohort; ``vmap(grad(...))`` runs the backward on batched
+    tensors, and there the Functions it calls fold the same way."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, block_q: int, block_k: int):
+    def forward(q, k, v, causal: bool, block_q: int, block_k: int):
         scale = 1.0 / math.sqrt(q.shape[-1])
-        out, lse = flash_forward(q, k, v, scale, causal, block_q, block_k)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = (scale, causal, block_q, block_k)
-        return out
+        return flash_forward(q, k, v, scale, causal, block_q, block_k)
 
     @staticmethod
-    def backward(ctx, do):
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, block_q, block_k = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, block_q, block_k)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = torch.sum(do.float() * out.float(), dim=-1)
-        dq = flash_backward_dq(q, k, v, do, lse, delta, *ctx.cfg)
-        dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, *ctx.cfg)
+        dq = _FlashDq.apply(q, k, v, do, lse, delta, *ctx.cfg)
+        dk, dv = _FlashDkv.apply(q, k, v, do, lse, delta, *ctx.cfg)
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, block_q, block_k):
+        fq, fk, fv = _fold(info, in_dims[:3], q, k, v)
+        _check(fq, fk, fv, causal, block_q, block_k)  # the contract holds folded
+        out, lse = _Flash.apply(fq, fk, fv, causal, block_q, block_k)
+        return _unfold(info, out, lse), (0, 0)
+
+
+class _FlashDq(torch.autograd.Function):
+    """K3 as a Function, so the backward folds under vmap (no gradient of
+    its own: the reference's flash attention is differentiated once)."""
+
+    @staticmethod
+    def forward(q, k, v, do, lse, delta, causal, block_q, block_k):
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        return flash_backward_dq(q, k, v, do, lse, delta, scale, causal, block_q, block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, do, lse, delta, causal, block_q, block_k):
+        dq = _FlashDq.apply(*_fold(info, in_dims[:6], q, k, v, do, lse, delta),
+                            causal, block_q, block_k)
+        return _unfold(info, dq)[0], 0
+
+
+class _FlashDkv(torch.autograd.Function):
+    """K4 as a Function (see :class:`_FlashDq`)."""
+
+    @staticmethod
+    def forward(q, k, v, do, lse, delta, causal, block_q, block_k):
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        return flash_backward_dkv(q, k, v, do, lse, delta, scale, causal, block_q, block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, do, lse, delta, causal, block_q, block_k):
+        dk, dv = _FlashDkv.apply(*_fold(info, in_dims[:6], q, k, v, do, lse, delta),
+                                 causal, block_q, block_k)
+        return _unfold(info, dk, dv), (0, 0)
 
 
 def _check(q, k, v, causal: bool, block_q: int, block_k: int) -> Tuple[int, int]:
@@ -313,7 +407,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512, block_k: i
     block_q, block_k = _check(q, k, v, causal, block_q, block_k)
     S, d = q.shape[-2:]
     Sk = k.shape[-2]
-    out = _Flash.apply(
+    out, _ = _Flash.apply(
         q.reshape(-1, S, d).contiguous(),
         k.reshape(-1, Sk, d).contiguous(),
         v.reshape(-1, Sk, d).contiguous(),

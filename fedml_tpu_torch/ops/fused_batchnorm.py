@@ -62,14 +62,21 @@ def _normalize(x, mean, var, gamma, beta, eps: float, relu: bool, channel_axis: 
 
 
 class _BnAct(torch.autograd.Function):
+    generate_vmap_rule = True  # plain torch ops: torch.func.vmap batches them
+
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps: float, relu: bool, channel_axis: int):
+    def forward(x, gamma, beta, eps: float, relu: bool, channel_axis: int):
         mean, var = _stats_f32(x, channel_axis)
         y = _normalize(x, mean, var, gamma, beta, eps, relu, channel_axis)
+        return y, mean, var
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, gamma, beta, eps, relu, channel_axis = inputs
+        _, mean, var = output
         ctx.save_for_backward(x, gamma, beta, mean, var)
         ctx.cfg = (eps, relu, channel_axis)
         ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):

@@ -7,7 +7,9 @@ kept here as ``torch.autograd.Function``s in plain torch ops, with the
 reference's arithmetic: float32 statistics, the variance as E[x²]−E[x]²,
 ``rsqrt(var + eps)``, the output rounded back to x's type.
 ``F.group_norm`` and ``F.layer_norm`` compute the variance another way and
-are not used."""
+are not used. Both Functions take the ``setup_context`` form with
+``generate_vmap_rule``, so the batched client schedule runs them under
+``torch.func.vmap``."""
 
 from __future__ import annotations
 
@@ -61,11 +63,17 @@ def _gn_normalize(x, gamma, beta, group_size: int, eps: float, relu: bool, chann
 
 
 class _GnAct(torch.autograd.Function):
+    generate_vmap_rule = True  # plain torch ops: torch.func.vmap batches them
+
     @staticmethod
-    def forward(ctx, x, gamma, beta, group_size: int, eps: float, relu: bool, channel_axis: int):
+    def forward(x, gamma, beta, group_size: int, eps: float, relu: bool, channel_axis: int):
+        return _gn_normalize(x, gamma, beta, group_size, eps, relu, channel_axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, gamma, beta, group_size, eps, relu, channel_axis = inputs
         ctx.save_for_backward(x, gamma, beta)
         ctx.cfg = (group_size, eps, relu, channel_axis)
-        return _gn_normalize(x, gamma, beta, group_size, eps, relu, channel_axis)
 
     @staticmethod
     def backward(ctx, dy):
@@ -121,11 +129,17 @@ def _ln_normalize(x, gamma, beta, eps: float, relu: bool):
 
 
 class _LnAct(torch.autograd.Function):
+    generate_vmap_rule = True  # plain torch ops: torch.func.vmap batches them
+
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps: float, relu: bool):
+    def forward(x, gamma, beta, eps: float, relu: bool):
+        return _ln_normalize(x, gamma, beta, eps, relu)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, gamma, beta, eps, relu = inputs
         ctx.save_for_backward(x, gamma, beta)
         ctx.cfg = (eps, relu)
-        return _ln_normalize(x, gamma, beta, eps, relu)
 
     @staticmethod
     def backward(ctx, dy):

@@ -9,6 +9,13 @@ of eager steps, and an all-padding step is skipped on the host — a complete
 no-op for params, optimizer state and metrics, as the reference's
 ``lax.cond`` skip branch is (``client.py:224-271``).
 
+:class:`BatchedLocalTrain` is the batched ("vmap") schedule of the
+reference's ``client_axis_map``: every client's step at once under
+``torch.func.vmap``, one launch per op for the whole cohort. A client
+whose step is all padding is gated per client, as the reference gates it
+under vmap (``client.py:256-271``): its params and optimizer state keep
+their old values (``torch.where``) and its metrics are multiplied by 0.
+
 The epoch shuffle is a hook. The reference draws it from JAX's threefry
 stream (``masked_epoch_perm``, ``client.py:141-154``), which PyTorch cannot
 reproduce, so the port takes ``epoch_perm(epoch, mask_flat) -> perm`` from
@@ -19,10 +26,11 @@ minibatches in a random order, padding sorts last."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from fedml_tpu_torch.models import ModelDef, split_stats
 from fedml_tpu_torch.models.norms import AFFINE_NORMS
@@ -100,11 +108,18 @@ def cast_floats(tree: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, 
 class _RoundTo(torch.autograd.Function):
     """x rounded to ``dtype``'s values but kept in x's type; the gradient
     passes through unchanged, as the transpose of the reference's cast
-    passes on the float32 gradient its custom VJP returns."""
+    passes on the float32 gradient its custom VJP returns. Its ops are
+    plain torch, so ``torch.func.vmap`` batches it by its generated rule."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x, dtype):
+    def forward(x, dtype):
         return x.to(dtype).to(x.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
@@ -301,3 +316,177 @@ def make_local_train(model: ModelDef, tc, epochs: int, task: str = "classificati
     """Build the per-client training function (see :class:`LocalTrain`;
     ``external_prox`` gives :class:`ExternalProxLocalTrain`)."""
     return (ExternalProxLocalTrain if external_prox else LocalTrain)(model, tc, epochs, task=task)
+
+
+def client_axis_map(fn: Callable, n_broadcast: int = 1) -> Callable:
+    """The reference's ``client_axis_map`` in its batched ("vmap") form:
+    ``fn`` lifted over a leading client axis with ``torch.func.vmap``; the
+    first ``n_broadcast`` positional args go to every client
+    (``in_dims=None``), the rest carry the client axis. The sequential
+    form is the loop of ``algorithms/fedavg.py`` ``train_clients``."""
+
+    def vmapped(*args):
+        in_dims = (None,) * n_broadcast + (0,) * (len(args) - n_broadcast)
+        return torch.func.vmap(fn, in_dims=in_dims)(*args)
+
+    return vmapped
+
+
+def batched_schedule_refusal(model: ModelDef, tc=None) -> Optional[str]:
+    """Why :class:`BatchedLocalTrain` cannot train ``model`` (None if it
+    can). Running statistics leave ``ModelDef.apply`` through a side
+    channel that batched tensors must not escape by; dropout and
+    augmentation draw from one generator a client step; ``torch.lstm`` has
+    no batching rule."""
+    from fedml_tpu_torch.models.rnn import OptimizedLSTMCell
+    from fedml_tpu_torch.train.augment import resolve_augment
+
+    if model.has_batch_stats:
+        return "running statistics"
+    if model.has_dropout:
+        return "dropout"
+    if any(isinstance(m, OptimizedLSTMCell) for m in model.module.modules()):
+        return "an LSTM"
+    if tc is not None and resolve_augment(getattr(tc, "augment", "none")) is not None:
+        return "augmentation"
+    return None
+
+
+def _batched_counts(state, clients: int, device):
+    """An optimizer state with each host-int step count replaced by one
+    count a client."""
+    def leaf(v):
+        if isinstance(v, int) and not isinstance(v, bool):
+            return torch.full((clients,), v, dtype=torch.int64, device=device)
+        return v
+
+    return tree_map(leaf, state)
+
+
+class BatchedLocalTrain:
+    """Every client's local train from the same global variables at once:
+    ``(global_vars, x, y, mask, client_perms, mask_host=None) ->
+    (client_vars [C, ...], mets [C, 4])`` with x [C, S, B, *feat] and mets
+    in (loss_sum, correct, count, steps) order, the numbers of
+    :class:`LocalTrain` run client by client.
+
+    Each step is ``torch.func.grad_and_value`` over
+    :meth:`MixedForward.train` and the optimizer update, lifted over the
+    clients by :func:`client_axis_map`; the proximal term pulls toward the
+    broadcast global parameters (FedProx). Each client's shuffle comes from
+    its own ``EpochPerm`` on the host; the shuffles are stacked to [C, S·B]
+    and gathered outside the vmapped step. A step that is all padding for
+    every client is skipped; one that is for some clients is computed for
+    all and gated per client. The optimizer's step count is one count a
+    client (train/optim.py ``_bias_correction``).
+
+    The cohort is trained in groups of at most ``max_clients`` clients
+    (None, the start: the whole cohort), each group's local train whole
+    before the next; the clients are independent, so the grouping changes
+    no number. A group the device's memory cannot hold (CUDA out of
+    memory) is retried at half the size, and ``max_clients`` keeps that
+    size for later calls: the cohort is sized to the card's free memory
+    by what fits."""
+
+    def __init__(self, model: ModelDef, tc, epochs: int, task: str = "classification"):
+        reason = batched_schedule_refusal(model, tc)
+        if reason is not None:
+            raise NotImplementedError(
+                f"the batched client schedule does not run a model with {reason} yet "
+                "(ROADMAP.md §1 item 13)"
+            )
+        self.epochs = epochs
+        self.max_clients: Optional[int] = None
+        self.opt = opt = build_client_optimizer(tc)
+        task_loss = make_task_loss(task)
+        fwd = make_mixed_forward(model, tc)
+        prox_mu = tc.prox_mu
+
+        def loss_fn(params, prox_ref, xb, yb, mb):
+            logits, _ = fwd.train(params, {}, xb)
+            task_l, correct, total = task_loss(logits, yb, mb)
+            loss = task_l
+            if prox_mu:
+                loss = loss + 0.5 * prox_mu * L.tree_sq_dist(params, prox_ref)
+            return loss, (task_l, correct, total)
+
+        grad_fn = torch.func.grad_and_value(loss_fn, has_aux=True)
+
+        def step(prox_ref, params, opt_state, xb, yb, mb, has_data):
+            grads, (_, (task_l, correct, total)) = grad_fn(params, prox_ref, xb, yb, mb)
+            updates, new_state = opt.update(grads, opt_state, params)
+            new_params = apply_updates(params, updates)
+
+            def keep(new, old):
+                return torch.where(has_data, new, old)
+
+            # task_l (not loss) feeds the metrics, as in the reference
+            mets = torch.stack([task_l * total, correct, total, torch.ones_like(total)])
+            return (tree_map(keep, new_params, params), tree_map(keep, new_state, opt_state),
+                    mets * has_data.to(mets.dtype))
+
+        self._step = client_axis_map(step, n_broadcast=1)
+
+    def __call__(self, global_vars: Dict[str, torch.Tensor], x, y, mask,
+                 client_perms: List[EpochPerm], mask_host: Optional[torch.Tensor] = None):
+        C = mask.shape[0]
+        m_host = (mask_host if mask_host is not None else mask).cpu()
+        parts, start = [], 0
+        while start < C:
+            size = min(C - start, self.max_clients or C)
+            g = slice(start, start + size)
+            part = self._group_or_none(global_vars, x[g], y[g], mask[g], client_perms[g],
+                                       m_host[g])
+            if part is None:  # out of device memory: retry the group at half its size
+                if size == 1:
+                    raise torch.cuda.OutOfMemoryError(
+                        "one client's batched local train does not fit in device memory")
+                torch.cuda.empty_cache()
+                self.max_clients = size // 2
+                continue
+            parts.append(part)
+            start += size
+        if len(parts) == 1:
+            return parts[0]
+        return ({k: torch.cat([p[k] for p, _ in parts]) for k in parts[0][0]},
+                torch.cat([m for _, m in parts]))
+
+    def _group_or_none(self, *args):
+        """:meth:`_train_group`, or None if the device ran out of memory
+        (the failed group's tensors are freed when this returns)."""
+        try:
+            return self._train_group(*args)
+        except torch.cuda.OutOfMemoryError:
+            return None
+
+    def _train_group(self, global_vars, x, y, mask, client_perms, m_host):
+        C, S, B = mask.shape[0], mask.shape[1], mask.shape[2]
+        dev = mask.device
+        prox_ref = {k: v.detach() for k, v in global_vars.items()}
+        params = {k: v.unsqueeze(0).expand((C,) + tuple(v.shape)).clone()
+                  for k, v in prox_ref.items()}
+        opt_state = _batched_counts(self.opt.init(params), C, dev)
+        n_flat = S * B
+        x_flat = x.reshape((C, n_flat) + tuple(x.shape[3:]))
+        y_flat = y.reshape((C, n_flat) + tuple(y.shape[3:]))
+        m_flat = mask.reshape(C, n_flat)
+        m_host = m_host.reshape(C, n_flat)
+        rows = torch.arange(C, device=dev)[:, None]
+        mets = torch.zeros(C, 4, dtype=torch.float32, device=dev)
+        for epoch in range(self.epochs):
+            perm_host = torch.stack([client_perms[j](epoch, m_host[j]) for j in range(C)])
+            has_data = torch.gather(m_host, 1, perm_host).reshape(C, S, B).sum(dim=2) > 0
+            live = has_data.any(dim=0).tolist()
+            perm = perm_host.to(dev)
+            xe = x_flat[rows, perm].reshape(x.shape)
+            ye = y_flat[rows, perm].reshape(y.shape)
+            me = m_flat[rows, perm].reshape(mask.shape)
+            gate = has_data.to(dev)
+            for s in range(S):
+                if not live[s]:
+                    continue  # all padding for every client: a complete no-op
+                params, opt_state, step_mets = self._step(
+                    prox_ref, params, opt_state, xe[:, s], ye[:, s], me[:, s], gate[:, s]
+                )
+                mets = mets + step_mets
+        return params, mets

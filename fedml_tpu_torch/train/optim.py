@@ -15,6 +15,8 @@ the maximum of the raw moment — a different optimizer — so it is not used.""
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -88,30 +90,59 @@ def _full_like(params: Params, value: float) -> Params:
     return {k: torch.full_like(v, value) for k, v in params.items()}
 
 
-def _bias_correction(decay: float, count: int, device) -> torch.Tensor:
-    """optax's ``1 - decay**count`` in float32, bit for bit: XLA raises a
-    float to an integer power by repeated squaring, rounding each product
-    to float32 (``torch.pow`` rounds differently from the third power on).
-    Returned as a 0-dim tensor on the params' device, so the moments are
-    truly divided by it there (a CUDA division by a host scalar multiplies
-    by its reciprocal)."""
-    power, base, n = np.float32(1.0), np.float32(decay), int(count)
-    while n:
-        if n & 1:
-            power = np.float32(power * base)
+def _bias_correction(decay: float, count, device) -> torch.Tensor:
+    """optax's ``1 - decay**count`` in float32, bit for bit (see
+    :func:`_one_minus_power`), as a 0-dim tensor on the params' device, so
+    the moments are truly divided by it there (a CUDA division by a host
+    scalar multiplies by its reciprocal).
+
+    ``count`` is a host int on the loop schedule. The batched schedule
+    carries one count a client (an integer tensor, 0-dim for each client
+    inside ``torch.func.vmap``): those are gathered from
+    :func:`_bias_table`."""
+    if isinstance(count, torch.Tensor):
+        table = _bias_table_on(decay, count.device)
+        return table[torch.clamp(count, max=table.shape[0] - 1)]
+    return torch.tensor(_one_minus_power(decay, np.int64(count)), dtype=torch.float32,
+                        device=device)
+
+
+def _one_minus_power(decay: float, n: np.ndarray) -> np.ndarray:
+    """``1 - decay**n`` in float32 for every count in ``n`` at once: XLA
+    raises a float to an integer power by repeated squaring, rounding each
+    product to float32 (``torch.pow`` rounds differently from the third
+    power on)."""
+    power = np.ones(np.shape(n), np.float32)
+    base = np.float32(decay)
+    while np.any(n):
+        power = np.where(n & 1, power * base, power).astype(np.float32)
         base = np.float32(base * base)
-        n >>= 1
-    return torch.tensor(np.float32(1.0) - power, dtype=torch.float32, device=device)
+        n = n >> 1
+    return np.float32(1.0) - power
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_table(decay: float) -> np.ndarray:
+    """:func:`_one_minus_power` for n = 0..N. N is the first count with
+    decay**N < 1e-10: from there on, 1 minus the float32 power rounds to
+    1.0, the table's last entry, which the lookup clamps to."""
+    last = max(1, math.ceil(math.log(1e-10) / math.log(decay))) if 0.0 < decay < 1.0 else 1
+    return _one_minus_power(decay, np.arange(last + 1, dtype=np.int64))
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_table_on(decay: float, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_bias_table(decay)).to(device)
 
 
 class AdamState(NamedTuple):
-    count: int
+    count: int  # or a per-client integer tensor under the batched schedule
     mu: Params
     nu: Params
 
 
 class AmsgradState(NamedTuple):
-    count: int
+    count: int  # or a per-client integer tensor under the batched schedule
     mu: Params
     nu: Params
     nu_max: Params

@@ -205,14 +205,17 @@ UNPORTED = {
     "fedbuff_over_loopback": ["--algorithm", "fedbuff", "--runtime", "grpc", "--rank", "0"],
     "warmup": ["--warmup"],
     "fused_rounds": ["--fused_rounds", "2"],
-    "client_parallelism_vmap": ["--client_parallelism", "vmap"],
+    # the batched schedule runs lr and the LM; a model with an LSTM waits
+    "client_parallelism_vmap": ["--client_parallelism", "vmap", "--model", "rnn"],
     # straggler_aware runs; the gRPC straggler injection beside it waits
     "straggler_aware": ["--selection", "straggler_aware", "--straggle_ms", "50"],
     "telemetry_dir": ["--telemetry_dir", "telemetry"],
     "prom_port": ["--prom_port", "0"],
     "recompile_budget": ["--recompile_budget", "10"],
-    "model_zoo": ["--model", "vgg11"],
-    "dataset": ["--dataset", "imagenet"],
+    # every model and dataset name is ported; what waits is the batched
+    # schedule of a model with running statistics, on its own dataset too
+    "model_zoo": ["--model", "efficientnet", "--client_parallelism", "vmap"],
+    "dataset": ["--dataset", "seg_synth", "--model", "segnet", "--client_parallelism", "vmap"],
 }
 
 

@@ -2,7 +2,8 @@
 the CPU: every ported name loads a byte-identical dataset, every name of
 ``TASKS`` maps to the same task, the LEAF and TFF-h5 loaders read the
 fixtures of tests/golden/ and small files written here the same way, and
-the names still to port raise NotImplementedError."""
+the names once refused (``imagenet``, ``landmarks``) raise the reference's
+FileNotFoundError without their files."""
 
 import json
 import sys
@@ -32,6 +33,8 @@ PORTED = [
     ("shakespeare_synth_lm", 4, "hetero"),
     ("seg_synth", 3, "hetero"),
 ]
+# the names the registry once refused; ported since (their loaders are held
+# to the reference in tests/test_torch_imagenet_landmarks.py)
 NOT_PORTED = ["imagenet", "landmarks"]
 
 
@@ -70,9 +73,14 @@ def test_every_task_maps_as_the_reference():
 
 
 @pytest.mark.parametrize("name", NOT_PORTED)
-def test_unported_names_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tregistry.load(_config(tcfg, name, 4))
+def test_unported_names_raise(name, tmp_path):
+    """Without their files, both packages raise the same FileNotFoundError."""
+    errors = []
+    for registry, cfg_mod in ((tregistry, tcfg), (jregistry, jcfg)):
+        with pytest.raises(FileNotFoundError) as e:
+            registry.load(_config(cfg_mod, name, 4, data_dir=tmp_path / "missing"))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
 
 
 def test_unknown_name_raises_key_error():

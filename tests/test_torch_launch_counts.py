@@ -16,7 +16,7 @@ THREADS, PER_THREAD = 8, 10_000
 
 
 @pytest.mark.parametrize(
-    "launches,name", [(rs.LAUNCHES, rs.KERNEL_NAME)] + [(fa.LAUNCHES, n) for n in fa.KERNEL_NAMES],
+    "launches,name", [(rs.LAUNCHES, rs.KERNEL_NAME)] + [(fa.LAUNCHES, (n, "bfloat16")) for n in fa.KERNEL_NAMES],
     ids=[rs.KERNEL_NAME, *fa.KERNEL_NAMES],
 )
 def test_launch_count_is_exact_under_eight_threads(launches, name):

@@ -131,6 +131,9 @@ def test_simulator_on_the_actors_minibatches_is_bit_equal_to_loopback(algo):
     requires of the two at batch 20 on the card."""
     server = FEDADAM if algo == "fedopt" else None
     cfg, data, model = _port(server=server, batch_size=4)
+    # the actors train one client at a time: the simulator's loop schedule
+    # (lr's "auto" is the batched one, whose batched matmuls round otherwise)
+    cfg = cfg.replace(fed=dataclasses.replace(cfg.fed, client_parallelism="scan"))
     sim = (FedOptAPI if algo == "fedopt" else FedAvgAPI)(
         cfg, data, model, device="cpu", perm_fn=actor_order_perm_fn(cfg, data))
     sim.train()

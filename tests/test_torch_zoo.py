@@ -317,8 +317,21 @@ def test_registry_flags_of_the_deeper_models(name, kw):
 
 @pytest.mark.parametrize("name", ["vgg11", "vgg16_bn", "efficientnet"])
 def test_unported_models_name_their_roadmap_item(name):
+    """Ported since (tests/test_torch_vgg_efficientnet.py): what waits is
+    their batched client schedule, which an explicit "vmap" refuses."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.config import DataConfig, FedConfig, RunConfig
+    from fedml_tpu_torch.data.synthetic import synthetic_classification
+
+    with torch.device("meta"):
+        model = create_model(name, "cifar10", (32, 32, 3), 10)
+    data = synthetic_classification(num_clients=2, num_classes=10, feat_shape=(32, 32, 3),
+                                    samples_per_client=2, seed=0)
+    cfg = RunConfig(data=DataConfig(batch_size=2),
+                    fed=FedConfig(client_num_in_total=2, client_num_per_round=2,
+                                  client_parallelism="vmap"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model(name, "cifar10", (32, 32, 3), 10)
+        FedAvgAPI(cfg, data, model, device="cpu")
 
 
 def test_unknown_model_is_a_key_error():

@@ -15,6 +15,7 @@ fedml_tpu/train/client.py ``masked_epoch_perm``)."""
 from __future__ import annotations
 
 import contextlib
+import fcntl
 import functools
 import hashlib
 import inspect
@@ -414,23 +415,23 @@ def lm_model_kw(flash_fn):
                 attn_fn=functools.partial(flash_fn, block_q=s["block"], block_k=s["block"]))
 
 
-def _lm_config(cfg_mod, compute_dtype, optimizer, lr):
+def _lm_config(cfg_mod, compute_dtype, optimizer, lr, schedule="scan"):
     s = LM_SLICE
     return cfg_mod.RunConfig(
         data=cfg_mod.DataConfig(batch_size=s["batch"]),
         fed=cfg_mod.FedConfig(
             client_num_in_total=s["num_clients"], client_num_per_round=s["num_clients"],
-            comm_round=s["rounds"], epochs=1, client_parallelism="scan",
+            comm_round=s["rounds"], epochs=1, client_parallelism=schedule,
         ),
         train=cfg_mod.TrainConfig(client_optimizer=optimizer, lr=lr, compute_dtype=compute_dtype),
         seed=s["seed"],
     )
 
 
-def run_lm_slice(compute_dtype: str, optimizer: str, lr: float):
+def run_lm_slice(compute_dtype: str, optimizer: str, lr: float, port_schedule: str = "scan"):
     """FedAvgAPI(task="nwp") on the LM slice through the reference (client
-    schedule "scan") and through the port on the CPU, from the reference's
-    init with its permutations. Returns ``(reference_record, port_api,
+    schedule "scan") and through the port on the CPU (``port_schedule``),
+    from the reference's init with its permutations. Returns ``(reference_record, port_api,
     init)`` with ``init`` the shared initial params (flat, numpy); the
     record's ``global_vars`` and ``history`` are the reference API's
     (:func:`reference_record`, cached on disk)."""
@@ -469,7 +470,8 @@ def run_lm_slice(compute_dtype: str, optimizer: str, lr: float):
     tmodel = create_model("transformer", "shakespeare_synth", shape, s["vocab"],
                           **lm_model_kw(flash_attention_bthd))
     tapi = FedAvgAPI(
-        _lm_config(tcfg, *args), synthetic_shakespeare(**lm_data_kw()), tmodel, task="nwp",
+        _lm_config(tcfg, *args, schedule=port_schedule), synthetic_shakespeare(**lm_data_kw()),
+        tmodel, task="nwp",
         device="cpu", perm_fn=jax_round_perm_fn(s["seed"], s["num_clients"]),
     )
     tapi.global_vars = from_flax(ref.init["params"])
@@ -562,7 +564,8 @@ def lr_pair(jax_cls, torch_cls, jax_kw=None, torch_kw=None, fed=None, train=None
 # reads) are kept under the system temp directory, keyed by a SHA-256 of
 # every ``fedml_tpu/**/*.py`` and of the call's arguments, so any edit of
 # the reference, or another call, misses and runs the reference as before.
-# Entries are written atomically (several xdist workers may race on one).
+# Entries are written atomically, and a worker that misses waits for
+# another that is already running the same call (a lock file a key).
 # FEDML_REF_CACHE=0 turns the cache off.
 
 REF_CACHE_DIR = Path(tempfile.gettempdir()) / f"fedml_torch_refcache_u{os.getuid()}"
@@ -612,21 +615,25 @@ def reference_record(kind: str, args: dict, run) -> types.SimpleNamespace:
         {"src": reference_source_digest(), "kind": kind, "args": args}, sort_keys=True, default=str,
     ).encode()).hexdigest()
     path = REF_CACHE_DIR / f"{key}.npz"
-    if os.environ.get("FEDML_REF_CACHE", "1") != "0" and path.exists():
-        with np.load(path, allow_pickle=False) as z:
-            arrays = {k[2:]: z[k] for k in z.files if k.startswith("a:")}
-            skeleton = json.loads(bytes(z["json"]).decode())
-        return types.SimpleNamespace(**_decode(skeleton, arrays))
-    record = run()
-    arrays: dict = {}
-    skeleton = _encode(record, "", arrays)
-    buf = io.BytesIO()
-    np.savez(buf, json=np.frombuffer(json.dumps(skeleton).encode(), np.uint8),
-             **{f"a:{k}": v for k, v in arrays.items()})
+    if os.environ.get("FEDML_REF_CACHE", "1") == "0":
+        return types.SimpleNamespace(**run())
     REF_CACHE_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    tmp.write_bytes(buf.getvalue())
-    os.replace(tmp, path)
+    with open(path.with_suffix(".lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # another worker may be running this call
+        if path.exists():
+            with np.load(path, allow_pickle=False) as z:
+                arrays = {k[2:]: z[k] for k in z.files if k.startswith("a:")}
+                skeleton = json.loads(bytes(z["json"]).decode())
+            return types.SimpleNamespace(**_decode(skeleton, arrays))
+        record = run()
+        arrays: dict = {}
+        skeleton = _encode(record, "", arrays)
+        buf = io.BytesIO()
+        np.savez(buf, json=np.frombuffer(json.dumps(skeleton).encode(), np.uint8),
+                 **{f"a:{k}": v for k, v in arrays.items()})
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_bytes(buf.getvalue())
+        os.replace(tmp, path)
     return types.SimpleNamespace(**record)
 
 
@@ -757,3 +764,130 @@ def assert_same_dataset(got, want) -> None:
             assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), part
     for a, b in ((got.test_x, want.test_x), (got.test_y, want.test_y)):
         assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+# -- the registries' names ------------------------------------------------------
+
+# (name, dataset, input shape, classes, options): every model name both
+# registries build, with a dataset and an input it takes
+REGISTRY_CASES = [
+    ("lr", "synthetic", (60,), 10, {}),
+    ("cnn", "femnist", (28, 28, 1), 62, {}),
+    ("cnn_dropout", "femnist", (28, 28, 1), 62, {}),
+    ("rnn", "shakespeare", (80,), 90, {}),
+    ("rnn", "stackoverflow_nwp", (20,), 10004, {}),
+    ("transformer", "shakespeare_synth_lm", (64,), 90, {}),
+    ("resnet56", "cifar10", (32, 32, 3), 10, {}),
+    ("resnet110", "cifar10", (32, 32, 3), 10, {}),
+] + [(n, "cifar100", (32, 32, 3), 100, {}) for n in (
+    "resnet18_gn", "resnet34_gn", "resnet50_gn", "resnet101_gn", "resnet152_gn", "mobilenet",
+    "mobilenet_v3")
+] + [(n, "imagenet", (224, 224, 3), 1000, {}) for n in (
+    "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn", "vgg16_bn", "vgg19_bn")
+] + [(f"efficientnet_{v}", "imagenet", (224, 224, 3), 1000, {"variant": v}) for v in (
+    "b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7")
+] + [
+    ("segnet", "seg_synth", (128, 128, 3), 21, {}),
+    ("darts", "cifar10", (32, 32, 3), 10, {}),
+    ("mnistgan", "mnist", (28, 28, 1), 10, {}),
+]
+
+
+def registry_name(case) -> str:
+    return case[0].split("_b")[0] if case[0].startswith("efficientnet") else case[0]
+
+
+def case_id(case) -> str:
+    return f"{case[0]}-{case[1]}"
+
+
+MODEL_FACTS = Path(__file__).with_name("reference_model_facts.json")
+
+
+def _read_model_facts(cases) -> dict:
+    """{case_id: {"mode", "count"}} of the reference for each of ``cases``,
+    from one ``jax.eval_shape`` of each model's init (the resolution's own
+    call, captured)."""
+    import jax
+
+    from fedml_tpu.algorithms import fedavg as jfedavg
+    from fedml_tpu.models import create_model as jax_create_model
+
+    out = {}
+    real = jax.eval_shape
+    for case in cases:
+        name, dataset, shape, classes, kw = case
+        model = jax_create_model(registry_name(case), dataset, shape, classes, **kw)
+        seen = []
+
+        def capture(*a, **k):
+            seen.append(real(*a, **k))
+            return seen[-1]
+
+        jax.eval_shape = capture
+        try:
+            mode = jfedavg.resolve_client_parallelism("auto", model)
+        finally:
+            jax.eval_shape = real
+        # the last call is the resolution's own (init may trace inner ones)
+        count = sum(int(np.prod(leaf.shape)) for leaf in jax.tree_util.tree_leaves(seen[-1]))
+        out[case_id(case)] = {"mode": mode, "count": count}
+    return out
+
+
+def _case_args(case) -> list:
+    return list(map(str, case))
+
+
+def reference_model_facts(cases) -> dict:
+    """{case_id: {"mode": the reference's ``resolve_client_parallelism
+    ("auto", model)``, "count": its variables' element count}} for the
+    given REGISTRY_CASES entries.
+
+    Tracing the reference's full-width models costs ~30 s, so its readings
+    of REGISTRY_CASES are kept in ``reference_model_facts.json`` beside
+    this file, with the digest of the reference's sources they were read
+    from (:func:`write_reference_model_facts` writes it). A case the file
+    does not hold for these sources, or every case with FEDML_REF_CACHE=0,
+    is read from the reference (through :func:`reference_record`)."""
+    saved = {}
+    if os.environ.get("FEDML_REF_CACHE", "1") != "0" and MODEL_FACTS.exists():
+        doc = json.loads(MODEL_FACTS.read_text())
+        if doc["src"] == reference_source_digest():
+            saved = doc["facts"]
+    out, missing = {}, []
+    for case in cases:
+        fact = saved.get(case_id(case))
+        if fact is not None and fact["args"] == _case_args(case):
+            out[case_id(case)] = {"mode": fact["mode"], "count": fact["count"]}
+        else:
+            missing.append(case)
+    if missing:
+        rec = reference_record("model_facts", {"cases": [_case_args(c) for c in missing]},
+                               lambda: {"facts": _read_model_facts(missing)})
+        out.update(rec.facts)
+    return out
+
+
+def write_reference_model_facts() -> None:
+    """Read REGISTRY_CASES from the reference and write
+    ``reference_model_facts.json``: ``JAX_PLATFORMS=cpu python -c "import
+    sys; sys.path[:0] = ['.', 'tests']; import torch_parity as t;
+    t.write_reference_model_facts()"`` from the repo root."""
+    facts = _read_model_facts(REGISTRY_CASES)
+    doc = {"src": reference_source_digest(),
+           "facts": {case_id(c): {"args": _case_args(c), **facts[case_id(c)]}
+                     for c in REGISTRY_CASES}}
+    lines = [f" {json.dumps(k)}: {json.dumps(v)}" for k, v in doc["facts"].items()]
+    MODEL_FACTS.write_text(f'{{"src": {json.dumps(doc["src"])}, "facts": {{\n'
+                           + ",\n".join(lines) + "\n}}\n")
+
+
+def port_model(case, device="meta"):
+    """The port's ModelDef of a REGISTRY_CASES entry, its module built on
+    ``device`` (the meta device: shapes only, nothing allocated)."""
+    from fedml_tpu_torch.models import create_model
+
+    name, dataset, shape, classes, kw = case
+    with torch.device(device):
+        return create_model(registry_name(case), dataset, shape, classes, **kw)
