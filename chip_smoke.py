@@ -13,20 +13,22 @@ Phases, each of which raises on failure:
 3. K1 (the rank-select trimmed mean / median) against its plain PyTorch
    version on the card: bit-equal over a grid of cohort sizes, widths and
    trim windows (every cohort of the register kernel, C = 2..16, and the
-   chunk kernel above it, up to C = 1000: the column in opted-in shared
-   memory up to C = 454, read from device memory above), with integer
-   ties, and at the per-leaf shapes of a round; then its time for a round's
-   8 leaves and for one flat launch beside the plain version,
+   select kernel above it, up to C = 1000: radix select on warp tiles in
+   opted-in shared memory), with integer ties, at the per-leaf shapes of a
+   round, and with ±0, ±inf and NaN (one a column, several, NaN only) at
+   C in {17, 100, 128, 455, 1000}, NaN with NaN; then its time for a
+   round's 8 leaves and for one flat launch beside the plain version,
    ``torch.quantile``, the sort-and-window path, ``torch.median`` and the
-   bound, each time's share of the bound, the median of a [128, 1690046]
-   stack beside ``torch.sort`` and its bound, and each path's registers,
-   local memory, shared memory and blocks an SM;
+   bound (the function's bytes), each time's share of the bound, the
+   100-client round's 8 leaves at C = 100 and the median of a [128,
+   1690046] stack, each beside ``torch.sort`` and its bound, and each
+   path's registers, local memory, shared memory and blocks an SM;
 4. the main path: RobustFedAvgAPI on the FEMNIST north-star configuration
    (128 synthetic clients, 10 per round, batch 20, E=1, SGD lr 0.1, the
    62-class CNN at full width): 3 rounds with the coordinate median, 2 with
    the trimmed mean; the K1 launch count is zeroed just before and read just
    after, and must be 8 per round; then one median round with 100 clients
-   a round (K1's chunk kernel), which must launch K1 exactly 8 times;
+   a round (K1's select kernel), which must launch K1 exactly 8 times;
 5. where a warm median round's time goes (torch.profiler: device kernel
    time by name against the round's wall time);
 6. one median round on the card against the same round on the CPU, from
@@ -42,9 +44,10 @@ Phases, each of which raises on failure:
    minus forward), with each kernel's achieved TFLOP/s, share of its bound,
    registers, local memory and blocks resident on an SM, and K3 + K4 over
    SDPA's backward, and the float32 kernels beside float32 SDPA and their
-   float32 bounds; then the SASS of the built library (``cuobjdump``):
-   every bfloat16 K2/K3/K4 instantiation must hold tensor-core (HMMA)
-   instructions;
+   float32 bounds (bytes, or three TF32 products a product); then the SASS
+   of the built library (``cuobjdump``): every bfloat16 K2/K3/K4
+   instantiation and every float32 K2 instantiation (split TF32) must hold
+   tensor-core (HMMA) instructions;
 9. the LM path: FedAvgAPI(task="nwp") on the flagship LM (6 layers, 8
    heads, 768 wide, vocab 1024, windows of 256; 8 synthetic-Shakespeare
    clients all in every round, batch 32, E=1, AMSGrad lr 1e-3, bfloat16
@@ -229,15 +232,21 @@ import sys
 import time
 from pathlib import Path
 
-C_GRID = (3, 4, 10, 16, 17, 33, 64, 65, 128, 200, 1000)
+C_GRID = (3, 4, 10, 16, 17, 33, 64, 65, 128, 200, 1000, 2000)
 D_GRID = (1, 700, 1_690_046)
 COHORT = 10
 FULL_D = 1_690_046  # parameters of the 62-class CNN
 # K1 above 64 clients: every k is 33-500 windows, so a few of them; and at
-# C = 1000 a narrower D (the [1000, 100003] input is 0.4 GB)
+# C = 1000 and 2000 narrower D (the [1000, 100003] input is 0.4 GB; 2000 is
+# past the select kernel's shared-memory tile: the column from device memory)
 K1_LARGE_C = 64
-K1_D_AT_C = {1000: (100_003,)}
+K1_D_AT_C = {1000: (100_003,), 2000: (20_011,)}
 LARGE_C = 128  # K1's time beside torch.sort at a cohort above the register kernel's
+# special values at cohorts of the select kernel (C > 16), its tile's widest
+# C (455) and a column read from device memory (1000), at D = K1_SPECIAL_D
+K1_SPECIAL_C = (17, 100, 128, 455, 1000)
+K1_SPECIAL_KINDS = ("int_ties", "signed_zeros", "infs", "one_nan", "nans")
+K1_SPECIAL_D = 100_003
 # the robust round at a cohort above 64: 128 clients, 100 a round
 LARGE_COHORT = 100
 MEDIAN_ROUNDS, TRIMMED_ROUNDS = 3, 2
@@ -314,13 +323,13 @@ RESNET_CARD_VS_CPU = {"params": (0.0, 1e-2), "stats": (1e-5, 1e-5)}
 # CPU: 2.3e-7 of the scale)
 RESNET_FIXTURE_TOL = 1e-5
 
-# data-sheet HBM bandwidth (bytes/s), fp32 non-tensor peak and dense bf16
-# tensor-core peak (FLOP/s)
+# data-sheet HBM bandwidth (bytes/s), fp32 non-tensor peak, dense bf16
+# tensor-core peak and dense TF32 tensor-core peak (FLOP/s)
 CARDS = {
-    "H100 PCIe": (2.0e12, 51e12, 756e12),
-    "H100 NVL": (3.9e12, 60e12, 835e12),
-    "H100": (3.35e12, 67e12, 989e12),  # SXM5, "NVIDIA H100 80GB HBM3"
-    "H200": (4.8e12, 67e12, 989e12),
+    "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12, 417.5e12),
+    "H100": (3.35e12, 67e12, 989e12, 495e12),  # SXM5, "NVIDIA H100 80GB HBM3"
+    "H200": (4.8e12, 67e12, 989e12, 495e12),
 }
 
 
@@ -403,7 +412,48 @@ def _check_equal(got, want, what) -> float:
     return err
 
 
-def phase_k1_parity(device="cuda", c_grid=C_GRID, d_grid=D_GRID):
+def _check_bits(got, want, what) -> float:
+    """Raise unless bit-equal where the plain version is not NaN and NaN
+    where it is; return the max |got - want| (0.0)."""
+    import torch
+
+    nan = torch.isnan(want)
+    if (got.shape != want.shape or not torch.equal(torch.isnan(got), nan)
+            or not torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))):
+        raise AssertionError(f"K1 differs from its reference at {what}")
+    return 0.0
+
+
+def k1_special_block(kind: str, C: int, D: int, gen, device):
+    """[C, D] float32 of one special-value kind: small integers (ties); a
+    quarter +0 and a quarter -0 among randn and ±1; 10% +inf and 10% -inf;
+    one NaN a column; ~5% NaN, 60% in 4 columns and NaN only in the last 2."""
+    import torch
+
+    x = torch.randn(C, D, generator=gen, device=device)
+    if kind == "int_ties":
+        return torch.randint(-3, 4, (C, D), generator=gen, device=device).float()
+    if kind == "signed_zeros":
+        pick = torch.randint(0, 4, (C, D), generator=gen, device=device)
+        x = torch.where(pick == 0, torch.zeros_like(x), x)
+        x = torch.where(pick == 1, torch.full_like(x, -0.0), x)
+        return torch.where(pick == 2, torch.sign(x), x)
+    u = torch.rand(C, D, generator=gen, device=device)
+    if kind == "infs":
+        x[u < 0.1] = math.inf
+        x[u > 0.9] = -math.inf
+    elif kind == "one_nan":
+        rows = torch.randint(0, C, (D,), generator=gen, device=device)
+        x[rows, torch.arange(D, device=device)] = math.nan
+    elif kind == "nans":
+        x[u < 0.05] = math.nan
+        x[:, -6:-2][u[:, -6:-2] < 0.6] = math.nan
+        x[:, -2:] = math.nan
+    return x
+
+
+def phase_k1_parity(device="cuda", c_grid=C_GRID, d_grid=D_GRID, special_c=K1_SPECIAL_C,
+                    special_d=K1_SPECIAL_D):
     """K1 bit-equal to its plain version; returns the max |kernel - plain|."""
     import torch
 
@@ -436,6 +486,14 @@ def phase_k1_parity(device="cuda", c_grid=C_GRID, d_grid=D_GRID):
             got = rs.trimmed_mean_1d(x, k)
             errs.append(_check_equal(got, rs.trimmed_mean_plain(x, k), f"ties C={C} k={k}"))
             _check_equal(got, rs.trimmed_mean_sort(x, k), f"ties vs sort C={C} k={k}")
+    # special values: ±0, ±inf, NaN (a NaN is in no rank and kept only at k = 0)
+    for C in special_c:
+        for kind in K1_SPECIAL_KINDS:
+            x = k1_special_block(kind, C, special_d, gen, device)
+            for k in sorted({0, 1, C // 4, rs.median_trim_k(C)}):
+                errs.append(_check_bits(rs.trimmed_mean_1d(x, k), rs.trimmed_mean_plain(x, k),
+                                        f"{kind} C={C} D={special_d} k={k}"))
+            del x
     # the per-leaf shapes of a round: [cohort, *leaf] for each weight leaf
     model = create_model("cnn", "femnist", (28, 28, 1), 62)
     for name, p in model.module.named_parameters():
@@ -445,22 +503,26 @@ def phase_k1_parity(device="cuda", c_grid=C_GRID, d_grid=D_GRID):
                 rs.trimmed_mean_1d(x, k), rs.trimmed_mean_plain(x, k), f"{name} k={k}"
             ))
     log(f"[k1] bit-equal to the plain version in {len(errs)} cases "
-        f"(C in {list(c_grid)}, D in {list(d_grid)} (C = 1000: D = 100003), every k up to "
-        f"C = {K1_LARGE_C}, four k above; C = 2..17 at D = 700; integer ties; round leaf shapes)")
+        f"(C in {list(c_grid)}, D in {list(d_grid)} (C = 1000: D = 100003; C = 2000: D = "
+        f"20011), every k up to "
+        f"C = {K1_LARGE_C}, four k above; C = 2..17 at D = 700; integer ties; round leaf shapes; "
+        f"{', '.join(K1_SPECIAL_KINDS)} at C in {list(special_c)}, D = {special_d})")
     return max(errs)
 
 
 def phase_k1_timing(name: str, smi: str):
     """K1 at the round's shapes: the median of a [10, *leaf] stack for each
     of the CNN's 8 weight leaves (what one robust round aggregates), and one
-    launch over the whole flattened model."""
+    launch over the whole flattened model; then the select kernel at the
+    100-client round's own shape (the 8 leaves at C = 100) and over
+    [128, whole model]. Bounds: the function's bytes."""
     import torch
 
     from fedml_tpu_torch.models import create_model
     from fedml_tpu_torch.ops import robust_stats as rs
     from fedml_tpu_torch.robustness import coordinate_median, trimmed_mean
 
-    card, (bw, fp32_peak, _) = card_rates(name)
+    card, (bw, *_) = card_rates(name)
     gen = torch.Generator(device="cuda").manual_seed(1)
     model = create_model("cnn", "femnist", (28, 28, 1), 62)
     stack = {
@@ -476,12 +538,13 @@ def phase_k1_timing(name: str, smi: str):
         for v in flat.values():
             torch.quantile(v, 0.5, dim=0, interpolation="midpoint")
 
-    def sort_window_all(k):
-        for v in flat.values():
-            torch.sort(v, dim=0).values[k : COHORT - k].mean(dim=0)
+    def sort_window_all(k, leaves=flat):
+        for v in leaves.values():
+            C = v.shape[0]
+            torch.sort(v, dim=0).values[k : C - k].mean(dim=0)
 
-    def plain_all(k):
-        for v in flat.values():
+    def plain_all(k, leaves=flat):
+        for v in leaves.values():
             rs.trimmed_mean_plain(v, k)
 
     # the function agrees with the library's, too
@@ -510,10 +573,13 @@ def phase_k1_timing(name: str, smi: str):
     t["torch_median_flat_c11"] = device_ms(lambda: torch.median(x11, dim=0), iters=10)
 
     def bound(C, D):
-        nbytes = (C * D + D) * 4  # each input read once, each output written once
-        ops = C * (C - 1) * D + C * D + D  # compares, adds, one divide
-        return (nbytes, ops, max(nbytes / bw, ops / fp32_peak) * 1e3,
-                "bytes" if nbytes / bw >= ops / fp32_peak else "operations")
+        """The function's bytes (each input read once, each output written
+        once) over the card's rate, and beside them the C(C-1) compares a
+        coordinate of the stable-rank formula (the register kernel's work,
+        and that of the O(C^2) kernel C > 16 took before the select
+        kernel)."""
+        nbytes = (C * D + D) * 4
+        return nbytes, C * (C - 1) * D, nbytes / bw * 1e3, "bytes"
 
     nbytes, ops, bound_ms, bound_by = bound(COHORT, D)
     # a cohort above the register kernel's: the median of [128, D]
@@ -527,15 +593,34 @@ def phase_k1_timing(name: str, smi: str):
             lambda: torch.sort(xl, dim=0).values[k_l : LARGE_C - k_l].mean(dim=0), iters=5),
         "plain_median_ms": device_ms(lambda: rs.trimmed_mean_plain(xl, k_l), iters=2),
     }
-    (large["bytes"], large["ops"], large["bound_ms"], large["bound_by"]) = bound(LARGE_C, FULL_D)
+    (large["bytes"], large["rank_compares"], large["bound_ms"], large["bound_by"]) = bound(
+        LARGE_C, FULL_D)
     large["bound_share"] = large["bound_ms"] / large["k1_median_ms"]
     del xl
+    # the 100-client median round's own launches: the 8 leaves at C = 100
+    stack_c = {n: torch.randn((LARGE_COHORT,) + tuple(p.shape), generator=gen, device="cuda")
+               for n, p in model.module.named_parameters()}
+    flat_c = {n: v.reshape(LARGE_COHORT, -1) for n, v in stack_c.items()}
+    k_c = rs.median_trim_k(LARGE_COHORT)
+    for n, v in flat_c.items():
+        _check_equal(rs.median_1d(v), rs.trimmed_mean_plain(v, k_c), f"{n} at C={LARGE_COHORT}")
+    path = {
+        "C": LARGE_COHORT, "D": FULL_D, "launches": len(flat_c),
+        "k1_median_round_ms": device_ms(lambda: coordinate_median(stack_c), iters=10),
+        "sort_window_median_round_ms": device_ms(lambda: sort_window_all(k_c, flat_c), iters=5),
+        "plain_median_round_ms": device_ms(lambda: plain_all(k_c, flat_c), iters=2),
+    }
+    (path["bytes"], path["rank_compares"], path["bound_ms"], path["bound_by"]) = bound(
+        LARGE_COHORT, FULL_D)
+    path["bound_share"] = path["bound_ms"] / path["k1_median_round_ms"]
+    large["path_c100"] = path
+    del stack_c, flat_c
 
     def launch_host_us(C, calls=200):
         """Host microseconds a call of the wrapper takes to enqueue its
         launch (fewer calls than the launch queue holds, timed before the
         card is waited for): the register kernel sets nothing up, the
-        chunk kernel's setup is worked out on its first call and kept."""
+        select kernel's setup is worked out on its first call and kept."""
         xs = torch.randn(C, 128, generator=gen, device="cuda")
         k = rs.median_trim_k(C)
         rs.trimmed_mean_1d(xs, k)
@@ -549,17 +634,18 @@ def phase_k1_timing(name: str, smi: str):
 
     large["launch_host_us"] = {f"C={c}": launch_host_us(c) for c in (COHORT, LARGE_COHORT)}
     log(json.dumps({
-        "k1_timing_ms": t, "C": COHORT, "D": D, "bytes": nbytes, "ops": ops,
+        "k1_timing_ms": t, "C": COHORT, "D": D, "bytes": nbytes, "rank_compares": ops,
         "bound_ms": bound_ms, "bound_by": bound_by,
         # a round's 8 leaves read and write the same bytes as one flat launch
         "bound_share": {key: bound_ms / t[key] for key in
                         ("k1_median_round", "k1_trimmed_round", "k1_median_flat", "k1_trimmed_flat")},
         "large_c": large,
-        # the register kernel, the chunk kernel on its shared-memory tile
-        # (48 KB and more at C = 100 and 128: opted in), and from device memory
+        # the register kernel; the select kernel on its warps' shared-memory
+        # tiles (opted in above 48 KB), 1 warp a block at C = 1000, and with
+        # the columns read from device memory at C = 2000
         "kernel_info": {f"C={c}": rs.kernel_info(c) for c in (COHORT, 33, LARGE_COHORT,
-                                                              LARGE_C, 1000)},
-        "rates": f"{card} data sheet: {bw / 1e12} TB/s, {fp32_peak / 1e12} TFLOP/s fp32",
+                                                              LARGE_C, 455, 1000, 2000)},
+        "rates": f"{card} data sheet: {bw / 1e12} TB/s",
         "card": smi,
         "notes": "torch.median is the lower median at even C (not the same function); "
                  "quantile(midpoint) and sort+window are the same function",
@@ -621,8 +707,9 @@ def phase_main_path(device="cuda", num_clients=128, per_round=COHORT):
 
 def phase_large_cohort(device="cuda", num_clients=128, per_round=LARGE_COHORT):
     """RobustFedAvgAPI median on the north-star CNN with 100 clients a
-    round, 1 round: K1 on a cohort above the register kernel's (its chunk
-    kernel, the column in opted-in shared memory). Returns the launches."""
+    round, 1 round: K1 on a cohort above the register kernel's (its
+    select kernel, the columns in opted-in shared memory). Returns the
+    launches."""
     from fedml_tpu_torch.algorithms import RobustFedAvgAPI
     from fedml_tpu_torch.ops import robust_stats as rs
     from fedml_tpu_torch.robustness import RobustConfig
@@ -796,7 +883,7 @@ def phase_flash_timing(name: str, smi: str):
 
     from fedml_tpu_torch.ops import flash_attention as fa
 
-    card, (bw, _, bf16_peak) = card_rates(name)
+    card, (bw, _, bf16_peak, _) = card_rates(name)
     B, H, S, d = LM["batch"], LM["heads"], LM["seq"], LM["width"] // LM["heads"]
     BH, scale, blk = B * H, d**-0.5, fa.KERNEL_TILE
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -871,19 +958,21 @@ def phase_flash_timing(name: str, smi: str):
 
 
 def _flash_timing_f32(fa, q, k, v, do, scale, blk, work, bw) -> dict:
-    """The float32 K2/K3/K4 (the CUDA-core kernels: the flagship LM
-    trains in bfloat16, and its eval forward launches the float32 K2) at
-    the same shape beside float32 SDPA, forward and backward, all with
-    TF32 off; bounds from the
-    same work at 4 bytes an element over the card's float32 non-tensor
-    peak. {kernel: {kernel, plain, bound, bound_by, bytes, flops,
-    sdpa_fwd, sdpa_bwd, registers, local_bytes, blocks_per_sm}}."""
+    """The float32 K2/K3/K4 (K2 on split-TF32 tensor cores, K3/K4 on the
+    CUDA cores: the flagship LM trains in bfloat16, and its eval forward
+    launches the float32 K2) at the same shape beside float32 SDPA, forward
+    and backward, all with TF32 off. Bounds: the same work at 4 bytes an
+    element over the card's rate, or its FLOPs three times over (a float32
+    product at float32 accuracy is three TF32 products) at the dense TF32
+    peak, whichever is longer. {kernel: {kernel, plain, bound, bound_by,
+    bytes, flops, sdpa_fwd, sdpa_bwd, registers, local_bytes,
+    blocks_per_sm}}."""
     import torch
     import torch.nn.functional as F
 
     from fedml_tpu_torch.device import fp32_math
 
-    _, (_, fp32_peak, _) = card_rates(torch.cuda.get_device_name(0))
+    _, (*_, tf32_peak) = card_rates(torch.cuda.get_device_name(0))
     B, H, S, d = LM["batch"], LM["heads"], LM["seq"], LM["width"] // LM["heads"]
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     before = dict(fa.LAUNCHES)
@@ -919,7 +1008,7 @@ def _flash_timing_f32(fa, q, k, v, do, scale, blk, work, bw) -> dict:
     out = {}
     for kname, (_, flops) in work.items():
         nbytes = nbytes_of[kname]
-        tb, tf = nbytes / bw * 1e3, flops / fp32_peak * 1e3
+        tb, tf = nbytes / bw * 1e3, 3 * flops / tf32_peak * 1e3
         info = fa.kernel_info(kname, torch.float32, d)
         out[kname] = {"kernel": t[kname], "plain": plain[kname], "bound": max(tb, tf),
                       "bound_by": "bytes" if tb >= tf else "operations", "bytes": nbytes,
@@ -953,11 +1042,11 @@ def sass_counts(sass: str) -> dict:
     FMA), LDSM (ldmatrix), LDL/STL (local memory: spills)."""
     counts, label = {}, None
     for line in sass.splitlines():
-        head = re.search(r"Function : \S*?(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc)?_kernel)I(\w*?)"
-                         r"Li(\d+)E", line)
+        head = re.search(r"Function : \S*?(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc|_f32tc)?_kernel)"
+                         r"I(\w*?)Li(\d+)E", line)
         if head:
             kern, typ, d = head.groups()
-            label = f"{kern}<{'float' if typ == 'f' else 'bf16'}, {d}>"
+            label = f"{kern}<{'float' if typ == 'f' or '_f32tc' in kern else 'bf16'}, {d}>"
             counts[label] = {op: 0 for op in ("HMMA", "FFMA", "LDSM", "LDL", "STL")}
             continue
         if "Function : " in line:
@@ -970,7 +1059,8 @@ def sass_counts(sass: str) -> dict:
 
 def phase_sass():
     """Disassemble the built flash library; raise unless every bfloat16
-    K2/K3/K4 instantiation holds HMMA instructions."""
+    K2/K3/K4 instantiation and every float32 K2 instantiation (split TF32)
+    holds HMMA instructions."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     tool = _cuobjdump()
@@ -984,6 +1074,9 @@ def phase_sass():
     log(json.dumps({"sass": counts, "tool": tool}))
     if len(tc) != 3 * len(fa.HEAD_DIMS) or any(v["HMMA"] == 0 for v in tc.values()):
         raise AssertionError(f"bf16 K2/K3/K4 instantiations without HMMA: {tc}")
+    f32 = {k: v for k, v in counts.items() if "_f32tc_kernel<float" in k}
+    if len(f32) != len(fa.HEAD_DIMS) or any(v["HMMA"] == 0 for v in f32.values()):
+        raise AssertionError(f"float32 K2 instantiations without HMMA: {f32}")
 
 
 # ---------------------------------------------------------------- the LM path
@@ -2553,7 +2646,7 @@ def phase_fedbuff(smi: str, device="cuda", num_clients=128, workers=FEDBUFF["wor
     step = {"k": k, "max_abs_err_vs_float64": step_err, "tol": FEDBUFF_STEP_TOL,
             "model_bytes": model_bytes}
     if device == "cuda":
-        _, (rate, _, _) = card_rates(torch.cuda.get_device_name(0))
+        _, (rate, *_) = card_rates(torch.cuda.get_device_name(0))
         step["ms"] = device_ms(lambda: fb.apply_buffered_update(g, deltas, taus, FEDBUFF["eta"],
                                                                 FEDBUFF["exp"]))
         # each delta read once, the model read once and written once
@@ -3827,7 +3920,7 @@ def phase_batched_and_zoo(smi: str, device="cuda", lm=None, zoo=None) -> dict:
     _zoo_report(device, {**ZOO, **(zoo or {})})
     log("[batched] " + json.dumps({"card": smi}))
     out = {s: lm_report[s]["launches"] for s in ("vmap", "loop")}
-    for s in ("vmap", "loop"):  # the float32 (CUDA-core) kernels' share: the eval's K2
+    for s in ("vmap", "loop"):  # the float32 kernels' share: the eval's K2
         by_dtype = lm_report[s]["launches_by_dtype"]
         out[s + "_float32"] = {kn: by_dtype[f"{kn}:float32"] for kn in out[s]}
     return out
@@ -3896,8 +3989,9 @@ def main() -> int:
         "bound_ms": fbounds[kn][0],
         "bound_by": fbounds[kn][1],
         "library_ms": flib[kn],
-        # the float32 (CUDA-core) kernel at the same shape; the LM's eval
-        # forward launches the float32 K2, no path the float32 K3/K4
+        # the float32 kernel at the same shape (K2 on split-TF32 tensor
+        # cores, K3/K4 on the CUDA cores); the LM's eval forward launches
+        # the float32 K2, no path the float32 K3/K4
         "float32": {"ms": f32[kn]["kernel"], "plain_ms": f32[kn]["plain"],
                     "launches": {"vmap": batched_launches["vmap_float32"][kn],
                                  "loop": batched_launches["loop_float32"][kn]},
@@ -3917,12 +4011,17 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": t["sort_window_median_round"],
-        # the chunk kernel: a cohort of 128 over the whole model, and the
-        # launches of the robust round at 100 clients
+        # the select kernel (C > 16): a cohort of 128 over the whole model;
+        # the robust round at 100 clients, its 8 leaves timed at their own
+        # shapes, and its launches
         "c128_ms": large["k1_median_ms"],
         "c128_bound_ms": large["bound_ms"],
         "c128_bound_by": large["bound_by"],
         "c128_library_ms": large["sort_window_median_ms"],
+        "c100_round_ms": large["path_c100"]["k1_median_round_ms"],
+        "c100_round_plain_ms": large["path_c100"]["plain_median_round_ms"],
+        "c100_round_bound_ms": large["path_c100"]["bound_ms"],
+        "c100_round_library_ms": large["path_c100"]["sort_window_median_round_ms"],
         "large_cohort_launches": large_cohort_launches,
         # launches through python -m fedml_tpu_torch's cli.main (phase 14)
         "cli_launches": cli_launches,

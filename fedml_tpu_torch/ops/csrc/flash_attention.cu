@@ -19,10 +19,10 @@
 //
 // What bounds them on the H100: at the LM's shapes (S = 256, D = 96, bfloat16,
 // causal) the ideal kernels are bound by bytes (~64-85 FLOP per byte moved,
-// under the card's ~295 FLOP/byte bf16 ridge). Two designs live here.
+// under the card's ~295 FLOP/byte bf16 ridge). Three designs live here.
 //
-// SIMT kernels, for float32 (off the LM's bf16 path): K2, K3 and K4. They do
-// every product as float32 FMA on the CUDA cores (67 TFLOP/s peak), out of
+// SIMT kernels, for float32 K3 and K4 (no path trains in float32): every
+// product is float32 FMA on the CUDA cores (67 TFLOP/s peak), out of
 // float32 tiles in shared memory, so they are bound by the FMA pipe and by
 // shared-memory loads, not by bytes:
 //   - the TPU grid's sequential K axis becomes a loop inside a block: one block
@@ -34,8 +34,17 @@
 //   - each thread owns a 4 x 4 register tile of a 64 x 64 score block (rows
 //     ty + 16 i, columns tx + 16 j) and 4 x D/16 outputs (rows ty + 16 i,
 //     columns tx + 16 j).
-// Tensor cores cannot give float32 products of float32 inputs at float32
-// accuracy, so float32 keeps these kernels.
+//
+// Split-TF32 tensor-core kernel, for float32 K2 (`flash_fwd_f32tc_kernel`;
+// the LM's eval forward): TF32 products alone keep 11 significant bits, but
+// a float32 x splits into hi = tf32(x), rounded to nearest, and the exact
+// remainder lo = x - hi (which the tensor core reads to TF32's 11 bits, so
+// x - hi - lo stays within ~2^-21 |x|), and a product a b is then
+// hi·hi + hi·lo + lo·hi: three mma.sync m16n8k8 TF32 products with float32
+// sums ("3xTF32"), good to about 2^-20 relative against TF32's 2^-11. At the
+// H100's 495 TFLOP/s dense TF32, three products over the causal half take
+// less than the function's bytes, so the bound is the bytes. Its layout is
+// the bf16 K2's below, with float32 tiles (see the kernel's note).
 //
 // Tensor-core kernels, for bfloat16: K2 (`flash_fwd_tc_kernel`), K3 and K4
 // (`flash_bwd_*_tc_kernel`). Same blocks and loops, but the products are
@@ -68,7 +77,7 @@
 // own), so the results agree with the float32 plain versions to one bf16
 // ulp of the rounded values, not bit for bit.
 //
-// Both designs: under the causal mask only the tiles it leaves live are
+// All three designs: under the causal mask only the tiles it leaves live are
 // visited (about half the work), and the heaviest tiles are scheduled first;
 // ragged edges (S not a multiple of 64) are guarded: rows past the end load
 // as zeros and are never stored, columns past the end are masked, and K4
@@ -159,140 +168,6 @@ __device__ __forceinline__ float masked_score(float dot, float scale, int r, int
                                               int sk, bool causal) {
   const float s = dot * scale;
   return (c >= sk || (causal && r < c)) ? kMaskValue : s;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// ------------------------------------------------------------------ K2
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int s_len, int sk_len,
-                 int causal, float scale) {
-  constexpr int ld = D + kPad;
-  constexpr int kCols = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + tile_floats<D>();
-  float* Vs = Ks + tile_floats<D>();
-  float* Ps = Vs + tile_floats<D>();  // [64][kPLd]: scores, then P
-  float* m_s = Ps + kTile * kPLd;
-  float* l_s = m_s + kTile;
-  float* c_s = l_s + kTile;
-
-  const int bh = blockIdx.x;
-  const int nq = gridDim.y;
-  const int qt = nq - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int q0 = qt * kTile;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const size_t q_off = static_cast<size_t>(bh) * s_len * D;
-  const size_t k_off = static_cast<size_t>(bh) * sk_len * D;
-
-  load_tile<T, D>(Qs, q + q_off, q0, s_len);
-  for (int r = tid; r < kTile; r += kThreads) {
-    m_s[r] = kMaskValue;
-    l_s[r] = 0.0f;
-  }
-  float acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.0f;
-
-  const int nk = (sk_len + kTile - 1) / kTile;
-  // a key tile is live unless every (row, col) pair in it has col > row
-  const int k_end = causal ? min(nk, qt + 1) : nk;
-  for (int kt = 0; kt < k_end; ++kt) {
-    const int k0 = kt * kTile;
-    load_tile<T, D>(Ks, k + k_off, k0, sk_len);
-    load_tile<T, D>(Vs, v + k_off, k0, sk_len);
-    __syncthreads();
-
-    float s[4][4];
-    tile_dot<D>(Qs, Ks, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ps[(ty + 16 * i) * kPLd + tx + 16 * j] =
-            masked_score(s[i][j], scale, q0 + ty + 16 * i, k0 + tx + 16 * j, sk_len, causal != 0);
-    __syncthreads();
-
-    // online softmax: one warp per 8 rows, two columns a lane
-    for (int rr = 0; rr < kTile / 8; ++rr) {
-      const int r = warp * (kTile / 8) + rr;
-      const float s0 = Ps[r * kPLd + lane], s1 = Ps[r * kPLd + lane + 32];
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      const float row_sum = warp_sum(p0 + p1);
-      Ps[r * kPLd + lane] = round_to<T>(p0);
-      Ps[r * kPLd + lane + 32] = round_to<T>(p1);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[r] = l_s[r] * corr + row_sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = c_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= corr;
-    }
-    for (int kk = 0; kk < kTile; kk += 4) {
-      float4 p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * kPLd + kk);
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + 16 * j;
-        const float v0 = Vs[(kk + 0) * ld + c], v1 = Vs[(kk + 1) * ld + c];
-        const float v2 = Vs[(kk + 2) * ld + c], v3 = Vs[(kk + 3) * ld + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][j] = fmaf(p[i].x, v0, acc[i][j]);
-          acc[i][j] = fmaf(p[i].y, v1, acc[i][j]);
-          acc[i][j] = fmaf(p[i].z, v2, acc[i][j]);
-          acc[i][j] = fmaf(p[i].w, v3, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= s_len) continue;
-    const float l = l_s[r];
-    const float safe_l = l > 0.0f ? l : 1.0f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      o[q_off + static_cast<size_t>(q0 + r) * D + tx + 16 * j] = from_f<T>(acc[i][j] / safe_l);
-  }
-  for (int r = tid; r < kTile; r += kThreads) {
-    if (q0 + r >= s_len) continue;
-    const float l = l_s[r];
-    const float safe_l = l > 0.0f ? l : 1.0f;
-    lse[static_cast<size_t>(bh) * s_len + q0 + r] = m_s[r] + logf(safe_l);
-  }
 }
 
 // ------------------------------------------------------------------ K3
@@ -997,11 +872,255 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------------ K2 (float32): split-TF32 tensor cores
+
+constexpr int kF32Keys = 32;   // keys of a K or V tile
+constexpr int kF32QkPad = 8;   // Q and K rows: D + 8 floats
+constexpr int kF32VPad = 4;    // V rows: D + 4 floats
+
+// Row strides (floats). A lane reads Q and K fragments as 8-byte pairs at
+// row g, column 2t (g = lane / 4, t = lane % 4): a stride of 8 mod 32 words
+// puts a half-warp's 16 pairs in distinct banks. It reads V at rows 2t and
+// 2t + 1, column g: a stride of 4 mod 32 does the same for its 4-byte loads.
+template <int D> constexpr int f32_qk_ld() { return D + kF32QkPad; }
+template <int D> constexpr int f32_v_ld() { return D + kF32VPad; }
+template <int D> constexpr size_t fwd_f32_smem() {  // Q, K double-buffered, V
+  return (static_cast<size_t>(kTile) * f32_qk_ld<D>() +
+          kF32Keys * (2 * f32_qk_ld<D>() + f32_v_ld<D>())) * sizeof(float);
+}
+
+// x = hi + lo. hi is x rounded to TF32 (10 mantissa bits) to nearest, ties
+// away, as cvt.rna.tf32.f32 rounds it, in two integer instructions (the
+// conversion takes a slower pipe: 0.123 ms against 0.093 for this K2 at
+// [256, 256, 96] causal, NVIDIA H100 80GB HBM3). lo = x - hi is exact, at
+// most 2^-11 |x|, and goes to the tensor core as it is: the mma reads the
+// top 19 bits of a TF32 operand, so lo loses at most 2^-10 of itself.
+// Rounding hi matters: truncated, x - hi could reach 2^-10 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c[16 x 8] += a[16 x 8] b[8 x 8]: TF32 products, float32 sums. Lane l
+// holds a at (row g, k-slot t), (g + 8, t), (g, t + 4), (g + 8, t + 4) and b
+// at (k-slot t, column g), (t + 4, g), g = l / 4, t = l % 4; c as mma_bf16.
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b for float32 a and b split into TF32 pairs (3xTF32): the two small
+// cross terms first, then hi·hi; lo·lo (~2^-22 relative) is dropped.
+__device__ __forceinline__ void mma_split(float c[4], const uint32_t ahi[4], const uint32_t alo[4],
+                                          const uint32_t bhi[2], const uint32_t blo[2]) {
+  mma_tf32(c, ahi, blo[0], blo[1]);
+  mma_tf32(c, alo, bhi[0], bhi[1]);
+  mma_tf32(c, ahi, bhi[0], bhi[1]);
+}
+
+// dst[r][:] = src[row0 + r][:] for kRows rows of D floats at a row stride of
+// kLd floats, 16 bytes a thread; rows past `rows` are zero-filled.
+template <int D, int kRows, int kLd>
+__device__ __forceinline__ void cp_tile_f32(uint32_t dst, const float* __restrict__ src, int row0,
+                                            int rows) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks a row
+  static_assert(kRows * kChunks % kTcThreads == 0, "a tile's chunks split evenly");
+#pragma unroll
+  for (int it = 0; it < kRows * kChunks / kTcThreads; ++it) {
+    const int i = threadIdx.x + it * kTcThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool valid = row0 + r < rows;
+    cp_async16(dst + (r * kLd + c * 4) * 4,
+               src + static_cast<size_t>(valid ? row0 + r : 0) * D + c * 4, valid);
+  }
+}
+
+// K2 for float32. The bf16 kernel's layout (4 warps of 16 query rows, the
+// online softmax on the accumulator fragments) with m16n8k8 TF32 products,
+// each operand split into hi + lo and multiplied as three products. Keys come
+// in tiles of 32, K double-buffered and V single: Q, K and V, all float32,
+// then take 66 KB at D = 96, and three blocks share an SM (double-buffered
+// V: 79 KB, two blocks, 0.092 ms against 0.087 at [256, 256, 96] causal on
+// NVIDIA H100 80GB HBM3). The next V tile is copied once every warp is
+// done with this one and lands during the next tile's Q·K^T. Q stays in
+// shared memory and its fragments are split again at every k-step (held in
+// registers they would take D registers a thread). In the k8 steps of Q·K^T a lane's k-slots t and t + 4
+// are head-dim columns 2t and 2t + 1 of the step, read as one 8-byte pair for
+// A and for B. In P·V they are keys 2t and 2t + 1: exactly the two columns a
+// lane holds of the score accumulator, so P is the A operand with no shuffle,
+// and V's rows are read in the same order. Either permutation only reorders
+// a sum.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 3)
+flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int s_len, int sk_len, int causal, float scale) {
+  constexpr int kQkLd = f32_qk_ld<D>(), kVLd = f32_v_ld<D>();
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const float* q_sh = reinterpret_cast<const float*>(tc_smem);
+  const float* k_sh0 = q_sh + kTile * kQkLd;
+  const float* v_sh = k_sh0 + 2 * kF32Keys * kQkLd;
+  const uint32_t qs = smem_addr(q_sh), ks0 = smem_addr(k_sh0), vs = smem_addr(v_sh);
+
+  const int bh = blockIdx.x;
+  const int nq = gridDim.y;
+  const int qt = nq - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const float* qb = q + static_cast<size_t>(bh) * s_len * D;
+  const float* kb = k + static_cast<size_t>(bh) * sk_len * D;
+  const float* vb = v + static_cast<size_t>(bh) * sk_len * D;
+
+  cp_tile_f32<D, kTile, kQkLd>(qs, qb, q0, s_len);
+  cp_tile_f32<D, kF32Keys, kQkLd>(ks0, kb, 0, sk_len);
+  cp_async_commit();
+  cp_tile_f32<D, kF32Keys, kVLd>(vs, vb, 0, sk_len);
+  cp_async_commit();
+
+  // this lane's query rows r0 (accumulators 0, 1) and r0 + 8 (2, 3); the
+  // running max starts at the mask value, so the first correction is 0
+  const int r0 = q0 + m0 + g, r1 = r0 + 8;
+  float m_run[2] = {kMaskValue, kMaskValue}, l_run[2] = {0.0f, 0.0f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  const int nk = (sk_len + kF32Keys - 1) / kF32Keys;
+  // a key tile is live unless every (row, col) pair of the query tile has col > row
+  const int k_end = causal ? min(nk, (q0 + kTile - 1) / kF32Keys + 1) : nk;
+  for (int kt = 0; kt < k_end; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < k_end)  // the next K lands while this one is used
+      cp_tile_f32<D, kF32Keys, kQkLd>(ks0 + (buf ^ 1) * kF32Keys * kQkLd * 4, kb,
+                                      (kt + 1) * kF32Keys, sk_len);
+    cp_async_commit();
+    // copies in flight, oldest first: this K, this V, the next K
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");  // this K has landed
+    __syncthreads();
+    const int k0 = kt * kF32Keys;
+    // A warp whose 16 rows all lie above the tile's keys under the causal
+    // mask would add p = 0 with a correction of 1: it skips the tile. Its
+    // rows have seen key 0 already, so their running max is finite.
+    const bool live = !causal || k0 <= q0 + m0 + 15;
+    const float* ksh = k_sh0 + buf * kF32Keys * kQkLd;
+    float s[kF32Keys / 8][4];  // S, then P
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < kF32Keys / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 8) {
+        const float2 qa = *reinterpret_cast<const float2*>(q_sh + (m0 + g) * kQkLd + kk + 2 * t);
+        const float2 qc =
+            *reinterpret_cast<const float2*>(q_sh + (m0 + g + 8) * kQkLd + kk + 2 * t);
+        uint32_t ahi[4], alo[4];
+        split_tf32(qa.x, ahi[0], alo[0]);
+        split_tf32(qc.x, ahi[1], alo[1]);
+        split_tf32(qa.y, ahi[2], alo[2]);
+        split_tf32(qc.y, ahi[3], alo[3]);
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {
+          const float2 kv = *reinterpret_cast<const float2*>(ksh + (8 * j + g) * kQkLd + kk + 2 * t);
+          uint32_t bhi[2], blo[2];
+          split_tf32(kv.x, bhi[0], blo[0]);
+          split_tf32(kv.y, bhi[1], blo[1]);
+          mma_split(s[j], ahi, alo, bhi, blo);
+        }
+      }
+      // only tiles on the diagonal and the ragged end hold masked pairs
+      const bool edge = k0 + kF32Keys > sk_len || (causal && k0 + kF32Keys - 1 > q0 + m0);
+#pragma unroll
+      for (int j = 0; j < kF32Keys / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = edge ? masked_score(s[j][e], scale, (e >> 1) ? r1 : r0,
+                                        k0 + 8 * j + 2 * t + (e & 1), sk_len, causal != 0)
+                         : s[j][e] * scale;
+
+      // online softmax: a row's scores sit in the 4 lanes of a quad
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = kMaskValue;
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[h], mx);
+        const float corr = expf(m_run[h] - m_new);
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {
+          s[j][2 * h] = expf(s[j][2 * h] - m_new);
+          s[j][2 * h + 1] = expf(s[j][2 * h + 1] - m_new);
+          sum += s[j][2 * h] + s[j][2 * h + 1];
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l_run[h] = l_run[h] * corr + sum;
+        m_run[h] = m_new;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[n][2 * h] *= corr;
+          acc[n][2 * h + 1] *= corr;
+        }
+      }
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this V has landed
+    __syncthreads();
+    if (live) {
+      // O += P V, P kept in float32 (as hi + lo): accumulator j holds keys
+      // 8j + 2t, 8j + 2t + 1 of rows g, g + 8, which become k-slots t, t + 4
+#pragma unroll
+      for (int j = 0; j < kF32Keys / 8; ++j) {
+        uint32_t phi[4], plo[4];
+        split_tf32(s[j][0], phi[0], plo[0]);
+        split_tf32(s[j][2], phi[1], plo[1]);
+        split_tf32(s[j][1], phi[2], plo[2]);
+        split_tf32(s[j][3], phi[3], plo[3]);
+        const float* vrow = v_sh + (8 * j + 2 * t) * kVLd + g;  // keys 8j + 2t, + 1
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          uint32_t bhi[2], blo[2];
+          split_tf32(vrow[8 * n], bhi[0], blo[0]);
+          split_tf32(vrow[kVLd + 8 * n], bhi[1], blo[1]);
+          mma_split(acc[n], phi, plo, bhi, blo);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with V and with this K
+    if (kt + 1 < k_end) cp_tile_f32<D, kF32Keys, kVLd>(vs, vb, (kt + 1) * kF32Keys, sk_len);
+    cp_async_commit();
+  }
+
+  float safe_l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) safe_l[h] = l_run[h] > 0.0f ? l_run[h] : 1.0f;
+  float* ob = o + static_cast<size_t>(bh) * s_len * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (r0 < s_len)
+      *reinterpret_cast<float2*>(ob + static_cast<size_t>(r0) * D + 8 * n + 2 * t) =
+          make_float2(acc[n][0] / safe_l[0], acc[n][1] / safe_l[0]);
+    if (r1 < s_len)
+      *reinterpret_cast<float2*>(ob + static_cast<size_t>(r1) * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2] / safe_l[1], acc[n][3] / safe_l[1]);
+  }
+  if (t == 0) {
+    float* lse_b = lse + static_cast<size_t>(bh) * s_len;
+    if (r0 < s_len) lse_b[r0] = m_run[0] + logf(safe_l[0]);
+    if (r1 < s_len) lse_b[r1] = m_run[1] + logf(safe_l[1]);
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
-template <int D> constexpr size_t fwd_smem() {
-  return (3 * tile_floats<D>() + kTile * kPLd + 3 * kTile) * sizeof(float);
-}
 template <int D> constexpr size_t dq_smem() {
   return (4 * tile_floats<D>() + kTile * kPLd + 2 * kTile) * sizeof(float);
 }
@@ -1053,19 +1172,26 @@ int kernel_info(Kernel kernel, int threads, size_t smem, int* out) {
   return 0;
 }
 
-// K2: the SIMT kernel for float32 ...
+// K2: the split-TF32 tensor-core kernel for float32 ...
 template <typename T, int D>
-struct Forward {
-  static constexpr size_t kSmem = fwd_smem<D>();
+struct Forward;
+
+template <int D>
+struct Forward<float, D> {
+  static constexpr size_t kSmem = fwd_f32_smem<D>();
+  static_assert(2 * (kSmem + 1024) <= 233472, "two float32 K2 blocks or more share an SM");
   static int run(dim3 grid, const Args& a) {
-    const int err = opt_in(flash_fwd_kernel<T, D>, kSmem);
+    const int err = opt_in(flash_fwd_f32tc_kernel<D>, kSmem);
     if (err != 0) return err;
-    flash_fwd_kernel<T, D><<<grid, kThreads, kSmem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<T*>(a.o), a.lse_out, a.s_len, a.sk_len, a.causal, a.scale);
+    flash_fwd_f32tc_kernel<D><<<grid, kTcThreads, kSmem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse_out, a.s_len, a.sk_len,
+        a.causal, a.scale);
     return 0;
   }
-  static int info(int* out) { return kernel_info(flash_fwd_kernel<T, D>, kThreads, kSmem, out); }
+  static int info(int* out) {
+    return kernel_info(flash_fwd_f32tc_kernel<D>, kTcThreads, kSmem, out);
+  }
 };
 
 // ... and the tensor-core kernel for bfloat16

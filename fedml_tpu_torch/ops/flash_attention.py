@@ -16,8 +16,10 @@ Three versions of each kernel's function:
   bound what the caller may pass. For bfloat16, K2, K3 and K4 run on the
   tensor cores (``mma.sync`` with float32 sums; K2 sums l over the float32
   P before it rounds P for P·V; K4 multiplies its float32 P and dS as bf16
-  hi + lo pairs, so it rounds neither); for float32 they do float32 FMA on
-  the CUDA cores;
+  hi + lo pairs, so it rounds neither). For float32, K2 runs on the tensor
+  cores too, each float32 operand split into TF32 hi + lo pairs and each
+  product taken as hi·hi + hi·lo + lo·hi (3xTF32); K3 and K4 do float32 FMA
+  on the CUDA cores;
 - :func:`flash_forward_plain`, :func:`flash_backward_dq_plain` and
   :func:`flash_backward_dkv_plain`: the same blockwise arithmetic with the
   same casts in PyTorch ops, at the caller's block sizes; the wrappers use
@@ -52,12 +54,12 @@ from fedml_tpu_torch.ops._build import count_launch, load_kernel_library
 
 FWD, BWD_DQ, BWD_DKV = "flash_attention.fwd", "flash_attention.bwd_dq", "flash_attention.bwd_dkv"
 KERNEL_NAMES = (FWD, BWD_DQ, BWD_DKV)
-OPERAND_TYPES = ("float32", "bfloat16")  # the CUDA-core kernels, the tensor-core ones
+OPERAND_TYPES = ("float32", "bfloat16")
 # launches by (kernel, operand type); launch_totals() sums the types
 LAUNCHES: Dict[Tuple[str, str], int] = {(name, t): 0 for name in KERNEL_NAMES
                                         for t in OPERAND_TYPES}
 
-KERNEL_TILE = 64  # rows of the kernels' query and key tiles (csrc kTile)
+KERNEL_TILE = 64  # rows of the kernels' query tiles and key tiles (csrc kTile; float32 K2: 32 keys)
 HEAD_DIMS = (16, 32, 64, 96, 128)  # the head dims the kernels are built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30

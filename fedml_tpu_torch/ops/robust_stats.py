@@ -16,8 +16,10 @@ C) or ``C//2 - 1`` (even C: the mean of the two middle values).
 
 Three versions of one function:
 
-- the CUDA kernel ``csrc/robust_stats.cu`` (Hopper, ``sm_90a``), launched
-  by :func:`trimmed_mean_1d` for a CUDA tensor;
+- the CUDA kernels ``csrc/robust_stats.cu`` (Hopper, ``sm_90a``), launched
+  by :func:`trimmed_mean_1d` for a CUDA tensor: these ranks for C <= 16;
+  above, the two order statistics that bound the kept window found by radix
+  select, then the same index-order sum;
 - :func:`trimmed_mean_plain`, the same stable-rank compare-accumulate in
   PyTorch, vectorised over D, in the same order — bit-identical to the
   kernel; :func:`trimmed_mean_1d` uses it for a CPU tensor;
@@ -87,9 +89,9 @@ def _lib() -> ctypes.CDLL:
 
 def kernel_info(C: int) -> Dict[str, int]:
     """The kernel that takes a cohort of C (the column in registers for
-    C <= 16; above, ranks of 16 values at a time against the column held in
-    a shared-memory tile, or read from device memory where the tile would
-    not fit) and what the compiler made of it: threads a
+    C <= 16; above, the radix select of the column's two bounds, the column
+    held in a shared-memory tile, or read from device memory where the tile
+    would not fit) and what the compiler made of it: threads a
     block, registers and local-memory bytes a thread (spills land there),
     dynamic shared memory a block, and the blocks one SM holds at once."""
     out = (ctypes.c_int * 5)()
