@@ -36,7 +36,8 @@ Phases, each of which raises on failure:
    client (a tight bound) and at the north-star batch of 20;
 7. K2, K3, K4 (flash attention forward, backward dQ, backward dK/dV)
    against their plain PyTorch versions on the card: causal and not,
-   S in {32, 128, 192, 512}, head dim in {16, 32, 64, 96, 128}, float32
+   S in {32, 128, 192, 512}, head dim in {16, 32, 48, 64, 80, 96, 128}
+   (48 and 80 through the wrappers' zero-padding to 64 and 96), float32
    and bfloat16, and the LM's [256, 256, 96] bfloat16 causal shape; O,
    LSE, dQ, dK and dV each within the tolerance stated at FLASH_TOL;
 8. their times at the LM's shapes beside the plain versions, the bound and
@@ -44,17 +45,24 @@ Phases, each of which raises on failure:
    minus forward), with each kernel's achieved TFLOP/s, share of its bound,
    registers, local memory and blocks resident on an SM, and K3 + K4 over
    SDPA's backward, and the float32 kernels beside float32 SDPA and their
-   float32 bounds (bytes, or three TF32 products a product); then the SASS
-   of the built library (``cuobjdump``): every bfloat16 K2/K3/K4
-   instantiation and every float32 K2 instantiation (split TF32) must hold
-   tensor-core (HMMA) instructions;
+   float32 bounds (bytes, or three TF32 products a product), with K3 + K4
+   over SDPA's float32 backward; then the SASS of the built library
+   (``cuobjdump``): every K2/K3/K4 instantiation, bfloat16 and float32
+   (split TF32), must hold tensor-core (HMMA) instructions, and no
+   float32 CUDA-core (SIMT) flash kernel may be left;
 9. the LM path: FedAvgAPI(task="nwp") on the flagship LM (6 layers, 8
    heads, 768 wide, vocab 1024, windows of 256; 8 synthetic-Shakespeare
    clients all in every round, batch 32, E=1, AMSGrad lr 1e-3, bfloat16
    compute) with flash attention, 3 rounds; the K2/K3/K4 launch counts are
    zeroed just before and read just after, and must equal the counts the
    data's shard sizes give (6 a step each, 6 more K2 an eval batch); the
-   losses finite and Train/Loss falling from round 0 to round 2;
+   losses finite and Train/Loss falling from round 0 to round 2. Then its
+   float32 leg (``phase_lm_float32``): the same width (head dim 96) at
+   LM_F32's depth, float32 compute, one round, whose K2/K3/K4 launches
+   under "float32" must equal the shard sizes' count (none under
+   "bfloat16"), with finite losses and its parameters within
+   LM_F32_VS_FULL of the same round on the model's default
+   ``causal_full_attention`` (TF32 off);
 10. where a warm LM round's time goes (torch.profiler);
 11. one LM round on the card against the same round on the CPU (2 layers,
     128 wide, windows of 64, float32 SGD) from the same init with the same
@@ -294,12 +302,25 @@ SECAGG_ROUNDS = 2
 FAULT_ROUNDS = 2
 FAULT_DEADLINE_S = 1.0
 FLASH_S_GRID = (32, 128, 192, 512)
-FLASH_D_GRID = (16, 32, 64, 96, 128)
+FLASH_D_GRID = (16, 32, 48, 64, 80, 96, 128)  # 48 and 80: zero-padded to 64 and 96
 FLASH_BH = 3
 # the flagship LM (bench.py _flagship_lm_row): attention at B=32, H=8
 LM = dict(layers=6, heads=8, width=768, vocab=1024, seq=256, clients=8,
           samples=512, batch=32, lr=1e-3)
 LM_ROUNDS = 3
+# the LM path's float32 leg (phase 9): LM's width, heads and window (head
+# dim 96) at 2 layers, 2 clients of 64, batch 32, one round, float32
+# compute. SGD, not LM's AMSGrad: Adam's first steps move every weight by
+# about ±lr whatever its gradient's size, so the round's parameters would
+# not show a wrong gradient; SGD moves them by lr times it.
+LM_F32 = dict(layers=2, clients=2, samples=64, batch=32, lr=0.1)
+# that round against the same round on causal_full_attention (torch
+# matmuls and softmax, TF32 off), (rtol, atol·max|ref|) on the parameters:
+# the same float32 function summed in other orders, as LM_CARD_VS_CPU. The
+# phase measures beside it what a 1e-7 relative nudge of the init does to
+# the round: 2.4e-7 at max|param| ~1.0 on NVIDIA H100 80GB HBM3 (flash
+# against full 1.2e-7), so 1e-5 of max|param| is ~40x the nudge's effect.
+LM_F32_VS_FULL = (1e-4, 1e-5)
 
 # the cross-silo ResNet-56 row (bench.py:617-690) and the ResNet-18-GN row
 # (bench.py:895-938)
@@ -958,15 +979,15 @@ def phase_flash_timing(name: str, smi: str):
 
 
 def _flash_timing_f32(fa, q, k, v, do, scale, blk, work, bw) -> dict:
-    """The float32 K2/K3/K4 (K2 on split-TF32 tensor cores, K3/K4 on the
-    CUDA cores: the flagship LM trains in bfloat16, and its eval forward
-    launches the float32 K2) at the same shape beside float32 SDPA, forward
-    and backward, all with TF32 off. Bounds: the same work at 4 bytes an
-    element over the card's rate, or its FLOPs three times over (a float32
-    product at float32 accuracy is three TF32 products) at the dense TF32
-    peak, whichever is longer. {kernel: {kernel, plain, bound, bound_by,
-    bytes, flops, sdpa_fwd, sdpa_bwd, registers, local_bytes,
-    blocks_per_sm}}."""
+    """The float32 K2/K3/K4 (on split-TF32 tensor cores; the flagship LM's
+    eval forward and the LM path's float32 leg launch them) at the same
+    shape beside float32 SDPA, forward and backward, all with TF32 off.
+    Bounds: the same work at 4 bytes an element over the card's rate, or
+    its FLOPs three times over (a float32 product at float32 accuracy is
+    three TF32 products) at the dense TF32 peak, whichever is longer.
+    {kernel: {kernel, plain, bound, bound_by, bytes, flops, sdpa_fwd,
+    sdpa_bwd, registers, local_bytes, smem_bytes, blocks_per_sm}, and
+    k3_plus_k4_over_sdpa_bwd}."""
     import torch
     import torch.nn.functional as F
 
@@ -1015,7 +1036,8 @@ def _flash_timing_f32(fa, q, k, v, do, scale, blk, work, bw) -> dict:
                       "flops": flops, "bound_share": max(tb, tf) / t[kname],
                       "sdpa_fwd": sdpa_fwd, "sdpa_bwd": sdpa_bwd,
                       "registers": info["registers"], "local_bytes": info["local_bytes"],
-                      "blocks_per_sm": info["blocks_per_sm"]}
+                      "smem_bytes": info["smem_bytes"], "blocks_per_sm": info["blocks_per_sm"]}
+    out["k3_plus_k4_over_sdpa_bwd"] = (t[fa.BWD_DQ] + t[fa.BWD_DKV]) / sdpa_bwd
     return out
 
 
@@ -1058,9 +1080,9 @@ def sass_counts(sass: str) -> dict:
 
 
 def phase_sass():
-    """Disassemble the built flash library; raise unless every bfloat16
-    K2/K3/K4 instantiation and every float32 K2 instantiation (split TF32)
-    holds HMMA instructions."""
+    """Disassemble the built flash library; raise unless every K2/K3/K4
+    instantiation, bfloat16 and float32 (split TF32), holds HMMA
+    instructions, and no float32 CUDA-core (SIMT) flash kernel is left."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     tool = _cuobjdump()
@@ -1075,16 +1097,21 @@ def phase_sass():
     if len(tc) != 3 * len(fa.HEAD_DIMS) or any(v["HMMA"] == 0 for v in tc.values()):
         raise AssertionError(f"bf16 K2/K3/K4 instantiations without HMMA: {tc}")
     f32 = {k: v for k, v in counts.items() if "_f32tc_kernel<float" in k}
-    if len(f32) != len(fa.HEAD_DIMS) or any(v["HMMA"] == 0 for v in f32.values()):
-        raise AssertionError(f"float32 K2 instantiations without HMMA: {f32}")
+    if len(f32) != 3 * len(fa.HEAD_DIMS) or any(v["HMMA"] == 0 for v in f32.values()):
+        raise AssertionError(f"float32 K2/K3/K4 instantiations without HMMA: {f32}")
+    simt = [k for k in counts if "_tc_kernel<" not in k and "_f32tc_kernel<" not in k]
+    if simt:
+        raise AssertionError(f"float32 CUDA-core flash kernels left: {simt}")
 
 
 # ---------------------------------------------------------------- the LM path
 
 
-def _flagship_lm(rounds: int, layers: int = LM["layers"], **smaller):
-    """The flagship LM row (bench.py _flagship_lm_row) with flash attention;
-    ``smaller`` overrides LM's entries for a rehearsal on the CPU."""
+def _flagship_lm(rounds: int, layers: int = LM["layers"], compute_dtype: str = "bfloat16",
+                 optimizer: str = "adam", attn_fn=None, **smaller):
+    """The flagship LM row (bench.py _flagship_lm_row) with flash attention
+    (``attn_fn`` None; else that attention); ``smaller`` overrides LM's
+    entries for a rehearsal on the CPU or a leg at another depth."""
     from fedml_tpu_torch.config import DataConfig, FedConfig, RunConfig, TrainConfig
     from fedml_tpu_torch.data.synthetic import synthetic_shakespeare
     from fedml_tpu_torch.models import create_model
@@ -1096,13 +1123,13 @@ def _flagship_lm(rounds: int, layers: int = LM["layers"], **smaller):
                                  seq_targets=True)
     model = create_model("transformer", "shakespeare_synth", (lm["seq"],), lm["vocab"],
                          num_layers=layers, num_heads=lm["heads"], embed_dim=lm["width"],
-                         attn_fn=flash_attention_bthd)
+                         attn_fn=attn_fn or flash_attention_bthd)
     cfg = RunConfig(
         data=DataConfig(batch_size=lm["batch"], pad_bucket=1),
         fed=FedConfig(client_num_in_total=lm["clients"], client_num_per_round=lm["clients"],
                       comm_round=rounds, epochs=1, frequency_of_the_test=10_000,
                       client_parallelism="scan"),
-        train=TrainConfig(client_optimizer="adam", lr=lm["lr"], compute_dtype="bfloat16"),
+        train=TrainConfig(client_optimizer=optimizer, lr=lm["lr"], compute_dtype=compute_dtype),
         seed=0,
     )
     return cfg, data, model
@@ -1157,6 +1184,74 @@ def phase_lm_path(device="cuda", rounds=LM_ROUNDS, layers=LM["layers"], **smalle
     log(json.dumps({"lm_path": {"launches": launches, "expected": want,
                                 "round_time_s": [r["round_time_s"] for r in rows],
                                 "train_loss": [r["Train/Loss"] for r in rows]}}))
+    return launches
+
+
+def phase_lm_float32(device="cuda", layers=LM_F32["layers"], **smaller):
+    """The float32 leg of the LM path (see LM_F32): one round with flash
+    attention, its K2/K3/K4 launches under "float32" zeroed just before and
+    read just after; then the same round on ``causal_full_attention`` and
+    once more from the init nudged by 1e-7, all under ``fp32_math()``.
+    Returns the float32 launches by kernel."""
+    import torch
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.device import fp32_math
+    from fedml_tpu_torch.models.transformer import causal_full_attention
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    sizes = {**{k: v for k, v in LM_F32.items() if k != "layers"}, **smaller}
+    out = {}
+    for run, attn_fn, nudge in (("flash", None, 0.0), ("full", causal_full_attention, 0.0),
+                                ("full_nudged", causal_full_attention, 1e-7)):
+        cfg, data, model = _flagship_lm(1, layers, compute_dtype="float32", optimizer="sgd",
+                                        attn_fn=attn_fn, **sizes)
+        api = FedAvgAPI(cfg, data, model, task="nwp",
+                        device=None if device == "cuda" else device)
+        init = {k: v.detach().clone() for k, v in api.global_vars.items()}
+        if nudge:
+            api.global_vars = {k: v * (1.0 + nudge) for k, v in init.items()}
+        want = expected_flash_launches(api, layers)
+        with fp32_math():
+            fa.reset_launches()  # zeroed just before the leg
+            t0 = time.perf_counter()
+            api.train()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(fa.LAUNCHES)  # read just after
+        out[run] = {"init": init, "vars": {k: v.detach().cpu() for k, v in api.global_vars.items()},
+                    "rows": api.history, "wall_s": wall, "want": want, "launches": launches}
+    flash = out["flash"]
+    for row in flash["rows"]:
+        for key in ("Train/Loss", "Test/Loss"):
+            if key in row and not math.isfinite(row[key]):
+                raise AssertionError(f"LM float32: non-finite {key} in {row}")
+    for name in fa.KERNEL_NAMES:
+        got = flash["launches"][(name, "float32")]
+        expect = flash["want"][name] if device == "cuda" else 0
+        if got != expect or flash["launches"][(name, "bfloat16")] != 0:
+            raise AssertionError(f"LM float32: {got} float32 {name} launches "
+                                 f"(+{flash['launches'][(name, 'bfloat16')]} bfloat16), "
+                                 f"want {expect}")
+    if any(not torch.equal(flash["init"][k], out["full"]["init"][k].to(flash["init"][k].device))
+           for k in flash["init"]):
+        raise AssertionError("LM float32: the flash and full-attention runs start apart")
+    full, nudged = out["full"]["vars"], out["full_nudged"]["vars"]
+    err = max((flash["vars"][k] - full[k]).abs().max().item() for k in full)
+    nudge_err = max((nudged[k] - full[k]).abs().max().item() for k in full)
+    rtol, atol = LM_F32_VS_FULL
+    scale = max(full[k].abs().max().item() for k in full)
+    launches = {name: flash["launches"][(name, "float32")] for name in fa.KERNEL_NAMES}
+    log(json.dumps({"lm_float32": {
+        "launches": launches, "expected": flash["want"], "max_abs_err_vs_full": err,
+        "nudge_1e-7_max_abs_err": nudge_err, "rtol": rtol, "atol_times_max": atol,
+        "max_abs_param": scale,
+        "train_loss": {r: out[r]["rows"][-1]["Train/Loss"] for r in out},
+        "round_s": {r: out[r]["wall_s"] for r in out}, "layers": layers, **sizes}}))
+    for k in full:
+        torch.testing.assert_close(flash["vars"][k], full[k], rtol=rtol, atol=atol * scale,
+                                   msg=lambda m: f"LM float32 flash vs full, {k}: {m}")
     return launches
 
 
@@ -3952,6 +4047,7 @@ def main() -> int:
     ft, fplain, fbounds, flib, f32 = timed(phase_flash_timing, name, smi)
     timed(phase_sass)
     flash_launches = timed(phase_lm_path)
+    lm_f32_launches = timed(phase_lm_float32)
     timed(phase_profile_lm_round)
     timed(phase_lm_card_vs_cpu)
     transport_launches = timed(phase_transport, smi)
@@ -3989,11 +4085,12 @@ def main() -> int:
         "bound_ms": fbounds[kn][0],
         "bound_by": fbounds[kn][1],
         "library_ms": flib[kn],
-        # the float32 kernel at the same shape (K2 on split-TF32 tensor
-        # cores, K3/K4 on the CUDA cores); the LM's eval forward launches
-        # the float32 K2, no path the float32 K3/K4
+        # the float32 kernel at the same shape (split-TF32 tensor cores);
+        # the LM path's float32 leg launches all three, the LM's eval
+        # forward (phase 21's runs) the float32 K2
         "float32": {"ms": f32[kn]["kernel"], "plain_ms": f32[kn]["plain"],
-                    "launches": {"vmap": batched_launches["vmap_float32"][kn],
+                    "launches": {"lm": lm_f32_launches[kn],
+                                 "vmap": batched_launches["vmap_float32"][kn],
                                  "loop": batched_launches["loop_float32"][kn]},
                     "bound_ms": f32[kn]["bound"],
                     "bound_by": f32[kn]["bound_by"],

@@ -19,32 +19,25 @@
 //
 // What bounds them on the H100: at the LM's shapes (S = 256, D = 96, bfloat16,
 // causal) the ideal kernels are bound by bytes (~64-85 FLOP per byte moved,
-// under the card's ~295 FLOP/byte bf16 ridge). Three designs live here.
+// under the card's ~295 FLOP/byte bf16 ridge). Every kernel here runs its
+// products on the tensor cores (mma.sync, float32 sums); two designs.
 //
-// SIMT kernels, for float32 K3 and K4 (no path trains in float32): every
-// product is float32 FMA on the CUDA cores (67 TFLOP/s peak), out of
-// float32 tiles in shared memory, so they are bound by the FMA pipe and by
-// shared-memory loads, not by bytes:
-//   - the TPU grid's sequential K axis becomes a loop inside a block: one block
-//     per (batch*head, 64-row tile) of the output, 256 threads; blocks are
-//     independent, so nothing carries over between them;
-//   - tiles of 64 rows are held in float32 in shared memory with rows
-//     padded by 4 floats, so float4 loads along D are aligned and a
-//     quarter-warp's 8 rows fall in distinct banks;
-//   - each thread owns a 4 x 4 register tile of a 64 x 64 score block (rows
-//     ty + 16 i, columns tx + 16 j) and 4 x D/16 outputs (rows ty + 16 i,
-//     columns tx + 16 j).
-//
-// Split-TF32 tensor-core kernel, for float32 K2 (`flash_fwd_f32tc_kernel`;
-// the LM's eval forward): TF32 products alone keep 11 significant bits, but
-// a float32 x splits into hi = tf32(x), rounded to nearest, and the exact
-// remainder lo = x - hi (which the tensor core reads to TF32's 11 bits, so
-// x - hi - lo stays within ~2^-21 |x|), and a product a b is then
-// hi·hi + hi·lo + lo·hi: three mma.sync m16n8k8 TF32 products with float32
-// sums ("3xTF32"), good to about 2^-20 relative against TF32's 2^-11. At the
-// H100's 495 TFLOP/s dense TF32, three products over the causal half take
-// less than the function's bytes, so the bound is the bytes. Its layout is
-// the bf16 K2's below, with float32 tiles (see the kernel's note).
+// Split-TF32 kernels, for float32 (`flash_fwd_f32tc_kernel`,
+// `flash_bwd_dq_f32tc_kernel`, `flash_bwd_dkv_f32tc_kernel`): TF32 products
+// alone keep 11 significant bits, but a float32 x splits into hi = tf32(x),
+// rounded to nearest, and the exact remainder lo = x - hi (which the tensor
+// core reads to TF32's 11 bits, so x - hi - lo stays within ~2^-21 |x|), and
+// a product a b is then hi·lo + lo·hi + hi·hi: three mma.sync m16n8k8 TF32
+// products with float32 sums ("3xTF32"), good to about 2^-20 relative
+// against TF32's 2^-11. Every operand is split so, P and dS included (they
+// are never rounded). At the H100's 495 TFLOP/s dense TF32, three products
+// over the causal half take less than the functions' bytes, so the bound is
+// the bytes; what holds the kernels back is the splits, integer and float
+// instructions that every warp redoes on the operands it reads. Their
+// layouts are the bf16 kernels' below with float32 tiles, which take twice
+// the bytes: the loop's tiles are 32 rows (K2 and K3 walk 32-key K and V
+// tiles, K4 32-query Q and dO tiles), so that two blocks share an SM up to
+// D = 96 (see the kernels' notes).
 //
 // Tensor-core kernels, for bfloat16: K2 (`flash_fwd_tc_kernel`), K3 and K4
 // (`flash_bwd_*_tc_kernel`). Same blocks and loops, but the products are
@@ -77,13 +70,20 @@
 // own), so the results agree with the float32 plain versions to one bf16
 // ulp of the rounded values, not bit for bit.
 //
-// All three designs: under the causal mask only the tiles it leaves live are
+// Both designs: under the causal mask only the tiles it leaves live are
 // visited (about half the work), and the heaviest tiles are scheduled first;
-// ragged edges (S not a multiple of 64) are guarded: rows past the end load
+// ragged edges (S not a multiple of the tile) are guarded: rows past the end load
 // as zeros and are never stored, columns past the end are masked, and K4
 // gives padded query rows no weight. Shared memory above 48 KB is opted into
 // with cudaFuncSetAttribute. Built without --use_fast_math: expf, logf and
 // the divisions are IEEE.
+//
+// Head dims: every kernel is instantiated for D in {16, 32, 64, 96, 128}.
+// The wrappers (ops/flash_attention.py `at_built_head_dim`) zero-pad any
+// other d up to 128 to the next of these and pass the true 1/sqrt(d) as
+// `scale`: zero columns add nothing to Q K^T or dO V^T, so P, LSE and delta
+// are the unpadded ones, and O, dQ, dK, dV are sliced back to d. A d above
+// 128 has no kernel (a 64-row float32 K4 tile of D = 256 alone takes ~67 KB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,275 +93,15 @@
 namespace {
 
 constexpr int kTile = 64;         // rows of a query tile and of a key tile
-constexpr int kThreads = 256;     // 16 x 16 threads
-constexpr int kPad = 4;           // row padding of a [64][D] tile (floats)
-constexpr int kPLd = kTile + 16;  // row stride of a [64][64] score tile
 constexpr float kMaskValue = -1e30f;
 constexpr int kMaxHeadDim = 128;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
-// Round to T and widen back: the cast the TPU kernel makes before a product.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-template <int D> constexpr int tile_floats() { return kTile * (D + kPad); }
-
-// dst[r][c] = src[row0 + r][c] widened to float, zeros past `rows`.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int row0, int rows) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i - (i / D) * D;
-    const int gr = row0 + r;
-    dst[r * (D + kPad) + c] = gr < rows ? to_f(src[static_cast<size_t>(gr) * D + c]) : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int row0, int rows) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads)
-    dst[r] = row0 + r < rows ? src[row0 + r] : 0.0f;
-}
-
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over [64][D + kPad] tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B, int ty, int tx,
-                                         float acc[4][4]) {
-  constexpr int ld = D + kPad;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * ld + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * ld + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-      }
-  }
-}
-
 // The scaled, masked score of query row r and key column c (global indices):
-// the one definition shared by the three kernels, as `_masked_scores` is.
+// the one definition shared by the kernels, as `_masked_scores` is.
 __device__ __forceinline__ float masked_score(float dot, float scale, int r, int c,
                                               int sk, bool causal) {
   const float s = dot * scale;
   return (c >= sk || (causal && r < c)) ? kMaskValue : s;
-}
-
-// ------------------------------------------------------------------ K3
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int s_len,
-                    int sk_len, int causal, float scale) {
-  constexpr int ld = D + kPad;
-  constexpr int kCols = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + tile_floats<D>();
-  float* Ks = dOs + tile_floats<D>();
-  float* Vs = Ks + tile_floats<D>();
-  float* dSs = Vs + tile_floats<D>();  // [64][kPLd]
-  float* lse_s = dSs + kTile * kPLd;
-  float* delta_s = lse_s + kTile;
-
-  const int bh = blockIdx.x;
-  const int nq = gridDim.y;
-  const int qt = nq - 1 - blockIdx.y;
-  const int q0 = qt * kTile;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t q_off = static_cast<size_t>(bh) * s_len * D;
-  const size_t k_off = static_cast<size_t>(bh) * sk_len * D;
-  const size_t row_off = static_cast<size_t>(bh) * s_len;
-
-  load_tile<T, D>(Qs, q + q_off, q0, s_len);
-  load_tile<T, D>(dOs, dout + q_off, q0, s_len);
-  load_rows(lse_s, lse + row_off, q0, s_len);
-  load_rows(delta_s, delta + row_off, q0, s_len);
-  float acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.0f;
-
-  const int nk = (sk_len + kTile - 1) / kTile;
-  const int k_end = causal ? min(nk, qt + 1) : nk;
-  for (int kt = 0; kt < k_end; ++kt) {
-    const int k0 = kt * kTile;
-    load_tile<T, D>(Ks, k + k_off, k0, sk_len);
-    load_tile<T, D>(Vs, v + k_off, k0, sk_len);
-    __syncthreads();
-
-    float s[4][4], dov[4][4];
-    tile_dot<D>(Qs, Ks, ty, tx, s);
-    tile_dot<D>(dOs, Vs, ty, tx, dov);  // float32, as the TPU kernel
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float sc = masked_score(s[i][j], scale, q0 + r, k0 + c, sk_len, causal != 0);
-        const float p = expf(sc - lse_s[r]);
-        const float ds = p * (dov[i][j] - delta_s[r]) * scale;
-        dSs[r * kPLd + c] = round_to<T>(ds);  // dS in k's type before dS K
-      }
-    }
-    __syncthreads();
-
-    for (int kk = 0; kk < kTile; kk += 4) {
-      float4 ds4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ds4[i] = *reinterpret_cast<const float4*>(dSs + (ty + 16 * i) * kPLd + kk);
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + 16 * j;
-        const float k0v = Ks[(kk + 0) * ld + c], k1v = Ks[(kk + 1) * ld + c];
-        const float k2v = Ks[(kk + 2) * ld + c], k3v = Ks[(kk + 3) * ld + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][j] = fmaf(ds4[i].x, k0v, acc[i][j]);
-          acc[i][j] = fmaf(ds4[i].y, k1v, acc[i][j]);
-          acc[i][j] = fmaf(ds4[i].z, k2v, acc[i][j]);
-          acc[i][j] = fmaf(ds4[i].w, k3v, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= s_len) continue;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      dq[q_off + static_cast<size_t>(q0 + r) * D + tx + 16 * j] = from_f<T>(acc[i][j]);
-  }
-}
-
-// ------------------------------------------------------------------ K4
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int s_len, int sk_len, int causal, float scale) {
-  constexpr int ld = D + kPad;
-  constexpr int kCols = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + tile_floats<D>();
-  float* Qs = Vs + tile_floats<D>();
-  float* dOs = Qs + tile_floats<D>();
-  float* Ps = dOs + tile_floats<D>();   // [q][k], stride kPLd
-  float* dSs = Ps + kTile * kPLd;       // [q][k], stride kPLd
-  float* lse_s = dSs + kTile * kPLd;
-  float* delta_s = lse_s + kTile;
-
-  const int bh = blockIdx.x;
-  const int kt = blockIdx.y;  // low key tiles see the most query tiles: first
-  const int k0 = kt * kTile;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t q_off = static_cast<size_t>(bh) * s_len * D;
-  const size_t k_off = static_cast<size_t>(bh) * sk_len * D;
-  const size_t row_off = static_cast<size_t>(bh) * s_len;
-
-  load_tile<T, D>(Ks, k + k_off, k0, sk_len);
-  load_tile<T, D>(Vs, v + k_off, k0, sk_len);
-  float dk_acc[4][kCols], dv_acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
-
-  const int nq = (s_len + kTile - 1) / kTile;
-  // a query tile is live unless every (row, col) pair in it has col > row
-  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    load_tile<T, D>(Qs, q + q_off, q0, s_len);
-    load_tile<T, D>(dOs, dout + q_off, q0, s_len);
-    load_rows(lse_s, lse + row_off, q0, s_len);
-    load_rows(delta_s, delta + row_off, q0, s_len);
-    __syncthreads();
-
-    float s[4][4], dov[4][4];
-    tile_dot<D>(Qs, Ks, ty, tx, s);
-    tile_dot<D>(dOs, Vs, ty, tx, dov);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float sc = masked_score(s[i][j], scale, q0 + r, k0 + c, sk_len, causal != 0);
-        // query rows past the end hold zeros, not a softmax row: no weight
-        const float p = q0 + r < s_len ? expf(sc - lse_s[r]) : 0.0f;
-        Ps[r * kPLd + c] = p;
-        dSs[r * kPLd + c] = p * (dov[i][j] - delta_s[r]) * scale;
-      }
-    }
-    __syncthreads();
-
-    // this thread's key rows: ty + 16 i; its head-dim columns: tx + 16 j
-    for (int qq = 0; qq < kTile; ++qq) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = Ps[qq * kPLd + ty + 16 * i];
-        ds[i] = dSs[qq * kPLd + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + 16 * j;
-        const float dov_c = dOs[qq * ld + c], q_c = Qs[qq * ld + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv_acc[i][j] = fmaf(p[i], dov_c, dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(ds[i], q_c, dk_acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (k0 + r >= sk_len) continue;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const size_t at = k_off + static_cast<size_t>(k0 + r) * D + tx + 16 * j;
-      dk[at] = from_f<T>(dk_acc[i][j]);
-      dv[at] = from_f<T>(dv_acc[i][j]);
-    }
-  }
 }
 
 // ------------------------------------------------------------------ K2, K3, K4 (bf16): tensor cores
@@ -872,21 +612,32 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------------ K2 (float32): split-TF32 tensor cores
+// ------------------------------------------------------------------ K2, K3, K4 (float32): split-TF32 tensor cores
 
-constexpr int kF32Keys = 32;   // keys of a K or V tile
-constexpr int kF32QkPad = 8;   // Q and K rows: D + 8 floats
-constexpr int kF32VPad = 4;    // V rows: D + 4 floats
+constexpr int kF32Keys = 32;   // K2, K3: keys of a K or V tile; K4: queries of a Q or dO tile
+constexpr int kF32QkPad = 8;   // rows read as 8-byte pairs: D + 8 floats
+constexpr int kF32VPad = 4;    // K2's V rows: D + 4 floats
 
-// Row strides (floats). A lane reads Q and K fragments as 8-byte pairs at
-// row g, column 2t (g = lane / 4, t = lane % 4): a stride of 8 mod 32 words
-// puts a half-warp's 16 pairs in distinct banks. It reads V at rows 2t and
-// 2t + 1, column g: a stride of 4 mod 32 does the same for its 4-byte loads.
+// Row strides (floats). A lane reads A and B fragments of a product over the
+// head dim as 8-byte pairs at row g, column 2t (g = lane / 4, t = lane % 4):
+// a stride of 8 mod 32 words puts a half-warp's 16 pairs in distinct banks.
+// It reads the B operand of a product over keys (K2's V, K3's K, K4's Q and
+// dO) at rows 2t and 2t + 1, column g: a stride of 4 mod 32 does the same
+// for those 4-byte loads. K2's V is read only so; K3's K and K4's Q and dO
+// are read both ways and take D + 8, whose 2-way conflicts on the second
+// cost as many shared-memory wavefronts as D + 4's on the first.
 template <int D> constexpr int f32_qk_ld() { return D + kF32QkPad; }
 template <int D> constexpr int f32_v_ld() { return D + kF32VPad; }
 template <int D> constexpr size_t fwd_f32_smem() {  // Q, K double-buffered, V
   return (static_cast<size_t>(kTile) * f32_qk_ld<D>() +
           kF32Keys * (2 * f32_qk_ld<D>() + f32_v_ld<D>())) * sizeof(float);
+}
+template <int D> constexpr size_t dq_f32_smem() {  // Q, dO; K and V double-buffered
+  return static_cast<size_t>(2 * kTile + 4 * kF32Keys) * f32_qk_ld<D>() * sizeof(float);
+}
+template <int D> constexpr size_t dkv_f32_smem() {  // K, V; Q, dO, LSE, delta double-buffered
+  return (static_cast<size_t>(2 * kTile + 4 * kF32Keys) * f32_qk_ld<D>() + 4 * kF32Keys) *
+         sizeof(float);
 }
 
 // x = hi + lo. hi is x rounded to TF32 (10 mantissa bits) to nearest, ties
@@ -921,6 +672,85 @@ __device__ __forceinline__ void mma_split(float c[4], const uint32_t ahi[4], con
   mma_tf32(c, ahi, bhi[0], bhi[1]);
 }
 
+// The operands of a product over the head dim, k8 step kk: k-slots t and
+// t + 4 are columns kk + 2t and kk + 2t + 1, read as one 8-byte pair a row
+// (the permutation only reorders a sum). The split A fragment of rows
+// m0 + g and m0 + g + 8 of a float32 tile ...
+template <int kLd>
+__device__ __forceinline__ void a_split(const float* tile, int m0, int kk, int g, int t,
+                                        uint32_t hi[4], uint32_t lo[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(tile + (m0 + g) * kLd + kk + 2 * t);
+  const float2 x1 = *reinterpret_cast<const float2*>(tile + (m0 + g + 8) * kLd + kk + 2 * t);
+  split_tf32(x0.x, hi[0], lo[0]);
+  split_tf32(x1.x, hi[1], lo[1]);
+  split_tf32(x0.y, hi[2], lo[2]);
+  split_tf32(x1.y, hi[3], lo[3]);
+}
+// ... and the split B fragment of row n0 + g of a tile stored [n][k].
+template <int kLd>
+__device__ __forceinline__ void b_split(const float* tile, int n0, int kk, int g, int t,
+                                        uint32_t hi[2], uint32_t lo[2]) {
+  const float2 x = *reinterpret_cast<const float2*>(tile + (n0 + g) * kLd + kk + 2 * t);
+  split_tf32(x.x, hi[0], lo[0]);
+  split_tf32(x.y, hi[1], lo[1]);
+}
+
+// The split A fragment of a product over the columns of a [16 x 8j..] block
+// held as accumulators: accumulator x holds columns 8j + 2t and 8j + 2t + 1
+// of rows g, g + 8, which become k-slots t and t + 4 with no shuffle.
+__device__ __forceinline__ void a_split_acc(const float x[4], uint32_t hi[4], uint32_t lo[4]) {
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[2], hi[1], lo[1]);
+  split_tf32(x[1], hi[2], lo[2]);
+  split_tf32(x[3], hi[3], lo[3]);
+}
+
+// acc[16 x D] += A B for that A (k8 step k0) and B rows k0 + 2t, k0 + 2t + 1
+// (its k-slots t, t + 4) of a float32 tile stored [k][n], column 8n + g.
+template <int D, int kLd>
+__device__ __forceinline__ void acc_split_product(const uint32_t ahi[4], const uint32_t alo[4],
+                                                  const float* tile, int k0, int g, int t,
+                                                  float (&acc)[D / 8][4]) {
+  const float* row = tile + (k0 + 2 * t) * kLd + g;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    uint32_t bhi[2], blo[2];
+    split_tf32(row[8 * n], bhi[0], blo[0]);
+    split_tf32(row[kLd + 8 * n], bhi[1], blo[1]);
+    mma_split(acc[n], ahi, alo, bhi, blo);
+  }
+}
+
+// The warp's [16 x 32] blocks s = A1 B1^T and dp = A2 B2^T over the head
+// dim: A1, A2 float32 tiles of which the warp takes rows m0..m0+15, B1, B2
+// [32][D] tiles, all at row stride kLd.
+template <int D, int kLd>
+__device__ __forceinline__ void score_pair_f32(const float* a1, const float* b1, const float* a2,
+                                               const float* b2, int m0, int g, int t,
+                                               float (&s)[kF32Keys / 8][4],
+                                               float (&dp)[kF32Keys / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < kF32Keys / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 8) {
+    uint32_t ahi[4], alo[4], bhi[2], blo[2];
+    a_split<kLd>(a1, m0, kk, g, t, ahi, alo);
+#pragma unroll
+    for (int j = 0; j < kF32Keys / 8; ++j) {
+      b_split<kLd>(b1, 8 * j, kk, g, t, bhi, blo);
+      mma_split(s[j], ahi, alo, bhi, blo);
+    }
+    a_split<kLd>(a2, m0, kk, g, t, ahi, alo);
+#pragma unroll
+    for (int j = 0; j < kF32Keys / 8; ++j) {
+      b_split<kLd>(b2, 8 * j, kk, g, t, bhi, blo);
+      mma_split(dp[j], ahi, alo, bhi, blo);
+    }
+  }
+}
+
 // dst[r][:] = src[row0 + r][:] for kRows rows of D floats at a row stride of
 // kLd floats, 16 bytes a thread; rows past `rows` are zero-filled.
 template <int D, int kRows, int kLd>
@@ -938,6 +768,25 @@ __device__ __forceinline__ void cp_tile_f32(uint32_t dst, const float* __restric
   }
 }
 
+// The warp's [16 x D] accumulators, rows row0 + g (0, 1) and row0 + g + 8
+// (2, 3), columns 8n + 2t, + 1, stored as 8-byte pairs to out (rows of D
+// floats) where the row lies below `rows`.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[D / 8][4],
+                                               float* __restrict__ out, int row0, int rows,
+                                               int g, int t) {
+  const int r0 = row0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (r0 < rows)
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(r0) * D + 8 * n + 2 * t) =
+          make_float2(acc[n][0], acc[n][1]);
+    if (r1 < rows)
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(r1) * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
 // K2 for float32. The bf16 kernel's layout (4 warps of 16 query rows, the
 // online softmax on the accumulator fragments) with m16n8k8 TF32 products,
 // each operand split into hi + lo and multiplied as three products. Keys come
@@ -947,12 +796,9 @@ __device__ __forceinline__ void cp_tile_f32(uint32_t dst, const float* __restric
 // NVIDIA H100 80GB HBM3). The next V tile is copied once every warp is
 // done with this one and lands during the next tile's Q·K^T. Q stays in
 // shared memory and its fragments are split again at every k-step (held in
-// registers they would take D registers a thread). In the k8 steps of Q·K^T a lane's k-slots t and t + 4
-// are head-dim columns 2t and 2t + 1 of the step, read as one 8-byte pair for
-// A and for B. In P·V they are keys 2t and 2t + 1: exactly the two columns a
-// lane holds of the score accumulator, so P is the A operand with no shuffle,
-// and V's rows are read in the same order. Either permutation only reorders
-// a sum.
+// registers they would take D registers a thread). P·V takes P straight
+// from the score accumulators (`a_split_acc`) and reads V's keys in the
+// lane's slot order.
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 3)
 flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -1017,20 +863,11 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
       for (int kk = 0; kk < D; kk += 8) {
-        const float2 qa = *reinterpret_cast<const float2*>(q_sh + (m0 + g) * kQkLd + kk + 2 * t);
-        const float2 qc =
-            *reinterpret_cast<const float2*>(q_sh + (m0 + g + 8) * kQkLd + kk + 2 * t);
-        uint32_t ahi[4], alo[4];
-        split_tf32(qa.x, ahi[0], alo[0]);
-        split_tf32(qc.x, ahi[1], alo[1]);
-        split_tf32(qa.y, ahi[2], alo[2]);
-        split_tf32(qc.y, ahi[3], alo[3]);
+        uint32_t ahi[4], alo[4], bhi[2], blo[2];
+        a_split<kQkLd>(q_sh, m0, kk, g, t, ahi, alo);
 #pragma unroll
         for (int j = 0; j < kF32Keys / 8; ++j) {
-          const float2 kv = *reinterpret_cast<const float2*>(ksh + (8 * j + g) * kQkLd + kk + 2 * t);
-          uint32_t bhi[2], blo[2];
-          split_tf32(kv.x, bhi[0], blo[0]);
-          split_tf32(kv.y, bhi[1], blo[1]);
+          b_split<kQkLd>(ksh, 8 * j, kk, g, t, bhi, blo);
           mma_split(s[j], ahi, alo, bhi, blo);
         }
       }
@@ -1075,23 +912,12 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this V has landed
     __syncthreads();
     if (live) {
-      // O += P V, P kept in float32 (as hi + lo): accumulator j holds keys
-      // 8j + 2t, 8j + 2t + 1 of rows g, g + 8, which become k-slots t, t + 4
+      // O += P V, P kept in float32 (as hi + lo)
 #pragma unroll
       for (int j = 0; j < kF32Keys / 8; ++j) {
         uint32_t phi[4], plo[4];
-        split_tf32(s[j][0], phi[0], plo[0]);
-        split_tf32(s[j][2], phi[1], plo[1]);
-        split_tf32(s[j][1], phi[2], plo[2]);
-        split_tf32(s[j][3], phi[3], plo[3]);
-        const float* vrow = v_sh + (8 * j + 2 * t) * kVLd + g;  // keys 8j + 2t, + 1
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          uint32_t bhi[2], blo[2];
-          split_tf32(vrow[8 * n], bhi[0], blo[0]);
-          split_tf32(vrow[kVLd + 8 * n], bhi[1], blo[1]);
-          mma_split(acc[n], phi, plo, bhi, blo);
-        }
+        a_split_acc(s[j], phi, plo);
+        acc_split_product<D, kVLd>(phi, plo, v_sh, 8 * j, g, t, acc);
       }
     }
     __syncthreads();  // every warp is done with V and with this K
@@ -1102,16 +928,11 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float safe_l[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) safe_l[h] = l_run[h] > 0.0f ? l_run[h] : 1.0f;
-  float* ob = o + static_cast<size_t>(bh) * s_len * D;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (r0 < s_len)
-      *reinterpret_cast<float2*>(ob + static_cast<size_t>(r0) * D + 8 * n + 2 * t) =
-          make_float2(acc[n][0] / safe_l[0], acc[n][1] / safe_l[0]);
-    if (r1 < s_len)
-      *reinterpret_cast<float2*>(ob + static_cast<size_t>(r1) * D + 8 * n + 2 * t) =
-          make_float2(acc[n][2] / safe_l[1], acc[n][3] / safe_l[1]);
-  }
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = acc[n][e] / safe_l[e >> 1];
+  store_rows_f32<D>(acc, o + static_cast<size_t>(bh) * s_len * D, q0 + m0, s_len, g, t);
   if (t == 0) {
     float* lse_b = lse + static_cast<size_t>(bh) * s_len;
     if (r0 < s_len) lse_b[r0] = m_run[0] + logf(safe_l[0]);
@@ -1119,15 +940,213 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------------ launch
+// K3 for float32: the bf16 K3's layout (4 warps of 16 query rows, the row
+// operations on the accumulator fragments) on split-TF32 products. Keys come
+// in tiles of 32, K and V double-buffered: Q, dO and four 32-key tiles take
+// 104 KB at D = 96, two blocks an SM (139 KB and one at D = 128). A warp
+// computes S = Q K^T and dO V^T (`score_pair_f32`), P = exp(S - LSE) and
+// dS = P (dO V^T - delta) scale on its fragments, and dQ += dS K with dS,
+// kept in float32 (the reference rounds it to k's type, float32 here), as
+// the A operand straight from the accumulators. A warp whose rows all lie
+// above a tile's keys under the causal mask has P = 0 there and skips it.
+// Its time follows its mma.sync count, not its splits or its mma chains
+// (NVIDIA H100 80GB HBM3, [256, 256, 96] causal, against 0.1198-0.1208 ms
+// for this kernel and 0.1683-0.1694 for K4 in the same calls): K and V (K4:
+// Q and dO) split once a tile by the threads that copied them, hi in place
+// and lo beside it, single-buffered for room, 0.1228 (K4 0.1728); the cross
+// terms summed in accumulators of their own, 0.1213 (K4 0.1699).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dq_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dq, int s_len, int sk_len, int causal,
+                          float scale) {
+  constexpr int kLd = f32_qk_ld<D>(), kKvFloats = kF32Keys * kLd;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  // Q, dO, then K and V double-buffered
+  const float* q_sh = reinterpret_cast<const float*>(tc_smem);
+  const float* do_sh = q_sh + kTile * kLd;
+  const float* k_sh0 = do_sh + kTile * kLd;
+  const float* v_sh0 = k_sh0 + 2 * kKvFloats;
 
-template <int D> constexpr size_t dq_smem() {
-  return (4 * tile_floats<D>() + kTile * kPLd + 2 * kTile) * sizeof(float);
+  const int bh = blockIdx.x;
+  const int nq = gridDim.y;
+  const int qt = nq - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const float* kb = k + static_cast<size_t>(bh) * sk_len * D;
+  const float* vb = v + static_cast<size_t>(bh) * sk_len * D;
+
+  cp_tile_f32<D, kTile, kLd>(smem_addr(q_sh), q + static_cast<size_t>(bh) * s_len * D, q0, s_len);
+  cp_tile_f32<D, kTile, kLd>(smem_addr(do_sh), dout + static_cast<size_t>(bh) * s_len * D, q0,
+                             s_len);
+  cp_tile_f32<D, kF32Keys, kLd>(smem_addr(k_sh0), kb, 0, sk_len);
+  cp_tile_f32<D, kF32Keys, kLd>(smem_addr(v_sh0), vb, 0, sk_len);
+  cp_async_commit();
+
+  // this lane's query rows r0 (accumulators 0, 1) and r0 + 8 (2, 3)
+  const int r0 = q0 + m0 + g, r1 = r0 + 8;
+  const float* lse_b = lse + static_cast<size_t>(bh) * s_len;
+  const float* delta_b = delta + static_cast<size_t>(bh) * s_len;
+  const float lse_r[2] = {r0 < s_len ? lse_b[r0] : 0.0f, r1 < s_len ? lse_b[r1] : 0.0f};
+  const float delta_r[2] = {r0 < s_len ? delta_b[r0] : 0.0f, r1 < s_len ? delta_b[r1] : 0.0f};
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  const int nk = (sk_len + kF32Keys - 1) / kF32Keys;
+  // a key tile is live unless every (row, col) pair of the query tile has col > row
+  const int k_end = causal ? min(nk, (q0 + kTile - 1) / kF32Keys + 1) : nk;
+  for (int kt = 0; kt < k_end; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < k_end) {  // the next pair lands while this one is used
+      cp_tile_f32<D, kF32Keys, kLd>(smem_addr(k_sh0 + (buf ^ 1) * kKvFloats), kb,
+                                    (kt + 1) * kF32Keys, sk_len);
+      cp_tile_f32<D, kF32Keys, kLd>(smem_addr(v_sh0 + (buf ^ 1) * kKvFloats), vb,
+                                    (kt + 1) * kF32Keys, sk_len);
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const int k0 = kt * kF32Keys;
+    if (!causal || k0 <= q0 + m0 + 15) {
+      const float* ksh = k_sh0 + buf * kKvFloats;
+      float s[kF32Keys / 8][4], ds[kF32Keys / 8][4];  // S; dO V^T, then dS
+      score_pair_f32<D, kLd>(q_sh, ksh, do_sh, v_sh0 + buf * kKvFloats, m0, g, t, s, ds);
+#pragma unroll
+      for (int j = 0; j < kF32Keys / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;  // 0: row r0, 1: row r1
+          const float sc = masked_score(s[j][e], scale, h ? r1 : r0,
+                                        k0 + 8 * j + 2 * t + (e & 1), sk_len, causal != 0);
+          const float p = expf(sc - lse_r[h]);
+          ds[j][e] = p * (ds[j][e] - delta_r[h]) * scale;
+        }
+#pragma unroll
+      for (int j = 0; j < kF32Keys / 8; ++j) {
+        uint32_t hi[4], lo[4];
+        a_split_acc(ds[j], hi, lo);
+        acc_split_product<D, kLd>(hi, lo, ksh, 8 * j, g, t, acc);
+      }
+    }
+    __syncthreads();
+  }
+  store_rows_f32<D>(acc, dq + static_cast<size_t>(bh) * s_len * D, q0 + m0, s_len, g, t);
 }
-template <int D> constexpr size_t dkv_smem() {
-  return (4 * tile_floats<D>() + 2 * kTile * kPLd + 2 * kTile) * sizeof(float);
+
+// K4 for float32: the bf16 K4's layout (4 warps of 16 keys of a 64-key
+// tile, S^T = K Q^T so that P^T and dS^T sit in registers as the A operand
+// of dV += P^T dO and dK += dS^T Q) on split-TF32 products. Queries come in
+// tiles of 32, Q and dO double-buffered with their LSE and delta rows: K,
+// V and four 32-row tiles take 105 KB at D = 96, two blocks an SM (137 KB
+// and one at D = 128); 32-row tiles also halve the P and dS accumulators
+// beside dK's and dV's D floats a lane each. P and dS stay float32 and are
+// split like any operand. A warp whose keys all lie past a tile's queries
+// under the causal mask has P = 0 there and skips it.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dkv_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv, int s_len, int sk_len,
+                           int causal, float scale) {
+  constexpr int kLd = f32_qk_ld<D>(), kQFloats = kF32Keys * kLd;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  // K, V, then Q, dO and the LSE and delta rows double-buffered
+  const float* k_sh = reinterpret_cast<const float*>(tc_smem);
+  const float* v_sh = k_sh + kTile * kLd;
+  const float* q_sh0 = v_sh + kTile * kLd;
+  const float* do_sh0 = q_sh0 + 2 * kQFloats;
+  const float* rows_sh = do_sh0 + 2 * kQFloats;  // [2][lse, delta][32]
+
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;  // low key tiles see the most query tiles: first
+  const int k0 = kt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const float* qb = q + static_cast<size_t>(bh) * s_len * D;
+  const float* dob = dout + static_cast<size_t>(bh) * s_len * D;
+  const float* lse_b = lse + static_cast<size_t>(bh) * s_len;
+  const float* delta_b = delta + static_cast<size_t>(bh) * s_len;
+
+  // query tile qt into buffer buf: Q, dO, and one LSE or delta row a thread
+  auto load_q_tile = [&](int qt, int buf) {
+    cp_tile_f32<D, kF32Keys, kLd>(smem_addr(q_sh0 + buf * kQFloats), qb, qt * kF32Keys, s_len);
+    cp_tile_f32<D, kF32Keys, kLd>(smem_addr(do_sh0 + buf * kQFloats), dob, qt * kF32Keys, s_len);
+    if (threadIdx.x < 2 * kF32Keys) {
+      const int r = threadIdx.x % kF32Keys, which = threadIdx.x / kF32Keys;  // 0: LSE, 1: delta
+      const bool valid = qt * kF32Keys + r < s_len;
+      cp_async4(smem_addr(rows_sh + (buf * 2 + which) * kF32Keys + r),
+                (which ? delta_b : lse_b) + (valid ? qt * kF32Keys + r : 0), valid);
+    }
+  };
+
+  cp_tile_f32<D, kTile, kLd>(smem_addr(k_sh), k + static_cast<size_t>(bh) * sk_len * D, k0,
+                             sk_len);
+  cp_tile_f32<D, kTile, kLd>(smem_addr(v_sh), v + static_cast<size_t>(bh) * sk_len * D, k0,
+                             sk_len);
+  const int nq = (s_len + kF32Keys - 1) / kF32Keys;
+  // a query tile is live unless every (row, col) pair in it has col > row
+  const int qt_begin = causal ? k0 / kF32Keys : 0;
+  load_q_tile(qt_begin, 0);
+  cp_async_commit();
+
+  // this lane's keys kr0 (accumulators 0, 1) and kr0 + 8 (2, 3)
+  const int kr0 = k0 + m0 + g;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+
+  for (int qt = qt_begin; qt < nq; ++qt) {
+    const int buf = (qt - qt_begin) & 1;
+    if (qt + 1 < nq) load_q_tile(qt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const int q0 = qt * kF32Keys;
+    if (!causal || q0 + kF32Keys - 1 >= k0 + m0) {
+      const float* qsh = q_sh0 + buf * kQFloats;
+      const float* dosh = do_sh0 + buf * kQFloats;
+      const float* lse_s = rows_sh + buf * 2 * kF32Keys;
+      const float* delta_s = lse_s + kF32Keys;
+      float p[kF32Keys / 8][4], ds[kF32Keys / 8][4];  // S^T then P^T; V dO^T then dS^T
+      score_pair_f32<D, kLd>(k_sh, qsh, v_sh, dosh, m0, g, t, p, ds);
+#pragma unroll
+      for (int j = 0; j < kF32Keys / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);  // query column in the tile
+          const float sc = masked_score(p[j][e], scale, q0 + c, kr0 + (e >> 1) * 8, sk_len,
+                                        causal != 0);
+          // query rows past the end hold zeros, not a softmax row: no weight
+          const float pe = q0 + c < s_len ? expf(sc - lse_s[c]) : 0.0f;
+          p[j][e] = pe;
+          ds[j][e] = pe * (ds[j][e] - delta_s[c]) * scale;
+        }
+#pragma unroll
+      for (int j = 0; j < kF32Keys / 8; ++j) {
+        uint32_t hi[4], lo[4];
+        a_split_acc(p[j], hi, lo);
+        acc_split_product<D, kLd>(hi, lo, dosh, 8 * j, g, t, dv_acc);
+        a_split_acc(ds[j], hi, lo);
+        acc_split_product<D, kLd>(hi, lo, qsh, 8 * j, g, t, dk_acc);
+      }
+    }
+    __syncthreads();
+  }
+  store_rows_f32<D>(dk_acc, dk + static_cast<size_t>(bh) * sk_len * D, k0 + m0, sk_len, g, t);
+  store_rows_f32<D>(dv_acc, dv + static_cast<size_t>(bh) * sk_len * D, k0 + m0, sk_len, g, t);
 }
-static_assert(dkv_smem<kMaxHeadDim>() <= 232448, "K4 tile exceeds a block's shared memory");
+
+// ------------------------------------------------------------------ launch
 
 struct Args {
   const void* q;
@@ -1214,31 +1233,39 @@ struct Forward<bf16, D> {
   }
 };
 
-// K3 and K4: the SIMT kernels for float32 ...
+// K3 and K4: the split-TF32 tensor-core kernels for float32 ...
 template <typename T, int D>
-struct Backward {
-  static constexpr size_t kDqSmem = dq_smem<D>(), kDkvSmem = dkv_smem<D>();
+struct Backward;
+
+template <int D>
+struct Backward<float, D> {
+  static constexpr size_t kDqSmem = dq_f32_smem<D>(), kDkvSmem = dkv_f32_smem<D>();
+  static_assert(D > 96 || 2 * (kDkvSmem + 1024) <= 233472, "two K4 blocks share an SM");
+  static_assert(D > 96 || 2 * (kDqSmem + 1024) <= 233472, "two K3 blocks share an SM");
+  static_assert(kDkvSmem <= 232448 && kDqSmem <= 232448, "a block's shared memory");
   static int dq(dim3 grid, const Args& a) {
-    const int err = opt_in(flash_bwd_dq_kernel<T, D>, kDqSmem);
+    const int err = opt_in(flash_bwd_dq_f32tc_kernel<D>, kDqSmem);
     if (err != 0) return err;
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, kDqSmem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.o), a.s_len,
-        a.sk_len, a.causal, a.scale);
+    flash_bwd_dq_f32tc_kernel<D><<<grid, kTcThreads, kDqSmem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse_in, a.delta,
+        static_cast<float*>(a.o), a.s_len, a.sk_len, a.causal, a.scale);
     return 0;
   }
   static int dkv(dim3 grid, const Args& a) {
-    const int err = opt_in(flash_bwd_dkv_kernel<T, D>, kDkvSmem);
+    const int err = opt_in(flash_bwd_dkv_f32tc_kernel<D>, kDkvSmem);
     if (err != 0) return err;
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, kDkvSmem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.o),
-        static_cast<T*>(a.dv), a.s_len, a.sk_len, a.causal, a.scale);
+    flash_bwd_dkv_f32tc_kernel<D><<<grid, kTcThreads, kDkvSmem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse_in, a.delta,
+        static_cast<float*>(a.o), static_cast<float*>(a.dv), a.s_len, a.sk_len, a.causal,
+        a.scale);
     return 0;
   }
   static int info(Which which, int* out) {
-    return which == Which::kDq ? kernel_info(flash_bwd_dq_kernel<T, D>, kThreads, kDqSmem, out)
-                               : kernel_info(flash_bwd_dkv_kernel<T, D>, kThreads, kDkvSmem, out);
+    return which == Which::kDq
+               ? kernel_info(flash_bwd_dq_f32tc_kernel<D>, kTcThreads, kDqSmem, out)
+               : kernel_info(flash_bwd_dkv_f32tc_kernel<D>, kTcThreads, kDkvSmem, out);
   }
 };
 

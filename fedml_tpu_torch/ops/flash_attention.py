@@ -7,23 +7,30 @@ backward recomputes P from them tile by tile: dQ over the key tiles, dK and
 dV over the query tiles (FlashAttention, Dao et al. 2022; online softmax per
 Milakov & Gionis).
 
-Three versions of each kernel's function:
+Two versions of each kernel's function:
 
 - the CUDA kernels in ``csrc/flash_attention.cu`` (Hopper, ``sm_90a``),
   launched by :func:`flash_forward` / :func:`flash_backward_dq` /
   :func:`flash_backward_dkv` for CUDA tensors. They pick their own tiles
   (:data:`KERNEL_TILE` rows), so on the card ``block_q``/``block_k`` only
-  bound what the caller may pass. For bfloat16, K2, K3 and K4 run on the
-  tensor cores (``mma.sync`` with float32 sums; K2 sums l over the float32
-  P before it rounds P for P·V; K4 multiplies its float32 P and dS as bf16
-  hi + lo pairs, so it rounds neither). For float32, K2 runs on the tensor
-  cores too, each float32 operand split into TF32 hi + lo pairs and each
-  product taken as hi·hi + hi·lo + lo·hi (3xTF32); K3 and K4 do float32 FMA
-  on the CUDA cores;
+  bound what the caller may pass. All of them run on the tensor cores
+  (``mma.sync`` with float32 sums). For bfloat16: K2 sums l over the
+  float32 P before it rounds P for P·V; K4 multiplies its float32 P and dS
+  as bf16 hi + lo pairs, so it rounds neither. For float32, every operand
+  of every product (Q, K, V, dO, and P and dS from the accumulators) is
+  split into a TF32 hi and its exact remainder lo, and each product is
+  taken as hi·lo + lo·hi + hi·hi (3xTF32), good to ~2⁻²⁰ of it;
 - :func:`flash_forward_plain`, :func:`flash_backward_dq_plain` and
   :func:`flash_backward_dkv_plain`: the same blockwise arithmetic with the
-  same casts in PyTorch ops, at the caller's block sizes; the wrappers use
-  them for CPU tensors, and nothing else.
+  same casts in PyTorch ops, at the caller's block sizes and any head dim;
+  the wrappers use them for CPU tensors, and nothing else.
+
+The kernels are built for the head dims :data:`HEAD_DIMS`. On the card any
+other d up to the largest is zero-padded to the next built one
+(:func:`at_built_head_dim`): zero columns change neither Q·Kᵀ, dO·Vᵀ, LSE
+nor δ, the caller's scale stays 1/√d of the true d, and O, dQ, dK and dV
+are sliced back to d. A d above the largest has no kernel and the
+launcher refuses it (ROADMAP.md §3).
 
 The casts that decide the bfloat16 numbers are the reference kernel's: P is
 rounded to v's type before P·V (K2), dO·Vᵀ is float32 and dS is rounded to
@@ -49,6 +56,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from fedml_tpu_torch.ops._build import count_launch, load_kernel_library
 
@@ -209,6 +217,10 @@ def _launch(name: str, fn, q, operands, Sk: int, causal: bool, scale: float) -> 
     ``operands`` are (tensor, kind) in the C argument order; kind "q" is
     [BH, S, d] and "k" [BH, Sk, d] in q's type, "row" [BH, S] float32."""
     BH, S, d = q.shape
+    if d > max(HEAD_DIMS):
+        raise ValueError(f"{name}: no kernel for head dim {d} on the card: the kernels are built "
+                         f"up to {max(HEAD_DIMS)} (a 64-row float32 K4 tile alone would take "
+                         f"~67 KB of shared memory at d = 256); see ROADMAP.md §3")
     if d not in HEAD_DIMS or q.dtype not in _DTYPE_CODE or (causal and S != Sk):
         raise ValueError(f"{name}: no kernel for head dim {d}, {q.dtype}, "
                          f"causal={causal} with S={S}, Sk={Sk}")
@@ -240,10 +252,34 @@ def _device_kind(*ts) -> str:
     return dev.type
 
 
-def flash_forward(q, k, v, scale: float, causal: bool, block_q: int, block_k: int):
-    """K2: (O, LSE) for contiguous q [BH, S, d], k/v [BH, Sk, d]."""
-    if _device_kind(q, k, v) == "cpu":
-        return flash_forward_plain(q, k, v, scale, causal, block_q, block_k)
+def built_head_dim(d: int) -> int:
+    """The smallest head dim of :data:`HEAD_DIMS` not below ``d``; ``d``
+    itself above the largest (which the launcher then refuses)."""
+    return next((h for h in HEAD_DIMS if h >= d), d)
+
+
+def at_built_head_dim(fn, *args):
+    """``fn(*args)`` with every [BH, n, d] tensor among ``args`` zero-padded
+    along d to :func:`built_head_dim` (d), and every [BH, n, ·] output sliced
+    back to d; [BH, n] rows (LSE, δ) and the scalars pass unchanged, so the
+    scale stays the caller's 1/√d. Zero columns add nothing to Q·Kᵀ or dO·Vᵀ,
+    and O, dQ, dK and dV have zeros there."""
+    d = args[0].shape[-1]
+    width = built_head_dim(d)
+    if width == d:
+        return fn(*args)
+
+    def pad(a):
+        return F.pad(a, (0, width - d)) if isinstance(a, torch.Tensor) and a.dim() == 3 else a
+
+    def cut(t):
+        return t[..., :d].contiguous() if t.dim() == 3 else t
+
+    out = fn(*map(pad, args))
+    return cut(out) if isinstance(out, torch.Tensor) else tuple(map(cut, out))
+
+
+def _forward_kernel(q, k, v, scale: float, causal: bool):
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     _launch(FWD, _lib().fedml_flash_fwd, q,
@@ -251,11 +287,7 @@ def flash_forward(q, k, v, scale: float, causal: bool, block_q: int, block_k: in
     return out, lse
 
 
-def flash_backward_dq(q, k, v, do, lse, delta, scale: float, causal: bool,
-                      block_q: int, block_k: int):
-    """K3: dQ."""
-    if _device_kind(q, k, v, do, lse, delta) == "cpu":
-        return flash_backward_dq_plain(q, k, v, do, lse, delta, scale, causal, block_q, block_k)
+def _dq_kernel(q, k, v, do, lse, delta, scale: float, causal: bool):
     dq = torch.empty_like(q)
     _launch(BWD_DQ, _lib().fedml_flash_bwd_dq, q,
             [(q, "q"), (k, "k"), (v, "k"), (do, "q"), (lse, "row"), (delta, "row"), (dq, "q")],
@@ -263,16 +295,35 @@ def flash_backward_dq(q, k, v, do, lse, delta, scale: float, causal: bool,
     return dq
 
 
-def flash_backward_dkv(q, k, v, do, lse, delta, scale: float, causal: bool,
-                       block_q: int, block_k: int):
-    """K4: (dK, dV)."""
-    if _device_kind(q, k, v, do, lse, delta) == "cpu":
-        return flash_backward_dkv_plain(q, k, v, do, lse, delta, scale, causal, block_q, block_k)
+def _dkv_kernel(q, k, v, do, lse, delta, scale: float, causal: bool):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(BWD_DKV, _lib().fedml_flash_bwd_dkv, q,
             [(q, "q"), (k, "k"), (v, "k"), (do, "q"), (lse, "row"), (delta, "row"),
              (dk, "k"), (dv, "k")], k.shape[1], causal, scale)
     return dk, dv
+
+
+def flash_forward(q, k, v, scale: float, causal: bool, block_q: int, block_k: int):
+    """K2: (O, LSE) for contiguous q [BH, S, d], k/v [BH, Sk, d]."""
+    if _device_kind(q, k, v) == "cpu":
+        return flash_forward_plain(q, k, v, scale, causal, block_q, block_k)
+    return at_built_head_dim(_forward_kernel, q, k, v, scale, causal)
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, scale: float, causal: bool,
+                      block_q: int, block_k: int):
+    """K3: dQ."""
+    if _device_kind(q, k, v, do, lse, delta) == "cpu":
+        return flash_backward_dq_plain(q, k, v, do, lse, delta, scale, causal, block_q, block_k)
+    return at_built_head_dim(_dq_kernel, q, k, v, do, lse, delta, scale, causal)
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, scale: float, causal: bool,
+                       block_q: int, block_k: int):
+    """K4: (dK, dV)."""
+    if _device_kind(q, k, v, do, lse, delta) == "cpu":
+        return flash_backward_dkv_plain(q, k, v, do, lse, delta, scale, causal, block_q, block_k)
+    return at_built_head_dim(_dkv_kernel, q, k, v, do, lse, delta, scale, causal)
 
 
 # ---------------------------------------------------------------- autograd
@@ -391,8 +442,6 @@ def _check(q, k, v, causal: bool, block_q: int, block_k: int) -> Tuple[int, int]
             f"q/k/v leading (batch, heads) dims must match: q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)} (broadcast MQA/GQA heads first)"
         )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} has no flash kernel; supported: {HEAD_DIMS}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
         raise ValueError(
             f"flash attention takes float32 or bfloat16 q/k/v of one type; got "
@@ -403,9 +452,10 @@ def _check(q, k, v, causal: bool, block_q: int, block_k: int) -> Tuple[int, int]
 
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 512, block_k: int = 512):
     """Blockwise attention softmax(Q Kᵀ/√d [, causal]) V on q/k/v [..., S, d]
-    with any leading batch/head dims. Sequence lengths must be multiples of
-    the (clamped) block sizes, as in the reference. Differentiable through
-    the flash backward kernels."""
+    with any leading batch/head dims and any head dim (on the card up to
+    128, see :func:`at_built_head_dim`). Sequence lengths must be multiples
+    of the (clamped) block sizes, as in the reference. Differentiable
+    through the flash backward kernels."""
     block_q, block_k = _check(q, k, v, causal, block_q, block_k)
     S, d = q.shape[-2:]
     Sk = k.shape[-2]
