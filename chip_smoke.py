@@ -38,7 +38,7 @@ Phases, each of which raises on failure:
    against their plain PyTorch versions on the card: causal and not,
    S in {32, 128, 192, 512}, head dim in {16, 32, 48, 64, 80, 96, 128}
    (48 and 80 through the wrappers' zero-padding to 64 and 96), float32
-   and bfloat16, and the LM's [256, 256, 96] bfloat16 causal shape; O,
+   and bfloat16, and the LM's [256, 256, 96] causal shape in both; O,
    LSE, dQ, dK and dV each within the tolerance stated at FLASH_TOL;
 8. their times at the LM's shapes beside the plain versions, the bound and
    ``scaled_dot_product_attention`` (forward; backward as forward+backward
@@ -60,9 +60,10 @@ Phases, each of which raises on failure:
    float32 leg (``phase_lm_float32``): the same width (head dim 96) at
    LM_F32's depth, float32 compute, one round, whose K2/K3/K4 launches
    under "float32" must equal the shard sizes' count (none under
-   "bfloat16"), with finite losses and its parameters within
-   LM_F32_VS_FULL of the same round on the model's default
-   ``causal_full_attention`` (TF32 off);
+   "bfloat16"), with finite losses and its update (params − init) within
+   LM_F32_VS_FULL of the same round's on the model's default
+   ``causal_full_attention`` (TF32 off), and two faults planted in K3/K4
+   (dQ zeroed; their inputs rounded to TF32) each breaking that bound;
 10. where a warm LM round's time goes (torch.profiler);
 11. one LM round on the card against the same round on the CPU (2 layers,
     128 wide, windows of 64, float32 SGD) from the same init with the same
@@ -315,12 +316,16 @@ LM_ROUNDS = 3
 # not show a wrong gradient; SGD moves them by lr times it.
 LM_F32 = dict(layers=2, clients=2, samples=64, batch=32, lr=0.1)
 # that round against the same round on causal_full_attention (torch
-# matmuls and softmax, TF32 off), (rtol, atol·max|ref|) on the parameters:
-# the same float32 function summed in other orders, as LM_CARD_VS_CPU. The
-# phase measures beside it what a 1e-7 relative nudge of the init does to
-# the round: 2.4e-7 at max|param| ~1.0 on NVIDIA H100 80GB HBM3 (flash
-# against full 1.2e-7), so 1e-5 of max|param| is ~40x the nudge's effect.
-LM_F32_VS_FULL = (1e-4, 1e-5)
+# matmuls and softmax, TF32 off), tensor by tensor: the round's update
+# (vars − init) within LM_F32_VS_FULL of the full round's largest in that
+# tensor, after LM_F32_ULPS units of 2⁻²³·max|vars| (the params' float32
+# stores: 2 steps and the average, half an ulp each, in each run). The
+# faults of LM_F32_FAULTS planted in the flash round (_lm_f32_fault) must
+# break it. NVIDIA H100 80GB HBM3, 700 W: flash 2.4e-6, K3/K4 on
+# TF32-rounded inputs 8.7e-5, dQ zeroed 0.66, at max |update| 3.1e-3.
+LM_F32_VS_FULL = 1e-5
+LM_F32_ULPS = 4
+LM_F32_FAULTS = ("dq_zero", "inputs_tf32")
 
 # the cross-silo ResNet-56 row (bench.py:617-690) and the ResNet-18-GN row
 # (bench.py:895-938)
@@ -844,9 +849,10 @@ def _flash_case(fa, gen, device, BH, S, Sk, d, dtype, causal):
     return {"O": (o, po), "LSE": (lse, plse), "dQ": (dq, pdq), "dK": (dk, pdk), "dV": (dv, pdv)}
 
 
-def _flash_check(got, want, dtype_name, what) -> float:
+def _flash_check(got, want, dtype_name, what) -> tuple:
     """Raise unless |got - want| <= rtol·|want| + atol·max|want|
-    (FLASH_TOL); return the max |got - want|."""
+    (FLASH_TOL); return the max |got - want| and the largest share of the
+    bound it takes."""
     import torch
 
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -858,7 +864,7 @@ def _flash_check(got, want, dtype_name, what) -> float:
     if not torch.isfinite(g).all() or (err > bound).any():
         raise AssertionError(f"{what}: max |err| {err.max().item()} above rtol {rtol}, "
                              f"atol {atol}·max|ref| ({w.abs().max().item()})")
-    return err.max().item()
+    return err.max().item(), (err / bound.clamp_min(1e-30)).max().item()
 
 
 def phase_flash_parity(device="cuda", s_grid=FLASH_S_GRID, d_grid=FLASH_D_GRID, flagship=True):
@@ -872,25 +878,31 @@ def phase_flash_parity(device="cuda", s_grid=FLASH_S_GRID, d_grid=FLASH_D_GRID, 
     cases = [(FLASH_BH, S, S, d, dt, causal) for S in s_grid for d in d_grid
              for dt in (torch.float32, torch.bfloat16) for causal in (False, True)]
     cases.append((FLASH_BH, 128, 192, 64, torch.bfloat16, False))  # Sk != S
-    if flagship:
-        cases.append((LM["batch"] * LM["heads"], LM["seq"], LM["seq"],
-                      LM["width"] // LM["heads"], torch.bfloat16, True))
+    if flagship:  # the LM path's shape, in both its legs' types
+        cases += [(LM["batch"] * LM["heads"], LM["seq"], LM["seq"], LM["width"] // LM["heads"],
+                   dt, True) for dt in (torch.bfloat16, torch.float32)]
     owner = {"O": fa.FWD, "LSE": fa.FWD, "dQ": fa.BWD_DQ, "dK": fa.BWD_DKV, "dV": fa.BWD_DKV}
     errs = {name: 0.0 for name in fa.KERNEL_NAMES}
     by_output = {what: 0.0 for what in owner}
+    share = {}  # the largest share of the bound, by type and by the LM's own case
     with fp32_math():
         for BH, S, Sk, d, dt, causal in cases:
             out = _flash_case(fa, gen, device, BH, S, Sk, d, dt, causal)
             dt_name = str(dt).split(".")[-1]
             for what, (got, want) in out.items():
-                e = _flash_check(got, want, dt_name,
-                                 f"{what} BH={BH} S={S} Sk={Sk} d={d} {dt_name} causal={causal}")
+                e, sh = _flash_check(got, want, dt_name,
+                                     f"{what} BH={BH} S={S} Sk={Sk} d={d} {dt_name} "
+                                     f"causal={causal}")
                 errs[owner[what]] = max(errs[owner[what]], e)
                 by_output[what] = max(by_output[what], e)
+                for key in (dt_name, f"lm_{dt_name}" if BH == LM["batch"] * LM["heads"] else None):
+                    if key:
+                        share[key] = max(share.get(key, 0.0), sh)
     if device == "cuda":
         torch.cuda.synchronize()
     log(json.dumps({"flash_parity": {"cases": len(cases), "max_abs_err": errs,
                                      "max_abs_err_by_output": by_output,
+                                     "max_share_of_bound": share,
                                      "tolerance": {k: list(v) for k, v in FLASH_TOL.items()}}}))
     return errs
 
@@ -1187,11 +1199,55 @@ def phase_lm_path(device="cuda", rounds=LM_ROUNDS, layers=LM["layers"], **smalle
     return launches
 
 
+def _tf32(x):
+    """x rounded to TF32 as the kernels round their hi (to nearest on the
+    int32 view)."""
+    import torch
+
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(x.dtype)
+
+
+@contextlib.contextmanager
+def _lm_f32_fault(fa, kind: str):
+    """Plant a fault in the float32 K3/K4 the LM's backward calls: "dq_zero"
+    zeroes K3's dQ; "inputs_tf32" hands K3 and K4 their Q, K, V and dO
+    rounded to TF32 (a single TF32 product where the kernels take three, for
+    S, dO·Vᵀ and the K, Q, dO operands). The kernels still launch."""
+    dq, dkv = fa.flash_backward_dq, fa.flash_backward_dkv
+    if kind == "dq_zero":
+        fa.flash_backward_dq = lambda *a: dq(*a).zero_()
+    elif kind == "inputs_tf32":
+        fa.flash_backward_dq = lambda *a: dq(*map(_tf32, a[:4]), *a[4:])
+        fa.flash_backward_dkv = lambda *a: dkv(*map(_tf32, a[:4]), *a[4:])
+    try:
+        yield
+    finally:
+        fa.flash_backward_dq, fa.flash_backward_dkv = dq, dkv
+
+
+def _update_err(got: dict, want: dict, init: dict) -> dict:
+    """A round's update Δ = vars − init against another's (``want``), by
+    tensor: max |Δgot − Δwant| less LM_F32_ULPS units 2⁻²³·max|vars| (the
+    rounding of storing the params), over max |Δwant|. {"rel": the worst
+    tensor's, "tensor", "max_abs_err", "max_update"}."""
+    worst = (-1.0, "")
+    for k in want:
+        err = (got[k] - want[k]).abs().max().item()
+        floor = LM_F32_ULPS * 2.0**-23 * want[k].abs().max().item()
+        size = max((want[k] - init[k]).abs().max().item(), 1e-30)
+        worst = max(worst, (max(err - floor, 0.0) / size, k))
+    return {"rel": worst[0], "tensor": worst[1],
+            "max_abs_err": max((got[k] - want[k]).abs().max().item() for k in want),
+            "max_update": max((want[k] - init[k]).abs().max().item() for k in want)}
+
+
 def phase_lm_float32(device="cuda", layers=LM_F32["layers"], **smaller):
     """The float32 leg of the LM path (see LM_F32): one round with flash
     attention, its K2/K3/K4 launches under "float32" zeroed just before and
-    read just after; then the same round on ``causal_full_attention`` and
-    once more from the init nudged by 1e-7, all under ``fp32_math()``.
+    read just after; then the same round on ``causal_full_attention``, all
+    under ``fp32_math()``. The rounds' updates (vars − init) must agree
+    tensor by tensor as LM_F32_VS_FULL says (:func:`_update_err`); each
+    fault of LM_F32_FAULTS planted in a flash round must break that bound.
     Returns the float32 launches by kernel."""
     import torch
 
@@ -1201,18 +1257,17 @@ def phase_lm_float32(device="cuda", layers=LM_F32["layers"], **smaller):
     from fedml_tpu_torch.ops import flash_attention as fa
 
     sizes = {**{k: v for k, v in LM_F32.items() if k != "layers"}, **smaller}
+    runs = [("flash", None, None), ("full", causal_full_attention, None)]
+    runs += [(f"fault_{f}", None, f) for f in LM_F32_FAULTS]
     out = {}
-    for run, attn_fn, nudge in (("flash", None, 0.0), ("full", causal_full_attention, 0.0),
-                                ("full_nudged", causal_full_attention, 1e-7)):
+    for run, attn_fn, fault in runs:
         cfg, data, model = _flagship_lm(1, layers, compute_dtype="float32", optimizer="sgd",
                                         attn_fn=attn_fn, **sizes)
         api = FedAvgAPI(cfg, data, model, task="nwp",
                         device=None if device == "cuda" else device)
-        init = {k: v.detach().clone() for k, v in api.global_vars.items()}
-        if nudge:
-            api.global_vars = {k: v * (1.0 + nudge) for k, v in init.items()}
+        init = {k: v.detach().cpu().clone() for k, v in api.global_vars.items()}
         want = expected_flash_launches(api, layers)
-        with fp32_math():
+        with fp32_math(), (_lm_f32_fault(fa, fault) if fault else contextlib.nullcontext()):
             fa.reset_launches()  # zeroed just before the leg
             t0 = time.perf_counter()
             api.train()
@@ -1222,36 +1277,35 @@ def phase_lm_float32(device="cuda", layers=LM_F32["layers"], **smaller):
             launches = dict(fa.LAUNCHES)  # read just after
         out[run] = {"init": init, "vars": {k: v.detach().cpu() for k, v in api.global_vars.items()},
                     "rows": api.history, "wall_s": wall, "want": want, "launches": launches}
-    flash = out["flash"]
+    flash, full = out["flash"], out["full"]
     for row in flash["rows"]:
         for key in ("Train/Loss", "Test/Loss"):
             if key in row and not math.isfinite(row[key]):
                 raise AssertionError(f"LM float32: non-finite {key} in {row}")
-    for name in fa.KERNEL_NAMES:
-        got = flash["launches"][(name, "float32")]
-        expect = flash["want"][name] if device == "cuda" else 0
-        if got != expect or flash["launches"][(name, "bfloat16")] != 0:
-            raise AssertionError(f"LM float32: {got} float32 {name} launches "
-                                 f"(+{flash['launches'][(name, 'bfloat16')]} bfloat16), "
-                                 f"want {expect}")
-    if any(not torch.equal(flash["init"][k], out["full"]["init"][k].to(flash["init"][k].device))
-           for k in flash["init"]):
-        raise AssertionError("LM float32: the flash and full-attention runs start apart")
-    full, nudged = out["full"]["vars"], out["full_nudged"]["vars"]
-    err = max((flash["vars"][k] - full[k]).abs().max().item() for k in full)
-    nudge_err = max((nudged[k] - full[k]).abs().max().item() for k in full)
-    rtol, atol = LM_F32_VS_FULL
-    scale = max(full[k].abs().max().item() for k in full)
+    for run in (r for r in out if r != "full"):  # the faulted runs go through the kernels too
+        for name in fa.KERNEL_NAMES:
+            got, other = (out[run]["launches"][(name, t)] for t in ("float32", "bfloat16"))
+            expect = out[run]["want"][name] if device == "cuda" else 0
+            if got != expect or other != 0:
+                raise AssertionError(f"LM float32 ({run}): {got} float32 {name} launches "
+                                     f"(+{other} bfloat16), want {expect}")
+    init = full["init"]
+    if any(not torch.equal(out[r]["init"][k], init[k]) for r in out for k in init):
+        raise AssertionError("LM float32: the runs start apart")
+    errs = {r: _update_err(out[r]["vars"], full["vars"], init) for r in out if r != "full"}
     launches = {name: flash["launches"][(name, "float32")] for name in fa.KERNEL_NAMES}
     log(json.dumps({"lm_float32": {
-        "launches": launches, "expected": flash["want"], "max_abs_err_vs_full": err,
-        "nudge_1e-7_max_abs_err": nudge_err, "rtol": rtol, "atol_times_max": atol,
-        "max_abs_param": scale,
+        "launches": launches, "expected": flash["want"], "update_vs_full": errs,
+        "tolerance_rel": LM_F32_VS_FULL, "ulps": LM_F32_ULPS,
         "train_loss": {r: out[r]["rows"][-1]["Train/Loss"] for r in out},
         "round_s": {r: out[r]["wall_s"] for r in out}, "layers": layers, **sizes}}))
-    for k in full:
-        torch.testing.assert_close(flash["vars"][k], full[k], rtol=rtol, atol=atol * scale,
-                                   msg=lambda m: f"LM float32 flash vs full, {k}: {m}")
+    if not errs["flash"]["rel"] <= LM_F32_VS_FULL:
+        raise AssertionError(f"LM float32 flash vs full: {errs['flash']['tensor']}'s update "
+                             f"off by {errs['flash']['rel']} of its max, above {LM_F32_VS_FULL}")
+    for f in LM_F32_FAULTS:
+        if not errs[f"fault_{f}"]["rel"] > LM_F32_VS_FULL:
+            raise AssertionError(f"LM float32: the planted fault {f} passes the bound "
+                                 f"({errs[f'fault_{f}']['rel']} <= {LM_F32_VS_FULL})")
     return launches
 
 
