@@ -36,19 +36,26 @@ Phases, each of which raises on failure:
    client (a tight bound) and at the north-star batch of 20;
 7. K2, K3, K4 (flash attention forward, backward dQ, backward dK/dV)
    against their plain PyTorch versions on the card: causal and not,
-   S in {32, 128, 192, 512}, head dim in {16, 32, 48, 64, 80, 96, 128}
-   (48 and 80 through the wrappers' zero-padding to 64 and 96), float32
-   and bfloat16, and the LM's [256, 256, 96] causal shape in both; O,
-   LSE, dQ, dK and dV each within the tolerance stated at FLASH_TOL;
+   S in {32, 128, 192, 512}, head dim in {16, 32, 48, 64, 80, 96, 128,
+   160, 256} (48 and 80 through the wrappers' zero-padding to 64 and 96;
+   160 and 256 through the chunked kernels, 160 padded to 256), float32
+   and bfloat16, d = 384 and 512 at S = 128 (three and four chunks,
+   causal, both types), d = 256 at S = 128 over 192 keys (not causal,
+   both types), and the LM's [256, 256, 96] causal shape in both; O, LSE,
+   dQ, dK and dV each within the tolerance stated at FLASH_TOL, the
+   largest share of the bound logged by type, by head dim above 128, and
+   by type, head dim and output;
 8. their times at the LM's shapes beside the plain versions, the bound and
    ``scaled_dot_product_attention`` (forward; backward as forward+backward
    minus forward), with each kernel's achieved TFLOP/s, share of its bound,
    registers, local memory and blocks resident on an SM, and K3 + K4 over
    SDPA's backward, and the float32 kernels beside float32 SDPA and their
    float32 bounds (bytes, or three TF32 products a product), with K3 + K4
-   over SDPA's float32 backward; then the SASS of the built library
-   (``cuobjdump``): every K2/K3/K4 instantiation, bfloat16 and float32
-   (split TF32), must hold tensor-core (HMMA) instructions, and no
+   over SDPA's float32 backward; the same at [256, 256, 256] causal
+   (the chunked kernels), both types, beside SDPA and the backend it
+   picked; then the SASS of the built library (``cuobjdump``): every
+   K2/K3/K4 instantiation, bfloat16 and float32 (split TF32), the chunked
+   ones included, must hold tensor-core (HMMA) instructions, and no
    float32 CUDA-core (SIMT) flash kernel may be left;
 9. the LM path: FedAvgAPI(task="nwp") on the flagship LM (6 layers, 8
    heads, 768 wide, vocab 1024, windows of 256; 8 synthetic-Shakespeare
@@ -63,7 +70,10 @@ Phases, each of which raises on failure:
    "bfloat16"), with finite losses and its update (params − init) within
    LM_F32_VS_FULL of the same round's on the model's default
    ``causal_full_attention`` (TF32 off), and two faults planted in K3/K4
-   (dQ zeroed; their inputs rounded to TF32) each breaking that bound;
+   (dQ zeroed; their inputs rounded to TF32) each breaking that bound.
+   Then both legs again at head dim 256 (``phase_lm_wide``, LM_WIDE: 3
+   heads, 1 layer; the bf16 leg 2 rounds), through the chunked kernels,
+   whose launches count under their own keys;
 10. where a warm LM round's time goes (torch.profiler);
 11. one LM round on the card against the same round on the CPU (2 layers,
     128 wide, windows of 64, float32 SGD) from the same init with the same
@@ -222,6 +232,22 @@ Phases, each of which raises on failure:
     images on the card against the CPU (ZOO_CARD_VS_CPU). A ``[batched]``
     JSON line gives the readings.
 
+22. split learning and vertical FL (``phase_split_vertical``), none of
+    which launches K1-K4, under float32 with TF32 off: (a) SplitNN through
+    the CLI's runner on ``femnist_synthetic(128)``, a ring of 10, batch
+    20, SGD lr 0.1, momentum 0.9, wd 5e-4, 2 rounds — its rows, finite
+    params, round seconds, and a round of one batch a client (a whole
+    round is chaotic) on the card within SPLIT_CARD_VS_CPU of the same
+    round on the CPU, and that round with TF32 convolutions and matmuls
+    (a planted fault) outside it; (b) the loopback
+    split federation on the card bit-equal to the fused simulator on the
+    card (cuDNN's deterministic algorithms), its bytes up and down a
+    round, and each boundary codec's cut factor; (c) the CLI's VFL runner
+    for 2 epochs and the loopback vertical federation over the runner's
+    party split on the card, bit-equal, finite losses; (d) a fault plan that drops one client's turns: each run
+    skips it, and two runs agree bit for bit. A ``[split_vertical]`` JSON
+    line gives the readings and ``phase_s``.
+
 Then it prints each phase's seconds (``phase_s``), the kernels' JSON line,
 the ``nvidia-smi`` line, and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
@@ -303,7 +329,13 @@ SECAGG_ROUNDS = 2
 FAULT_ROUNDS = 2
 FAULT_DEADLINE_S = 1.0
 FLASH_S_GRID = (32, 128, 192, 512)
-FLASH_D_GRID = (16, 32, 48, 64, 80, 96, 128)  # 48 and 80: zero-padded to 64 and 96
+# 48 and 80: zero-padded to 64 and 96; 160 and 256: the chunked kernels (160
+# zero-padded to 256), two 128-wide chunks of the output's head dim
+FLASH_D_GRID = (16, 32, 48, 64, 80, 96, 128, 160, 256)
+# (S, Sk, d, causal), both types: three and four chunks; two chunks over
+# more keys than queries
+FLASH_WIDE_CASES = ((128, 128, 384, True), (128, 128, 512, True), (128, 192, 256, False))
+FLASH_WIDE_TIMING = dict(B=32, H=8, S=256, d=256)  # the LM's [256, 256, ·] causal at d = 256
 FLASH_BH = 3
 # the flagship LM (bench.py _flagship_lm_row): attention at B=32, H=8
 LM = dict(layers=6, heads=8, width=768, vocab=1024, seq=256, clients=8,
@@ -326,6 +358,11 @@ LM_F32 = dict(layers=2, clients=2, samples=64, batch=32, lr=0.1)
 LM_F32_VS_FULL = 1e-5
 LM_F32_ULPS = 4
 LM_F32_FAULTS = ("dq_zero", "inputs_tf32")
+# the LM path at head dim 256 (phase_lm_wide): LM's width over 3 heads, so
+# its attention runs the chunked kernels; 1 layer, 2 clients of 64. The
+# bf16 leg trains 2 rounds with LM's AMSGrad (its loss must fall), the
+# float32 leg is LM_F32's round, held to causal_full_attention as there
+LM_WIDE = dict(heads=3, layers=1, clients=2, samples=64)
 
 # the cross-silo ResNet-56 row (bench.py:617-690) and the ResNet-18-GN row
 # (bench.py:895-938)
@@ -850,9 +887,9 @@ def _flash_case(fa, gen, device, BH, S, Sk, d, dtype, causal):
 
 
 def _flash_check(got, want, dtype_name, what) -> tuple:
-    """Raise unless |got - want| <= rtol·|want| + atol·max|want|
-    (FLASH_TOL); return the max |got - want| and the largest share of the
-    bound it takes."""
+    """|got - want| against rtol·|want| + atol·max|want| (FLASH_TOL):
+    (the max |got - want|, the largest share of the bound it takes, and
+    None, or what broke the bound)."""
     import torch
 
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -861,10 +898,11 @@ def _flash_check(got, want, dtype_name, what) -> tuple:
     g, w = got.float(), want.float()
     err = (g - w).abs()
     bound = rtol * w.abs() + atol * w.abs().max()
+    broken = None
     if not torch.isfinite(g).all() or (err > bound).any():
-        raise AssertionError(f"{what}: max |err| {err.max().item()} above rtol {rtol}, "
-                             f"atol {atol}·max|ref| ({w.abs().max().item()})")
-    return err.max().item(), (err / bound.clamp_min(1e-30)).max().item()
+        broken = (f"{what}: max |err| {err.max().item()} above rtol {rtol}, "
+                  f"atol {atol}·max|ref| ({w.abs().max().item()})")
+    return err.max().item(), (err / bound.clamp_min(1e-30)).max().item(), broken
 
 
 def phase_flash_parity(device="cuda", s_grid=FLASH_S_GRID, d_grid=FLASH_D_GRID, flagship=True):
@@ -878,6 +916,8 @@ def phase_flash_parity(device="cuda", s_grid=FLASH_S_GRID, d_grid=FLASH_D_GRID, 
     cases = [(FLASH_BH, S, S, d, dt, causal) for S in s_grid for d in d_grid
              for dt in (torch.float32, torch.bfloat16) for causal in (False, True)]
     cases.append((FLASH_BH, 128, 192, 64, torch.bfloat16, False))  # Sk != S
+    cases += [(FLASH_BH, S, Sk, d, dt, causal) for S, Sk, d, causal in FLASH_WIDE_CASES
+              for dt in (torch.float32, torch.bfloat16)]
     if flagship:  # the LM path's shape, in both its legs' types
         cases += [(LM["batch"] * LM["heads"], LM["seq"], LM["seq"], LM["width"] // LM["heads"],
                    dt, True) for dt in (torch.bfloat16, torch.float32)]
@@ -885,17 +925,23 @@ def phase_flash_parity(device="cuda", s_grid=FLASH_S_GRID, d_grid=FLASH_D_GRID, 
     errs = {name: 0.0 for name in fa.KERNEL_NAMES}
     by_output = {what: 0.0 for what in owner}
     share = {}  # the largest share of the bound, by type and by the LM's own case
+    share_by_output = {}  # ... by type and head dim, then by output
+    broken = []
     with fp32_math():
         for BH, S, Sk, d, dt, causal in cases:
             out = _flash_case(fa, gen, device, BH, S, Sk, d, dt, causal)
             dt_name = str(dt).split(".")[-1]
             for what, (got, want) in out.items():
-                e, sh = _flash_check(got, want, dt_name,
-                                     f"{what} BH={BH} S={S} Sk={Sk} d={d} {dt_name} "
-                                     f"causal={causal}")
+                e, sh, bad = _flash_check(got, want, dt_name,
+                                          f"{what} BH={BH} S={S} Sk={Sk} d={d} {dt_name} "
+                                          f"causal={causal}")
+                broken += [bad] if bad else []
                 errs[owner[what]] = max(errs[owner[what]], e)
                 by_output[what] = max(by_output[what], e)
-                for key in (dt_name, f"lm_{dt_name}" if BH == LM["batch"] * LM["heads"] else None):
+                outs = share_by_output.setdefault(f"{dt_name}_d{d}", {})
+                outs[what] = max(outs.get(what, 0.0), sh)
+                for key in (dt_name, f"lm_{dt_name}" if BH == LM["batch"] * LM["heads"] else None,
+                            f"wide_{dt_name}_d{d}" if d > max(fa.HEAD_DIMS) else None):
                     if key:
                         share[key] = max(share.get(key, 0.0), sh)
     if device == "cuda":
@@ -903,7 +949,11 @@ def phase_flash_parity(device="cuda", s_grid=FLASH_S_GRID, d_grid=FLASH_D_GRID, 
     log(json.dumps({"flash_parity": {"cases": len(cases), "max_abs_err": errs,
                                      "max_abs_err_by_output": by_output,
                                      "max_share_of_bound": share,
-                                     "tolerance": {k: list(v) for k, v in FLASH_TOL.items()}}}))
+                                     "max_share_of_bound_by_output": share_by_output,
+                                     "tolerance": {k: list(v) for k, v in FLASH_TOL.items()},
+                                     "broken": broken}}))
+    if broken:  # after the log, which shows every case's share
+        raise AssertionError(f"{len(broken)} outputs outside FLASH_TOL: {broken}")
     return errs
 
 
@@ -987,7 +1037,95 @@ def phase_flash_timing(name: str, smi: str):
                  "FLOPs over the kernel's time; registers, local_bytes (spills), smem_bytes "
                  "and blocks_per_sm from the CUDA runtime for the bfloat16 kernels",
     }))
-    return t, plain, bounds, library, f32
+    wide = _flash_timing_wide(name, smi)
+    return t, plain, bounds, library, f32, wide
+
+
+def _sdpa_backend(q, k, v) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these causal
+    inputs (flash, efficient, cuDNN or math)."""
+    import torch
+
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+    except (ImportError, AttributeError, RuntimeError, ValueError) as e:
+        return f"not read ({type(e).__name__}: {e})"
+
+
+def _flash_timing_wide(name: str, smi: str) -> dict:
+    """K2/K3/K4 at a head dim above 128 (FLASH_WIDE_TIMING: [256, 256, 256]
+    causal, the chunked kernels, two 128-wide chunks of the output's head
+    dim), bfloat16 and float32 (TF32 off), each beside its plain version,
+    its bound (bf16: bytes or FLOPs at the bf16 peak; float32: bytes or
+    three TF32 products a product, by the LM shape's rules), SDPA (the
+    backend it used) and the kernel's registers, local memory, shared
+    memory and blocks an SM."""
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.device import fp32_math
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    card, (bw, _, bf16_peak, tf32_peak) = card_rates(name)
+    B, H, S, d = (FLASH_WIDE_TIMING[k] for k in ("B", "H", "S", "d"))
+    BH, scale, blk = B * H, d**-0.5, fa.KERNEL_TILE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    base = [torch.randn(BH, S, d, generator=gen, device="cuda") for _ in range(4)]
+    before = dict(fa.LAUNCHES)
+    pairs = BH * S * (S + 1) // 2
+    out = {"shape": {"B": B, "H": H, "S": S, "d": d, "causal": True}, "card": smi}
+    for dt in (torch.bfloat16, torch.float32):
+        dt_name = str(dt).split(".")[-1]
+        q, k, v, do = (x.to(dt) for x in base)
+        esize = q.element_size()
+        tensor, row = BH * S * d * esize, BH * S * 4
+        work = {fa.FWD: (4 * tensor + row, 4 * d * pairs),
+                fa.BWD_DQ: (5 * tensor + 2 * row, 6 * d * pairs),
+                fa.BWD_DKV: (6 * tensor + 2 * row, 8 * d * pairs)}
+        with fp32_math():
+            o, lse = fa.flash_forward(q, k, v, scale, True, blk, blk)
+            bwd = (q, k, v, do, lse, torch.sum(do.float() * o.float(), dim=-1), scale, True,
+                   blk, blk)
+            t = {fa.FWD: device_ms(lambda: fa.flash_forward(q, k, v, scale, True, blk, blk)),
+                 fa.BWD_DQ: device_ms(lambda: fa.flash_backward_dq(*bwd)),
+                 fa.BWD_DKV: device_ms(lambda: fa.flash_backward_dkv(*bwd))}
+            plain = {
+                fa.FWD: device_ms(lambda: fa.flash_forward_plain(q, k, v, scale, True, blk, blk),
+                                  iters=5),
+                fa.BWD_DQ: device_ms(lambda: fa.flash_backward_dq_plain(*bwd), iters=5),
+                fa.BWD_DKV: device_ms(lambda: fa.flash_backward_dkv_plain(*bwd), iters=5),
+            }
+            qs, ks, vs = (x.view(B, H, S, d).detach().clone().requires_grad_(True)
+                          for x in (q, k, v))
+            dos = do.view(B, H, S, d)
+
+            def sdpa_fwd_bwd():
+                res = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+                torch.autograd.grad(res, (qs, ks, vs), dos)
+
+            sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                         is_causal=True))
+            sdpa_bwd = device_ms(sdpa_fwd_bwd) - sdpa_fwd
+            backend = _sdpa_backend(qs, ks, vs)
+        rows = {}
+        for kname, (nbytes, flops) in work.items():
+            tb = nbytes / bw * 1e3
+            tf = (flops / bf16_peak if dt == torch.bfloat16 else 3 * flops / tf32_peak) * 1e3
+            rows[kname] = {"kernel": t[kname], "plain": plain[kname], "bound": max(tb, tf),
+                           "bound_by": "bytes" if tb >= tf else "operations", "bytes": nbytes,
+                           "flops": flops, "bound_share": max(tb, tf) / t[kname],
+                           "library": sdpa_fwd if kname == fa.FWD else sdpa_bwd,
+                           **fa.kernel_info(kname, dt, d)}
+        rows["sdpa_fwd_ms"], rows["sdpa_bwd_ms"], rows["sdpa_backend"] = sdpa_fwd, sdpa_bwd, backend
+        rows["k3_plus_k4_over_sdpa_bwd"] = (t[fa.BWD_DQ] + t[fa.BWD_DKV]) / sdpa_bwd
+        out[dt_name] = rows
+    fa.LAUNCHES.update(before)  # timing launches are not a path's
+    out["rates"] = (f"{card} data sheet: {bw / 1e12} TB/s, {bf16_peak / 1e12} TFLOP/s dense bf16, "
+                    f"{tf32_peak / 1e12} TF32")
+    log(json.dumps({"flash_timing_d256_ms": out}))
+    return out
 
 
 def _flash_timing_f32(fa, q, k, v, do, scale, blk, work, bw) -> dict:
@@ -1076,7 +1214,8 @@ def sass_counts(sass: str) -> dict:
     FMA), LDSM (ldmatrix), LDL/STL (local memory: spills)."""
     counts, label = {}, None
     for line in sass.splitlines():
-        head = re.search(r"Function : \S*?(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc|_f32tc)?_kernel)"
+        head = re.search(r"Function : \S*?(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_wide)?(?:_tc|_f32tc)?"
+                         r"_kernel)"
                          r"I(\w*?)Li(\d+)E", line)
         if head:
             kern, typ, d = head.groups()
@@ -1093,8 +1232,9 @@ def sass_counts(sass: str) -> dict:
 
 def phase_sass():
     """Disassemble the built flash library; raise unless every K2/K3/K4
-    instantiation, bfloat16 and float32 (split TF32), holds HMMA
-    instructions, and no float32 CUDA-core (SIMT) flash kernel is left."""
+    instantiation, bfloat16 and float32 (split TF32), the chunked ones for
+    head dims above 128 included, holds HMMA instructions, and no float32
+    CUDA-core (SIMT) flash kernel is left."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     tool = _cuobjdump()
@@ -1106,10 +1246,12 @@ def phase_sass():
     counts = sass_counts(listing)
     tc = {k: v for k, v in counts.items() if "_tc_kernel<bf16" in k}
     log(json.dumps({"sass": counts, "tool": tool}))
-    if len(tc) != 3 * len(fa.HEAD_DIMS) or any(v["HMMA"] == 0 for v in tc.values()):
+    # every built head dim, and the chunked kernel of each of K2, K3, K4
+    want = 3 * len(fa.HEAD_DIMS) + 3
+    if len(tc) != want or any(v["HMMA"] == 0 for v in tc.values()):
         raise AssertionError(f"bf16 K2/K3/K4 instantiations without HMMA: {tc}")
     f32 = {k: v for k, v in counts.items() if "_f32tc_kernel<float" in k}
-    if len(f32) != 3 * len(fa.HEAD_DIMS) or any(v["HMMA"] == 0 for v in f32.values()):
+    if len(f32) != want or any(v["HMMA"] == 0 for v in f32.values()):
         raise AssertionError(f"float32 K2/K3/K4 instantiations without HMMA: {f32}")
     simt = [k for k in counts if "_tc_kernel<" not in k and "_f32tc_kernel<" not in k]
     if simt:
@@ -1166,6 +1308,15 @@ def expected_flash_launches(api, layers: int) -> dict:
             fa.BWD_DKV: layers * steps, "steps": steps, "eval_batches": eval_batches}
 
 
+def _lm_head_dim(smaller: dict) -> int:
+    return smaller.get("width", LM["width"]) // smaller.get("heads", LM["heads"])
+
+
+def _lm_launch_key(fa, dtype: str, head_dim: int) -> str:
+    """The launch key an LM of ``head_dim`` counts its flash kernels under."""
+    return fa.CHUNKED[dtype] if head_dim > max(fa.HEAD_DIMS) else dtype
+
+
 def phase_lm_path(device="cuda", rounds=LM_ROUNDS, layers=LM["layers"], **smaller):
     """FedAvgAPI(task="nwp") on the flagship LM with flash attention;
     returns the K2/K3/K4 launches of the run."""
@@ -1173,12 +1324,15 @@ def phase_lm_path(device="cuda", rounds=LM_ROUNDS, layers=LM["layers"], **smalle
     from fedml_tpu_torch.ops import flash_attention as fa
 
     cfg, data, model = _flagship_lm(rounds, layers, **smaller)
+    head_dim = _lm_head_dim(smaller)
+    tag = "[lm]" if head_dim == LM["width"] // LM["heads"] else f"[lm d={head_dim}]"
     api = FedAvgAPI(cfg, data, model, task="nwp", device=None if device == "cuda" else device,
-                    log_fn=lambda row: log("[lm] " + json.dumps(row)))
+                    log_fn=lambda row: log(f"{tag} " + json.dumps(row)))
     want = expected_flash_launches(api, layers)
     fa.reset_launches()  # zeroed just before the main path
     api.train()
-    launches = fa.launch_totals()  # read just after
+    by_key = dict(fa.LAUNCHES)  # read just after
+    launches = fa.launch_totals()
     rows = api.history
     for row in rows:
         for key in ("Train/Loss", "Train/Acc"):
@@ -1189,14 +1343,35 @@ def phase_lm_path(device="cuda", rounds=LM_ROUNDS, layers=LM["layers"], **smalle
             raise AssertionError(f"LM: non-finite {key}")
     if not rows[-1]["Train/Loss"] < rows[0]["Train/Loss"]:
         raise AssertionError(f"LM: Train/Loss did not fall: {[r['Train/Loss'] for r in rows]}")
+    # bf16 steps; the eval forward runs float32
+    keys = [_lm_launch_key(fa, t, head_dim) for t in fa.OPERAND_TYPES]
     for name in fa.KERNEL_NAMES:
         expect = want[name] if device == "cuda" else 0
-        if launches[name] != expect:
-            raise AssertionError(f"LM: {launches[name]} {name} launches, want {expect}")
-    log(json.dumps({"lm_path": {"launches": launches, "expected": want,
+        got = sum(by_key[(name, k)] for k in keys)
+        if got != expect or launches[name] != expect:
+            raise AssertionError(f"LM: {got} {name} launches under {keys} "
+                                 f"({launches[name]} in all), want {expect}")
+    log(json.dumps({"lm_path": {"head_dim": head_dim, "launches": launches, "expected": want,
                                 "round_time_s": [r["round_time_s"] for r in rows],
                                 "train_loss": [r["Train/Loss"] for r in rows]}}))
     return launches
+
+
+def phase_lm_wide(device="cuda") -> dict:
+    """The LM path's two legs at head dim 256 (LM_WIDE): FedAvgAPI(task=
+    "nwp") through the chunked K2/K3/K4, their launches counted under
+    fa.CHUNKED's keys, zeroed just before each leg and read just after.
+    Returns {type: the chunked kernels' launches of that type by kernel}."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    sizes = {k: v for k, v in LM_WIDE.items() if k != "layers"}
+    phase_lm_path(device, 2, LM_WIDE["layers"], **sizes)
+    bf16_leg = dict(fa.LAUNCHES)  # its api.train() launched last, after the counts were zeroed
+    f32_leg = phase_lm_float32(device, LM_WIDE["layers"], **sizes)
+    return {"bfloat16": {n: bf16_leg[(n, fa.CHUNKED["bfloat16"])] for n in fa.KERNEL_NAMES},
+            # the float32 leg's, and the bf16 leg's float32 eval forward
+            "float32": {n: f32_leg[n] + bf16_leg[(n, fa.CHUNKED["float32"])]
+                        for n in fa.KERNEL_NAMES}}
 
 
 def _tf32(x):
@@ -1243,8 +1418,8 @@ def _update_err(got: dict, want: dict, init: dict) -> dict:
 
 def phase_lm_float32(device="cuda", layers=LM_F32["layers"], **smaller):
     """The float32 leg of the LM path (see LM_F32): one round with flash
-    attention, its K2/K3/K4 launches under "float32" zeroed just before and
-    read just after; then the same round on ``causal_full_attention``, all
+    attention, its K2/K3/K4 launches under "float32" (above head dim 128
+    the chunked kernels' key) zeroed just before and read just after; then the same round on ``causal_full_attention``, all
     under ``fp32_math()``. The rounds' updates (vars − init) must agree
     tensor by tensor as LM_F32_VS_FULL says (:func:`_update_err`); each
     fault of LM_F32_FAULTS planted in a flash round must break that bound.
@@ -1282,19 +1457,23 @@ def phase_lm_float32(device="cuda", layers=LM_F32["layers"], **smaller):
         for key in ("Train/Loss", "Test/Loss"):
             if key in row and not math.isfinite(row[key]):
                 raise AssertionError(f"LM float32: non-finite {key} in {row}")
+    head_dim = _lm_head_dim(sizes)
+    key = _lm_launch_key(fa, "float32", head_dim)
     for run in (r for r in out if r != "full"):  # the faulted runs go through the kernels too
         for name in fa.KERNEL_NAMES:
-            got, other = (out[run]["launches"][(name, t)] for t in ("float32", "bfloat16"))
+            got = out[run]["launches"][(name, key)]
+            other = sum(n for (kn, t), n in out[run]["launches"].items()
+                        if kn == name and t != key)
             expect = out[run]["want"][name] if device == "cuda" else 0
             if got != expect or other != 0:
-                raise AssertionError(f"LM float32 ({run}): {got} float32 {name} launches "
-                                     f"(+{other} bfloat16), want {expect}")
+                raise AssertionError(f"LM float32 ({run}): {got} {name} launches under {key} "
+                                     f"(+{other} under other keys), want {expect}")
     init = full["init"]
     if any(not torch.equal(out[r]["init"][k], init[k]) for r in out for k in init):
         raise AssertionError("LM float32: the runs start apart")
     errs = {r: _update_err(out[r]["vars"], full["vars"], init) for r in out if r != "full"}
-    launches = {name: flash["launches"][(name, "float32")] for name in fa.KERNEL_NAMES}
-    log(json.dumps({"lm_float32": {
+    launches = {name: flash["launches"][(name, key)] for name in fa.KERNEL_NAMES}
+    log(json.dumps({"lm_float32": {"head_dim": head_dim,
         "launches": launches, "expected": flash["want"], "update_vs_full": errs,
         "tolerance_rel": LM_F32_VS_FULL, "ulps": LM_F32_ULPS,
         "train_loss": {r: out[r]["rows"][-1]["Train/Loss"] for r in out},
@@ -4075,6 +4254,235 @@ def phase_batched_and_zoo(smi: str, device="cuda", lm=None, zoo=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 22
+
+# split learning on the north star's data: the reference's recipe
+# (algorithms/split_nn.py: SGD lr 0.1, momentum 0.9, wd 5e-4), a ring of 10
+# of femnist_synthetic(128)'s clients, batch 20, 2 rounds; the cut
+# default_split_models gives at width 32 (two 3x3 stride-2 convs, then
+# dense 64 and 62)
+SPLIT = dict(num_clients=128, ring=10, batch=20, lr=0.1, momentum=0.9, wd=5e-4, rounds=2)
+# the card's ring round against the CPU's on the same seed, (rtol, atol) on
+# every tensor, for a round of one batch of 20 a client (10 steps). A whole
+# round (~110 steps at lr 0.1, momentum 0.9) is chaotic: on the CPU a 1e-7
+# nudge of the init moves its params by 2.19 (their largest is ~0.75), so
+# cuDNN's and the CPU's float32 roundings (other summation orders) cannot
+# be told from a fault there. Over one batch a client the same nudge moves
+# them by 6.2e-6; the card's roundings are of that order, and the bound is
+# 16x it
+SPLIT_CARD_VS_CPU = (1e-4, 1e-4)
+# vertical FL: the CLI's three-party split of the flattened 28x28 images
+# (261, 261, 262 features), hidden 16, out 1, y = label mod 2, SGD lr 0.05
+# with momentum 0.9, batch 20, over the first VFL_CLIENTS clients' samples,
+# 2 epochs
+VFL = dict(clients=10, batch=20, lr=0.05, epochs=2)
+SPLIT_FAULT_PLAN_CLIENT_POS = 1  # the ring position whose client the plan drops
+
+
+def _split_config(rounds: int, num_clients: int, ring: int, batch: int, lr: float,
+                  momentum: float, wd: float, comm=None):
+    from fedml_tpu_torch.config import CommConfig, DataConfig, FedConfig, RunConfig, TrainConfig
+
+    return RunConfig(
+        data=DataConfig(batch_size=batch),
+        fed=FedConfig(client_num_in_total=num_clients, client_num_per_round=ring,
+                      comm_round=rounds, epochs=1),
+        train=TrainConfig(client_optimizer="sgd", lr=lr, momentum=momentum, wd=wd),
+        comm=comm or CommConfig(), seed=0,
+    )
+
+
+def _split_vars(server_or_api) -> dict:
+    if hasattr(server_or_api, "global_vars"):
+        g = server_or_api.global_vars["params"]
+        return {**{"bottom." + k: v for k, v in g["bottom"].items()},
+                **{"top." + k: v for k, v in g["top"].items()}}
+    return {**{"bottom." + k: v for k, v in server_or_api.bottom_vars.items()},
+            **{"top." + k: v for k, v in server_or_api.top_vars.items()}}
+
+
+def _split_fused(cfg, data, device, rounds: int):
+    """SplitNNAPI over the cohorts the transport's server draws."""
+    from fedml_tpu_torch.algorithms.split_nn import SplitNNAPI, default_split_models
+    from fedml_tpu_torch.scheduler import ClientScheduler
+
+    bottom, top = default_split_models(tuple(data.client_x[0].shape[1:]), data.num_classes)
+    api = SplitNNAPI(bottom, top, lr=cfg.train.lr, momentum=cfg.train.momentum,
+                     wd=cfg.train.wd, seed=cfg.seed, device=device)
+    sched = ClientScheduler.from_config(cfg, num_clients=cfg.fed.client_num_in_total, data=data)
+    for r in range(rounds):
+        cohort = sched.select(r, k=cfg.fed.client_num_per_round)
+        api.train_ring([(data.client_x[c], data.client_y[c]) for c in cohort],
+                       batch_size=cfg.data.batch_size)
+    return api
+
+
+def phase_split_vertical(smi: str, device="cuda", split=None, vfl=None) -> dict:
+    """Split learning and vertical FL (phase 22); see the module docstring.
+    ``split`` and ``vfl`` override entries of SPLIT and VFL for a rehearsal
+    on the CPU. No kernel of K1-K4 runs on this path: the cut's convs and
+    dense layers and the parties' dense layers run on cuDNN/cuBLAS and
+    PyTorch's own kernels."""
+    import dataclasses
+    import time
+
+    import torch
+
+    from fedml_tpu_torch import cli
+    from fedml_tpu_torch.config import CommConfig
+    from fedml_tpu_torch.data.femnist_synth import femnist_synthetic
+    from fedml_tpu_torch.device import fp32_math
+    from fedml_tpu_torch.scheduler import ClientScheduler, FaultInjector, FaultPlan
+    from fedml_tpu_torch.splitfed import BOUNDARY_CODECS, run_loopback_splitnn, run_loopback_vfl
+    from fedml_tpu_torch.telemetry import get_comm_meter
+
+    t_phase = time.perf_counter()
+    s = {**SPLIT, **(split or {})}
+    v = {**VFL, **(vfl or {})}
+    data = femnist_synthetic(num_clients=s["num_clients"], seed=0)
+    kw = {k: s[k] for k in ("num_clients", "ring", "batch", "lr", "momentum", "wd")}
+    report = {"card": smi, "device": device,
+              "kernels": "none: split learning and vertical FL run no kernel of K1-K4"}
+    with fp32_math():
+        # (a) the CLI's runner in process, and its first round against the CPU's
+        stamps = [time.perf_counter()]
+        rows = []
+
+        def log_fn(row):
+            rows.append(row)
+            stamps.append(time.perf_counter())
+
+        api, final = cli._run_split_nn(_split_config(s["rounds"], **kw), data, None,
+                                       "classification", log_fn, {}, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        params = _split_vars(api)
+        if not all(torch.isfinite(t).all() for t in params.values()):
+            raise AssertionError("split_nn: non-finite params")
+        # one batch a client: the round that is not chaotic (SPLIT_CARD_VS_CPU)
+        short = dataclasses.replace(data, client_x=[x[: s["batch"]] for x in data.client_x],
+                                    client_y=[y[: s["batch"]] for y in data.client_y])
+        def short_round(dev):
+            api1, _ = cli._run_split_nn(_split_config(1, **kw), short, None, "classification",
+                                        lambda r: None, {}, dev)
+            return {k: t.cpu() for k, t in _split_vars(api1).items()}
+
+        def against_cpu(card_p):
+            """(max |card − CPU|, within SPLIT_CARD_VS_CPU on every tensor)"""
+            rtol, atol = SPLIT_CARD_VS_CPU
+            err = max((card_p[k] - cpu_p[k]).abs().max().item() for k in cpu_p)
+            ok = all(((card_p[k] - cpu_p[k]).abs() <= atol + rtol * cpu_p[k].abs()).all()
+                     for k in cpu_p)
+            return err, ok
+
+        cpu_p = short_round("cpu")
+        err, ok = against_cpu(short_round(device))
+        if not ok:
+            raise AssertionError(f"split card vs CPU: max |err| {err} outside "
+                                 f"SPLIT_CARD_VS_CPU {SPLIT_CARD_VS_CPU}")
+        # the planted fault: the same card round with TF32 convolutions and
+        # matmuls must break the bound
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            fault_err, fault_ok = against_cpu(short_round(device))
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        if device == "cuda" and fault_ok:
+            raise AssertionError(f"split card vs CPU: the TF32 round passes SPLIT_CARD_VS_CPU "
+                                 f"(max |err| {fault_err})")
+        report["split_nn"] = {
+            "rows": rows, "final": final,
+            "round_s_with_eval": [b - a for a, b in zip(stamps, stamps[1:])],
+            "card_vs_cpu_max_abs": err, "card_vs_cpu_tol": list(SPLIT_CARD_VS_CPU),
+            "tf32_fault_vs_cpu_max_abs": fault_err, "losses_finite": True,
+        }
+
+        # (b) the loopback federation against the fused simulator, both on the card
+        with _deterministic_convs():
+            cfg = _split_config(s["rounds"], **kw)
+            meter = get_comm_meter()
+            meter.reset()
+            t0 = time.perf_counter()
+            server = run_loopback_splitnn(cfg, data, device=device)
+            wall = time.perf_counter() - t0
+            snap = meter.snapshot()
+            fused = _split_fused(cfg, data, device, s["rounds"])
+            _assert_bit_equal(_split_vars(server), _split_vars(fused), "split transport vs fused")
+            if not all(math.isfinite(r["Train/Loss"]) for r in server.history):
+                raise AssertionError(f"split transport: non-finite loss {server.history}")
+            codecs = {}
+            for method in BOUNDARY_CODECS:
+                comm = CommConfig(activation_compression=method,
+                                  activation_error_feedback=method != "none")
+                meter.reset()
+                run_loopback_splitnn(_split_config(1, **kw, comm=comm), data, device=device)
+                c = meter.snapshot()
+                codecs[method] = {
+                    "up_raw_bytes": c["uplink_raw_bytes"], "up_payload_bytes": c["uplink_payload_bytes"],
+                    "down_raw_bytes": c["downlink_raw_bytes"],
+                    "down_payload_bytes": c["downlink_payload_bytes"],
+                    "up_cut": c["uplink_raw_bytes"] / max(c["uplink_payload_bytes"], 1),
+                    "down_cut": c["downlink_raw_bytes"] / max(c["downlink_payload_bytes"], 1),
+                }
+            report["split_transport"] = {
+                "rounds": server.round_idx, "bit_equal_to_fused": True,
+                "history": server.history, "wall_s": wall,
+                "round_s": [b["t_s"] - a["t_s"] for a, b in
+                            zip([{"t_s": 0.0}] + server.history[:-1], server.history)],
+                "bytes_a_round": {k: snap[k] / s["rounds"] for k in (
+                    "uplink_raw_bytes", "uplink_payload_bytes", "downlink_raw_bytes",
+                    "downlink_payload_bytes")},
+                "codecs": codecs,
+            }
+
+            # (c) vertical FL: the CLI's runner and the loopback federation over
+            # the runner's own party split, both on the card
+            vdata = dataclasses.replace(data, client_x=data.client_x[: v["clients"]],
+                                        client_y=data.client_y[: v["clients"]])
+            vcfg = _split_config(v["epochs"], num_clients=s["num_clients"], ring=2,
+                                 batch=v["batch"], lr=v["lr"], momentum=0.9, wd=0.0)
+            vrows = []
+            t0 = time.perf_counter()
+            vapi, _ = cli._run_vertical_fl(vcfg, vdata, None, "classification", vrows.append,
+                                           {}, device)
+            fused_s = time.perf_counter() - t0
+            xs, y = cli._vertical_parties(vdata)
+            t0 = time.perf_counter()
+            guest, hosts = run_loopback_vfl(vcfg, xs, y, device=device)
+            wire_s = time.perf_counter() - t0
+            _assert_bit_equal(guest.params, vapi.params[0], "vfl guest vs fused")
+            for h, pp in zip(hosts, vapi.params[1:]):
+                _assert_bit_equal(h.params, pp, f"vfl host {h.rank} vs fused")
+            if not all(math.isfinite(r["Train/Loss"]) for r in vrows):
+                raise AssertionError(f"vfl: non-finite loss {vrows}")
+            report["vertical_fl"] = {
+                "feature_splits": [x.shape[1] for x in xs], "samples": len(y), "rows": vrows,
+                "history": guest.history, "fused_s": fused_s, "transport_s": wire_s,
+                "bit_equal_to_fused": True,
+            }
+
+            # (d) a fault plan dropping one client's boundary messages, twice
+            sched = ClientScheduler.from_config(cfg, num_clients=s["num_clients"], data=data)
+            victim = int(sched.select(0, k=s["ring"])[SPLIT_FAULT_PLAN_CLIENT_POS])
+            plan = {"clients": {str(victim): {"dropout_p": 1.0}}}
+            runs = []
+            for _ in range(2):
+                faults = FaultInjector(FaultPlan.from_json(plan))
+                runs.append(run_loopback_splitnn(_split_config(1, **kw), data, device=device,
+                                                 faults=faults))
+            a, b = runs
+            if a.skipped_turns < 1 or a.skipped_turns != b.skipped_turns:
+                raise AssertionError(f"fault plan: skipped turns {a.skipped_turns}, "
+                                     f"{b.skipped_turns}")
+            _assert_bit_equal(_split_vars(a), _split_vars(b), "faulted runs")
+            report["fault_plan"] = {"victim": victim, "skipped_turns": a.skipped_turns,
+                                    "rows": a.history, "repeat_bit_equal": True}
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("[split_vertical] " + json.dumps(report, default=str))
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -4098,10 +4506,11 @@ def main() -> int:
     timed(phase_profile_round)
     timed(phase_card_vs_cpu)
     flash_err = timed(phase_flash_parity)
-    ft, fplain, fbounds, flib, f32 = timed(phase_flash_timing, name, smi)
+    ft, fplain, fbounds, flib, f32, wide = timed(phase_flash_timing, name, smi)
     timed(phase_sass)
     flash_launches = timed(phase_lm_path)
     lm_f32_launches = timed(phase_lm_float32)
+    wide_launches = timed(phase_lm_wide)
     timed(phase_profile_lm_round)
     timed(phase_lm_card_vs_cpu)
     transport_launches = timed(phase_transport, smi)
@@ -4114,6 +4523,7 @@ def main() -> int:
     timed(phase_population, smi)
     timed(phase_modelbound, smi)
     batched_launches = timed(phase_batched_and_zoo, smi)
+    timed(phase_split_vertical, smi)
     log(json.dumps({"phase_s": phase_s}))
 
     from fedml_tpu_torch.ops import flash_attention as fa
@@ -4149,6 +4559,14 @@ def main() -> int:
                     "bound_ms": f32[kn]["bound"],
                     "bound_by": f32[kn]["bound_by"],
                     "library_ms": f32[kn]["sdpa_fwd" if kn == fa.FWD else "sdpa_bwd"]},
+        # the chunked kernels at [256, 256, 256] causal (head dims above
+        # 128), and their launches on the LM path at head dim 256
+        # (phase_lm_wide), counted under their own keys
+        "d256": {dt: {"ms": wide[dt][kn]["kernel"], "plain_ms": wide[dt][kn]["plain"],
+                      "bound_ms": wide[dt][kn]["bound"], "bound_by": wide[dt][kn]["bound_by"],
+                      "library_ms": wide[dt][kn]["library"],
+                      "launches": wide_launches[dt][kn]}
+                 for dt in ("bfloat16", "float32")},
     } for kn in fa.KERNEL_NAMES]
     log(json.dumps({"kernels": [{
         "name": rs.KERNEL_NAME,

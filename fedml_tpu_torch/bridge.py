@@ -145,3 +145,36 @@ def flax_unflatten(template, leaves) -> Dict[str, object]:
         return next(it)
 
     return build(template)
+
+
+# The split-learning cut and the vertical-FL parties hold their weights in
+# groups. SplitNN's reference tree is {"bottom": params, "top": params}; a VFL
+# party's is {"extractor": {"params": {"fc": …}}, "dense": {"params": …}},
+# the port's a flat dict with ``extractor.``/``dense.`` names
+# (models/vfl.py). The optimizers' momentum traces have their parameters'
+# layout and cross the same way.
+
+
+def split_from_flax(tree) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{"bottom", "top"}`` flax trees → the port's per-group variables."""
+    return {g: from_flax(tree[g]) for g in ("bottom", "top")}
+
+
+def split_to_flax(groups) -> Dict[str, object]:
+    """The inverse of :func:`split_from_flax`."""
+    return {g: to_flax(groups[g]) for g in ("bottom", "top")}
+
+
+_PARTY_PARTS = ("dense", "extractor")
+
+
+def party_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """A VFL party's flax tree → its flat port dict."""
+    return {f"{part}.{k}": v for part in _PARTY_PARTS for k, v in from_flax(tree[part]).items()}
+
+
+def party_to_flax(params: Dict[str, torch.Tensor]) -> Dict[str, object]:
+    """The inverse of :func:`party_from_flax`."""
+    return {part: to_flax_variables({k[len(part) + 1:]: v for k, v in params.items()
+                                     if k.startswith(part + ".")})
+            for part in _PARTY_PARTS}

@@ -497,7 +497,7 @@ _UNPORTED_OPTIONS = {
 _PORTED_ALGORITHMS = (
     "fedavg", "fedprox", "fedopt", "fedavg_robust", "dp_fedavg", "fednova", "scaffold", "ditto",
     "qfedavg", "hierarchical", "centralized", "decentralized", "fedbuff", "fedseg", "fedgkt",
-    "fedgan", "fednas",
+    "fedgan", "fednas", "split_nn", "vertical_fl",
 )
 # the ROADMAP.md §1 item of each algorithm still to port (8 where unnamed)
 _ALGORITHM_ITEMS = {"secagg": 1}
@@ -741,6 +741,51 @@ def _run_fednas(config, data, model, task, log_fn, opt, device):
     return api, final
 
 
+def _run_split_nn(config, data, model, task, log_fn, opt, device):
+    """The default cut of ``default_split_models`` on the data's geometry;
+    the first ``client_num_per_round`` clients relay the bottom around the
+    ring each round; the row is the test accuracy."""
+    from fedml_tpu_torch.algorithms.split_nn import SplitNNAPI, default_split_models
+
+    bottom, top = default_split_models(tuple(data.client_x[0].shape[1:]), data.num_classes)
+    api = SplitNNAPI(bottom, top, lr=config.train.lr, momentum=config.train.momentum,
+                     wd=config.train.wd, seed=config.seed, device=device)
+    clients = _client_shards_list(data, config.fed.client_num_per_round)
+    final = {}
+    for r in range(config.fed.comm_round):
+        api.train_ring(clients, batch_size=config.data.batch_size,
+                       epochs_per_client=config.fed.epochs)
+        final = {"round": r, "Test/Acc": float(api.evaluate(data.test_x, data.test_y))}
+        log_fn(final)
+    return api, final
+
+
+def _vertical_parties(data):
+    """The pooled clients' flattened features split by columns into three
+    parties (D//3, D//3, the rest), and the labels mod 2 (party 0, the
+    guest, holds them): ``(xs, y)``."""
+    x = np.concatenate([cx.reshape(len(cx), -1) for cx in data.client_x], axis=0)
+    y = (np.concatenate(data.client_y, axis=0) % 2).astype(np.float32)
+    D = x.shape[1]
+    return np.split(x, [D // 3, 2 * (D // 3)], axis=1), y
+
+
+def _run_vertical_fl(config, data, model, task, log_fn, opt, device):
+    """VFL over :func:`_vertical_parties`' three-party split;
+    ``--comm_round`` is the epoch count."""
+    from fedml_tpu_torch.algorithms.vertical_fl import VFLAPI
+
+    xs, y = _vertical_parties(data)
+    api = VFLAPI(feature_splits=[x.shape[1] for x in xs], lr=config.train.lr, seed=config.seed,
+                 device=device)
+    final = {}
+    for r in range(config.fed.comm_round):
+        stats = api.train_epoch(xs, y, batch_size=config.data.batch_size)
+        final = {"round": r, "Train/Loss": stats["loss"], "Train/Acc": stats["acc"]}
+        log_fn(final)
+    return api, final
+
+
 _LONGTAIL_RUNNERS = {
     "centralized": _run_centralized,
     "decentralized": _run_decentralized,
@@ -748,6 +793,8 @@ _LONGTAIL_RUNNERS = {
     "fedgan": _run_fedgan,
     "fedseg": _run_fedseg,
     "fednas": _run_fednas,
+    "split_nn": _run_split_nn,
+    "vertical_fl": _run_vertical_fl,
 }
 
 

@@ -78,12 +78,14 @@
 // with cudaFuncSetAttribute. Built without --use_fast_math: expf, logf and
 // the divisions are IEEE.
 //
-// Head dims: every kernel is instantiated for D in {16, 32, 64, 96, 128}.
-// The wrappers (ops/flash_attention.py `at_built_head_dim`) zero-pad any
-// other d up to 128 to the next of these and pass the true 1/sqrt(d) as
+// Head dims: every kernel is instantiated for D in {16, 32, 64, 96, 128};
+// above 128, the chunked kernels (`flash_*_wide_*`, see their section) take
+// any multiple of 128, the output's head dim split over blocks (whole-d
+// tiles would not fit: a 64-row float32 K4 tile of D = 256 alone takes
+// ~67 KB). The wrappers (ops/flash_attention.py `at_built_head_dim`)
+// zero-pad any other d to the next of these and pass the true 1/sqrt(d) as
 // `scale`: zero columns add nothing to Q K^T or dO V^T, so P, LSE and delta
-// are the unpadded ones, and O, dQ, dK, dV are sliced back to d. A d above
-// 128 has no kernel (a 64-row float32 K4 tile of D = 256 alone takes ~67 KB).
+// are the unpadded ones, and O, dQ, dK, dV are sliced back to d.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,6 +104,123 @@ __device__ __forceinline__ float masked_score(float dot, float scale, int r, int
                                               int sk, bool causal) {
   const float s = dot * scale;
   return (c >= sk || (causal && r < c)) ? kMaskValue : s;
+}
+
+// Row operations on a warp's [16 x 8J] block held as mma accumulators, shared
+// by every kernel below: lane l holds rows r0 = l / 4 (entries 0, 1) and
+// r0 + 8 (2, 3) of the block at columns 8j + t2 + {0, 1}, t2 = 2 (l % 4); a
+// row's entries sit in the 4 lanes of a quad.
+template <int J>
+__device__ __forceinline__ void zero_frags(float (&x)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
+}
+
+// s = Q K^T (query rows r0, r1; keys k0 + column) scaled, and masked where
+// `edge` says the block holds masked pairs (the diagonal, the ragged end).
+template <int J>
+__device__ __forceinline__ void scale_scores(float (&s)[J][4], bool edge, float scale, int r0,
+                                             int r1, int k0, int t2, int sk_len, bool causal) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = edge ? masked_score(s[j][e], scale, (e >> 1) ? r1 : r0, k0 + 8 * j + t2 + (e & 1),
+                                    sk_len, causal)
+                     : s[j][e] * scale;
+}
+
+// One online-softmax step: the scores s become p = exp(s - m_new), l sums
+// the float32 p, and the running output acc is rescaled by exp(m - m_new).
+template <int J, int N>
+__device__ __forceinline__ void online_softmax(float (&s)[J][4], float (&m_run)[2],
+                                               float (&l_run)[2], float (&acc)[N][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = kMaskValue;
+#pragma unroll
+    for (int j = 0; j < J; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[h], mx);
+    const float corr = expf(m_run[h] - m_new);
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      s[j][2 * h] = expf(s[j][2 * h] - m_new);
+      s[j][2 * h + 1] = expf(s[j][2 * h + 1] - m_new);
+      sum += s[j][2 * h] + s[j][2 * h + 1];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l_run[h] = l_run[h] * corr + sum;
+    m_run[h] = m_new;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      acc[n][2 * h] *= corr;
+      acc[n][2 * h + 1] *= corr;
+    }
+  }
+}
+
+// acc / l for the rows whose l > 0, and the rows' LSE (m + log l) through
+// one lane of the quad.
+template <int N>
+__device__ __forceinline__ void finish_softmax(float (&acc)[N][4], const float (&m_run)[2],
+                                               const float (&l_run)[2], float* lse_b, int r0,
+                                               int r1, int s_len, bool write_lse, int t2) {
+  float safe_l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) safe_l[h] = l_run[h] > 0.0f ? l_run[h] : 1.0f;
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = acc[n][e] / safe_l[e >> 1];
+  if (write_lse && t2 == 0) {
+    if (r0 < s_len) lse_b[r0] = m_run[0] + logf(safe_l[0]);
+    if (r1 < s_len) lse_b[r1] = m_run[1] + logf(safe_l[1]);
+  }
+}
+
+// K3's dS = P (dO V^T - delta) scale with P = exp(S - LSE), written over
+// dp = dO V^T, for query rows r0, r1 and keys k0 + column.
+template <int J>
+__device__ __forceinline__ void dq_scores(const float (&s)[J][4], float (&dp)[J][4],
+                                          const float (&lse_r)[2], const float (&delta_r)[2],
+                                          int r0, int r1, int k0, int t2, int sk_len, bool causal,
+                                          float scale) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;  // 0: row r0, 1: row r1
+      const float sc = masked_score(s[j][e], scale, h ? r1 : r0, k0 + 8 * j + t2 + (e & 1),
+                                    sk_len, causal);
+      const float p = expf(sc - lse_r[h]);
+      dp[j][e] = p * (dp[j][e] - delta_r[h]) * scale;
+    }
+}
+
+// K4's P^T and dS^T over S^T = K Q^T and V dO^T (rows: keys kr0, kr0 + 8;
+// columns: queries q0 + column, whose LSE and delta rows are lse_s, delta_s).
+// Query rows past the end hold zeros, not a softmax row: no weight.
+template <int J>
+__device__ __forceinline__ void dkv_scores(float (&p)[J][4], float (&ds)[J][4],
+                                           const float* lse_s, const float* delta_s, int q0,
+                                           int kr0, int t2, int s_len, int sk_len, bool causal,
+                                           float scale) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + t2 + (e & 1);  // query column in the tile
+      const float sc = masked_score(p[j][e], scale, q0 + c, kr0 + (e >> 1) * 8, sk_len, causal);
+      const float pe = q0 + c < s_len ? expf(sc - lse_s[c]) : 0.0f;
+      p[j][e] = pe;
+      ds[j][e] = pe * (ds[j][e] - delta_s[c]) * scale;
+    }
 }
 
 // ------------------------------------------------------------------ K2, K3, K4 (bf16): tensor cores
@@ -195,11 +314,12 @@ __device__ __forceinline__ uint32_t bt_frag(uint32_t tile, int k0, int n0, int l
   return tile + ((k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * tc_ld<D>() + n0 + (lane >> 4) * 8) * 2;
 }
 
-// dst[r][:] = src[row0 + r][:] for the 64 rows of a tile, 16 bytes a thread;
-// rows past `rows` are zero-filled and read nothing.
+// dst[r][:] = src[row0 + r][:D] for the 64 rows of a tile (src rows `ld`
+// elements apart), 16 bytes a thread; rows past `rows` are zero-filled and
+// read nothing.
 template <int D>
 __device__ __forceinline__ void cp_tile(uint32_t dst, const bf16* __restrict__ src, int row0,
-                                        int rows) {
+                                        int rows, int ld = D) {
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
   static_assert(kTile * kChunks % kTcThreads == 0, "a tile's chunks split evenly");
 #pragma unroll
@@ -208,20 +328,18 @@ __device__ __forceinline__ void cp_tile(uint32_t dst, const bf16* __restrict__ s
     const int r = i / kChunks, c = i % kChunks;
     const bool valid = row0 + r < rows;
     cp_async16(dst + (r * tc_ld<D>() + c * 8) * 2,
-               src + static_cast<size_t>(valid ? row0 + r : 0) * D + c * 8, valid);
+               src + static_cast<size_t>(valid ? row0 + r : 0) * ld + c * 8, valid);
   }
 }
 
-// The warp's [16 x 64] score blocks s = A1 B1^T and dp = A2 B2^T: A1, A2
-// [64][D] tiles of which the warp takes rows m0..m0+15, B1, B2 [64][D] tiles.
-template <int D>
+// The warp's [16 x 64] score blocks s = A1 B1^T and dp = A2 B2^T (added to
+// s and dp with kAdd): A1, A2 [64][D] tiles of which the warp takes rows
+// m0..m0+15, B1, B2 [64][D] tiles.
+template <int D, bool kAdd = false>
 __device__ __forceinline__ void score_pair(uint32_t a1, uint32_t b1, uint32_t a2, uint32_t b2,
                                            int m0, int lane, float (&s)[8][4],
                                            float (&dp)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+  if (!kAdd) zero_frags(s), zero_frags(dp);
 #pragma unroll
   for (int kk = 0; kk < D; kk += 16) {
     uint32_t fa1[4], fa2[4], fb[4];
@@ -276,10 +394,12 @@ __device__ __forceinline__ void acc_product(const uint32_t (&a)[kParts][4], uint
 
 // Round the warp's [16 x D] accumulators to bf16 into its rows m0.. of a
 // shared tile that only this warp reads, then store the rows below `rows`
-// to out[row0 + m0 + r][:], 16 bytes a thread.
+// to out[row0 + m0 + r][:D] (out rows `out_ld` elements apart), 16 bytes a
+// thread.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* tile, const float (&acc)[D / 8][4], int m0,
-                                           int lane, bf16* __restrict__ out, int row0, int rows) {
+                                           int lane, bf16* __restrict__ out, int row0, int rows,
+                                           int out_ld = D) {
   constexpr int ld = tc_ld<D>(), kChunks = D / 8;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
 #pragma unroll
@@ -294,7 +414,7 @@ __device__ __forceinline__ void store_rows(bf16* tile, const float (&acc)[D / 8]
   for (int it = 0; it < 16 * kChunks / 32; ++it) {
     const int i = lane + it * 32, r = i / kChunks, c = i % kChunks;
     if (row0 + m0 + r < rows)
-      *reinterpret_cast<uint4*>(out + static_cast<size_t>(row0 + m0 + r) * D + c * 8) =
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(row0 + m0 + r) * out_ld + c * 8) =
           *reinterpret_cast<const uint4*>(tile + (m0 + r) * ld + c * 8);
   }
 }
@@ -356,17 +476,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     float s[8][4], ds[8][4];  // S, then dO V^T, then dS
     score_pair<D>(qs, ks, dos, vs, m0, lane, s, ds);
-    const int k0 = kt * kTile;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;  // 0: row r0, 1: row r1
-        const float sc = masked_score(s[j][e], scale, h ? r1 : r0, k0 + 8 * j + t2 + (e & 1),
-                                      sk_len, causal != 0);
-        const float p = expf(sc - lse_r[h]);
-        ds[j][e] = p * (ds[j][e] - delta_r[h]) * scale;
-      }
+    dq_scores<8>(s, ds, lse_r, delta_r, r0, r1, kt * kTile, t2, sk_len, causal != 0, scale);
 #pragma unroll
     for (int kk = 0; kk < kTile; kk += 16) {
       uint32_t a[1][4];
@@ -444,19 +554,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     float p[8][4], ds[8][4];  // S^T then P^T; V dO^T then dS^T
     score_pair<D>(ks, qs, vs, dos, m0, lane, p, ds);
-    const int q0 = qt * kTile;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + t2 + (e & 1);  // query column in the tile
-        const float sc = masked_score(p[j][e], scale, q0 + c, kr0 + (e >> 1) * 8, sk_len,
-                                      causal != 0);
-        // query rows past the end hold zeros, not a softmax row: no weight
-        const float pe = q0 + c < s_len ? expf(sc - lse_s[c]) : 0.0f;
-        p[j][e] = pe;
-        ds[j][e] = pe * (ds[j][e] - delta_s[c]) * scale;
-      }
+    dkv_scores<8>(p, ds, lse_s, delta_s, qt * kTile, kr0, t2, s_len, sk_len, causal != 0, scale);
     // float32 P and dS, each as bf16 hi + lo: two mmas a product
 #pragma unroll
     for (int kk = 0; kk < kTile; kk += 16) {
@@ -535,10 +633,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     float s[8][4];  // S, then P
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    zero_frags(s);
 #pragma unroll
     for (int kk = 0; kk < D; kk += 16)
 #pragma unroll
@@ -551,41 +646,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = kt * kTile;
     // only the diagonal tile and the ragged end hold masked (row, col) pairs
     const bool edge = k0 + kTile > sk_len || (causal && k0 + kTile - 1 > q0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[j][e] = edge ? masked_score(s[j][e], scale, (e >> 1) ? r1 : r0,
-                                      k0 + 8 * j + t2 + (e & 1), sk_len, causal != 0)
-                       : s[j][e] * scale;
-
-    // online softmax: a row's 64 scores sit in the 4 lanes of a quad
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = kMaskValue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[h], mx);
-      const float corr = expf(m_run[h] - m_new);
-      float sum = 0.0f;  // of the float32 p, before P is rounded for P V
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j][2 * h] = expf(s[j][2 * h] - m_new);
-        s[j][2 * h + 1] = expf(s[j][2 * h + 1] - m_new);
-        sum += s[j][2 * h] + s[j][2 * h + 1];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run[h] = l_run[h] * corr + sum;
-      m_run[h] = m_new;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[j][2 * h] *= corr;
-        acc[j][2 * h + 1] *= corr;
-      }
-    }
+    scale_scores<8>(s, edge, scale, r0, r1, k0, t2, sk_len, causal != 0);
+    online_softmax<8, D / 8>(s, m_run, l_run, acc);  // l sums the float32 p
 #pragma unroll
     for (int kk = 0; kk < kTile; kk += 16) {
       uint32_t a[1][4];
@@ -595,21 +657,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
 
-  float safe_l[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) safe_l[h] = l_run[h] > 0.0f ? l_run[h] : 1.0f;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = acc[j][e] / safe_l[e >> 1];
+  finish_softmax<D / 8>(acc, m_run, l_run, lse + static_cast<size_t>(bh) * s_len, r0, r1, s_len,
+                        true, t2);
   // the warp's own rows of the Q tile, whose fragments it already holds
   store_rows<D>(reinterpret_cast<bf16*>(tc_smem), acc, m0, lane,
                 o + static_cast<size_t>(bh) * s_len * D, q0, s_len);
-  if ((lane & 3) == 0) {
-    float* lse_b = lse + static_cast<size_t>(bh) * s_len;
-    if (r0 < s_len) lse_b[r0] = m_run[0] + logf(safe_l[0]);
-    if (r1 < s_len) lse_b[r1] = m_run[1] + logf(safe_l[1]);
-  }
 }
 
 // ------------------------------------------------------------------ K2, K3, K4 (float32): split-TF32 tensor cores
@@ -672,6 +724,23 @@ __device__ __forceinline__ void mma_split(float c[4], const uint32_t ahi[4], con
   mma_tf32(c, ahi, bhi[0], bhi[1]);
 }
 
+// c += a b as mma_split, the product summed apart from c, from zero, and
+// added to c by float32 adds, rounded to nearest: the scores of the chunked
+// kernels, summed over d deep. Summed into c by the tensor core, their
+// error grew with d: K3's dQ took 0.93 of FLASH_TOL at d = 256 and 1.09 to
+// 1.23 at 384 and 512, K4's dK 1.04 at 512; summed apart, no output takes
+// more than 0.42 at any of them (NVIDIA H100 80GB HBM3). A step's own sum
+// is 8 products deep. The adds cost the float32 chunked kernels 40-75% of
+// their time at [256, 256, 256] causal.
+__device__ __forceinline__ void mma_split_rn(float c[4], const uint32_t ahi[4],
+                                             const uint32_t alo[4], const uint32_t bhi[2],
+                                             const uint32_t blo[2]) {
+  float u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_split(u, ahi, alo, bhi, blo);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) c[r] += u[r];
+}
+
 // The operands of a product over the head dim, k8 step kk: k-slots t and
 // t + 4 are columns kk + 2t and kk + 2t + 1, read as one 8-byte pair a row
 // (the permutation only reorders a sum). The split A fragment of rows
@@ -722,17 +791,16 @@ __device__ __forceinline__ void acc_split_product(const uint32_t ahi[4], const u
 }
 
 // The warp's [16 x 32] blocks s = A1 B1^T and dp = A2 B2^T over the head
-// dim: A1, A2 float32 tiles of which the warp takes rows m0..m0+15, B1, B2
-// [32][D] tiles, all at row stride kLd.
-template <int D, int kLd>
+// dim (dp left alone without kPair): A1, A2 float32 tiles of which the warp
+// takes rows m0..m0+15, B1, B2 [32][D] tiles, all at row stride kLd. With
+// kChunk (the chunked kernels: one d-chunk of the scores) added to s and
+// dp, each k8 step by mma_split_rn.
+template <int D, int kLd, bool kChunk = false, bool kPair = true>
 __device__ __forceinline__ void score_pair_f32(const float* a1, const float* b1, const float* a2,
                                                const float* b2, int m0, int g, int t,
                                                float (&s)[kF32Keys / 8][4],
                                                float (&dp)[kF32Keys / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < kF32Keys / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+  if (!kChunk) zero_frags(s), zero_frags(dp);
 #pragma unroll
   for (int kk = 0; kk < D; kk += 8) {
     uint32_t ahi[4], alo[4], bhi[2], blo[2];
@@ -740,22 +808,26 @@ __device__ __forceinline__ void score_pair_f32(const float* a1, const float* b1,
 #pragma unroll
     for (int j = 0; j < kF32Keys / 8; ++j) {
       b_split<kLd>(b1, 8 * j, kk, g, t, bhi, blo);
-      mma_split(s[j], ahi, alo, bhi, blo);
+      if (kChunk) mma_split_rn(s[j], ahi, alo, bhi, blo);
+      else mma_split(s[j], ahi, alo, bhi, blo);
     }
+    if (!kPair) continue;
     a_split<kLd>(a2, m0, kk, g, t, ahi, alo);
 #pragma unroll
     for (int j = 0; j < kF32Keys / 8; ++j) {
       b_split<kLd>(b2, 8 * j, kk, g, t, bhi, blo);
-      mma_split(dp[j], ahi, alo, bhi, blo);
+      if (kChunk) mma_split_rn(dp[j], ahi, alo, bhi, blo);
+      else mma_split(dp[j], ahi, alo, bhi, blo);
     }
   }
 }
 
-// dst[r][:] = src[row0 + r][:] for kRows rows of D floats at a row stride of
-// kLd floats, 16 bytes a thread; rows past `rows` are zero-filled.
+// dst[r][:] = src[row0 + r][:D] for kRows rows of D floats at a row stride
+// of kLd floats (src rows `ld` floats apart), 16 bytes a thread; rows past
+// `rows` are zero-filled.
 template <int D, int kRows, int kLd>
 __device__ __forceinline__ void cp_tile_f32(uint32_t dst, const float* __restrict__ src, int row0,
-                                            int rows) {
+                                            int rows, int ld = D) {
   constexpr int kChunks = D / 4;  // 16-byte chunks a row
   static_assert(kRows * kChunks % kTcThreads == 0, "a tile's chunks split evenly");
 #pragma unroll
@@ -764,25 +836,25 @@ __device__ __forceinline__ void cp_tile_f32(uint32_t dst, const float* __restric
     const int r = i / kChunks, c = i % kChunks;
     const bool valid = row0 + r < rows;
     cp_async16(dst + (r * kLd + c * 4) * 4,
-               src + static_cast<size_t>(valid ? row0 + r : 0) * D + c * 4, valid);
+               src + static_cast<size_t>(valid ? row0 + r : 0) * ld + c * 4, valid);
   }
 }
 
 // The warp's [16 x D] accumulators, rows row0 + g (0, 1) and row0 + g + 8
-// (2, 3), columns 8n + 2t, + 1, stored as 8-byte pairs to out (rows of D
-// floats) where the row lies below `rows`.
+// (2, 3), columns 8n + 2t, + 1, stored as 8-byte pairs to out (rows
+// `out_ld` floats apart) where the row lies below `rows`.
 template <int D>
 __device__ __forceinline__ void store_rows_f32(const float (&acc)[D / 8][4],
                                                float* __restrict__ out, int row0, int rows,
-                                               int g, int t) {
+                                               int g, int t, int out_ld = D) {
   const int r0 = row0 + g, r1 = r0 + 8;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     if (r0 < rows)
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(r0) * D + 8 * n + 2 * t) =
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(r0) * out_ld + 8 * n + 2 * t) =
           make_float2(acc[n][0], acc[n][1]);
     if (r1 < rows)
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(r1) * D + 8 * n + 2 * t) =
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(r1) * out_ld + 8 * n + 2 * t) =
           make_float2(acc[n][2], acc[n][3]);
   }
 }
@@ -857,10 +929,7 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* ksh = k_sh0 + buf * kF32Keys * kQkLd;
     float s[kF32Keys / 8][4];  // S, then P
     if (live) {
-#pragma unroll
-      for (int j = 0; j < kF32Keys / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+      zero_frags(s);
 #pragma unroll
       for (int kk = 0; kk < D; kk += 8) {
         uint32_t ahi[4], alo[4], bhi[2], blo[2];
@@ -873,41 +942,8 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       // only tiles on the diagonal and the ragged end hold masked pairs
       const bool edge = k0 + kF32Keys > sk_len || (causal && k0 + kF32Keys - 1 > q0 + m0);
-#pragma unroll
-      for (int j = 0; j < kF32Keys / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = edge ? masked_score(s[j][e], scale, (e >> 1) ? r1 : r0,
-                                        k0 + 8 * j + 2 * t + (e & 1), sk_len, causal != 0)
-                         : s[j][e] * scale;
-
-      // online softmax: a row's scores sit in the 4 lanes of a quad
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx = kMaskValue;
-#pragma unroll
-        for (int j = 0; j < kF32Keys / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_run[h], mx);
-        const float corr = expf(m_run[h] - m_new);
-        float sum = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kF32Keys / 8; ++j) {
-          s[j][2 * h] = expf(s[j][2 * h] - m_new);
-          s[j][2 * h + 1] = expf(s[j][2 * h + 1] - m_new);
-          sum += s[j][2 * h] + s[j][2 * h + 1];
-        }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        l_run[h] = l_run[h] * corr + sum;
-        m_run[h] = m_new;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          acc[n][2 * h] *= corr;
-          acc[n][2 * h + 1] *= corr;
-        }
-      }
+      scale_scores<kF32Keys / 8>(s, edge, scale, r0, r1, k0, 2 * t, sk_len, causal != 0);
+      online_softmax<kF32Keys / 8, D / 8>(s, m_run, l_run, acc);
     }
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this V has landed
     __syncthreads();
@@ -925,19 +961,9 @@ flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
   }
 
-  float safe_l[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) safe_l[h] = l_run[h] > 0.0f ? l_run[h] : 1.0f;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = acc[n][e] / safe_l[e >> 1];
+  finish_softmax<D / 8>(acc, m_run, l_run, lse + static_cast<size_t>(bh) * s_len, r0, r1, s_len,
+                        true, 2 * t);
   store_rows_f32<D>(acc, o + static_cast<size_t>(bh) * s_len * D, q0 + m0, s_len, g, t);
-  if (t == 0) {
-    float* lse_b = lse + static_cast<size_t>(bh) * s_len;
-    if (r0 < s_len) lse_b[r0] = m_run[0] + logf(safe_l[0]);
-    if (r1 < s_len) lse_b[r1] = m_run[1] + logf(safe_l[1]);
-  }
 }
 
 // K3 for float32: the bf16 K3's layout (4 warps of 16 query rows, the row
@@ -1018,16 +1044,8 @@ flash_bwd_dq_f32tc_kernel(const float* __restrict__ q, const float* __restrict__
       const float* ksh = k_sh0 + buf * kKvFloats;
       float s[kF32Keys / 8][4], ds[kF32Keys / 8][4];  // S; dO V^T, then dS
       score_pair_f32<D, kLd>(q_sh, ksh, do_sh, v_sh0 + buf * kKvFloats, m0, g, t, s, ds);
-#pragma unroll
-      for (int j = 0; j < kF32Keys / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;  // 0: row r0, 1: row r1
-          const float sc = masked_score(s[j][e], scale, h ? r1 : r0,
-                                        k0 + 8 * j + 2 * t + (e & 1), sk_len, causal != 0);
-          const float p = expf(sc - lse_r[h]);
-          ds[j][e] = p * (ds[j][e] - delta_r[h]) * scale;
-        }
+      dq_scores<kF32Keys / 8>(s, ds, lse_r, delta_r, r0, r1, k0, 2 * t, sk_len, causal != 0,
+                              scale);
 #pragma unroll
       for (int j = 0; j < kF32Keys / 8; ++j) {
         uint32_t hi[4], lo[4];
@@ -1119,18 +1137,8 @@ flash_bwd_dkv_f32tc_kernel(const float* __restrict__ q, const float* __restrict_
       const float* delta_s = lse_s + kF32Keys;
       float p[kF32Keys / 8][4], ds[kF32Keys / 8][4];  // S^T then P^T; V dO^T then dS^T
       score_pair_f32<D, kLd>(k_sh, qsh, v_sh, dosh, m0, g, t, p, ds);
-#pragma unroll
-      for (int j = 0; j < kF32Keys / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * j + 2 * t + (e & 1);  // query column in the tile
-          const float sc = masked_score(p[j][e], scale, q0 + c, kr0 + (e >> 1) * 8, sk_len,
-                                        causal != 0);
-          // query rows past the end hold zeros, not a softmax row: no weight
-          const float pe = q0 + c < s_len ? expf(sc - lse_s[c]) : 0.0f;
-          p[j][e] = pe;
-          ds[j][e] = pe * (ds[j][e] - delta_s[c]) * scale;
-        }
+      dkv_scores<kF32Keys / 8>(p, ds, lse_s, delta_s, q0, kr0, 2 * t, s_len, sk_len, causal != 0,
+                               scale);
 #pragma unroll
       for (int j = 0; j < kF32Keys / 8; ++j) {
         uint32_t hi[4], lo[4];
@@ -1146,6 +1154,556 @@ flash_bwd_dkv_f32tc_kernel(const float* __restrict__ q, const float* __restrict_
   store_rows_f32<D>(dv_acc, dv + static_cast<size_t>(bh) * sk_len * D, k0 + m0, sk_len, g, t);
 }
 
+// ------------------------------------------------------------------ K2, K3, K4 above D = 128: head-dim chunks
+
+// For a head dim d above kMaxHeadDim (d a multiple of kWide; the wrappers
+// zero-pad any other d), each output is split by columns into d / kWide
+// chunks and grid dimension z names the block's chunk cc: K2 computes
+// O[:, cc], K3 dQ[:, cc], K4 dK[:, cc] and dV[:, cc] (float32: one of the
+// two, see its kernel). Every block forms its
+// scores over the whole d, by a loop over the d-chunks of its score
+// operands (Q and K; K3, K4 also dO and V) through shared memory, one step a
+// (tile, chunk) pair, double-buffered, the chunks in order 0, 1, ...: every
+// chunk block of a tile sums the same products in the same order, so their
+// S (and dO V^T) are equal bit for bit, and so are their P, l and dS. The B
+// operands of the output products, the block's own chunk cc of V (K2), K
+// (K3), or Q and dO (K4), are loaded with the tile's last chunk, into an
+// own slot beside the two buffers where chunk nc - 1 is not theirs. The
+// tiles, registers and products are those of the kernels above at
+// D = kWide, and each block recomputes the scores: the score products cost
+// d / kWide times theirs. K2's chunk-0 block writes the LSE.
+constexpr int kWide = 128;
+
+// step i of a loop over (tile, chunk) pairs, the chunks of a tile in order
+struct WideStep {
+  int tile, chunk;
+  bool last;  // the tile's last chunk: its scores are whole
+  __device__ __forceinline__ WideStep(int i, int nc)
+      : tile(i / nc), chunk(i % nc), last(i % nc == nc - 1) {}
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         float* __restrict__ lse, int s_len, int sk_len, int causal, float scale,
+                         int d) {
+  constexpr int kTileBytes = tc_tile_bytes<D>();
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t smem0 = smem_addr(tc_smem);  // two buffers of Q, K, V chunks
+
+  const int bh = blockIdx.x, nc = d / D, cc = blockIdx.z;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const bf16* qb = q + static_cast<size_t>(bh) * s_len * d;
+  const bf16* kb = k + static_cast<size_t>(bh) * sk_len * d;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk_len * d + cc * D;
+
+  const int nk = (sk_len + kTile - 1) / kTile;
+  const int steps = (causal ? min(nk, qt + 1) : nk) * nc;
+  auto load = [&](int i, int buf) {
+    const WideStep st(i, nc);
+    const uint32_t base = smem0 + buf * 3 * kTileBytes;
+    cp_tile<D>(base, qb + st.chunk * D, q0, s_len, d);
+    cp_tile<D>(base + kTileBytes, kb + st.chunk * D, st.tile * kTile, sk_len, d);
+    if (st.last) cp_tile<D>(base + 2 * kTileBytes, vb, st.tile * kTile, sk_len, d);
+  };
+  load(0, 0);
+  cp_async_commit();
+
+  const int r0 = q0 + m0 + g, r1 = r0 + 8;
+  float m_run[2] = {kMaskValue, kMaskValue}, l_run[2] = {0.0f, 0.0f};
+  float acc[D / 8][4], s[8][4];  // s: S over the chunks so far, then P
+  zero_frags(acc);
+  for (int i = 0; i < steps; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < steps) load(i + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const WideStep st(i, nc);
+    const uint32_t qs = smem0 + buf * 3 * kTileBytes, ks = qs + kTileBytes, vs = ks + kTileBytes;
+    if (st.chunk == 0) zero_frags(s);
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t qf[4];
+      ldsm_x4(qf, a_frag<D>(qs, m0, kk, lane));
+#pragma unroll
+      for (int n = 0; n < kTile; n += 16) {
+        uint32_t fb[4];
+        ldsm_x4(fb, b_frag<D>(ks, n, kk, lane));
+        mma_bf16(s[n / 8], qf, fb[0], fb[1]);
+        mma_bf16(s[n / 8 + 1], qf, fb[2], fb[3]);
+      }
+    }
+    if (st.last) {
+      const int k0 = st.tile * kTile;
+      const bool edge = k0 + kTile > sk_len || (causal && k0 + kTile - 1 > q0);
+      scale_scores<8>(s, edge, scale, r0, r1, k0, t2, sk_len, causal != 0);
+      online_softmax<8, D / 8>(s, m_run, l_run, acc);
+#pragma unroll
+      for (int kk = 0; kk < kTile; kk += 16) {
+        uint32_t a[1][4];
+        a_from_acc(s, kk, a[0]);  // P in v's type before P V
+        acc_product<D, 1>(a, vs, kk, lane, acc);
+      }
+    }
+    __syncthreads();
+  }
+  finish_softmax<D / 8>(acc, m_run, l_run, lse + static_cast<size_t>(bh) * s_len, r0, r1, s_len,
+                        cc == 0, t2);
+  store_rows<D>(reinterpret_cast<bf16*>(tc_smem), acc, m0, lane,
+                o + static_cast<size_t>(bh) * s_len * d + cc * D, q0, s_len, d);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            bf16* __restrict__ dq, int s_len, int sk_len, int causal, float scale,
+                            int d) {
+  constexpr int kTileBytes = tc_tile_bytes<D>();
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  // two buffers of Q, dO, K, V chunks; then the own slot, K's chunk cc
+  const uint32_t smem0 = smem_addr(tc_smem), own = smem0 + 8 * kTileBytes;
+
+  const int bh = blockIdx.x, nc = d / D, cc = blockIdx.z;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const bf16* qb = q + static_cast<size_t>(bh) * s_len * d;
+  const bf16* dob = dout + static_cast<size_t>(bh) * s_len * d;
+  const bf16* kb = k + static_cast<size_t>(bh) * sk_len * d;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk_len * d;
+
+  const int nk = (sk_len + kTile - 1) / kTile;
+  const int steps = (causal ? min(nk, qt + 1) : nk) * nc;
+  auto load = [&](int i, int buf) {
+    const WideStep st(i, nc);
+    const uint32_t base = smem0 + buf * 4 * kTileBytes;
+    cp_tile<D>(base, qb + st.chunk * D, q0, s_len, d);
+    cp_tile<D>(base + kTileBytes, dob + st.chunk * D, q0, s_len, d);
+    cp_tile<D>(base + 2 * kTileBytes, kb + st.chunk * D, st.tile * kTile, sk_len, d);
+    cp_tile<D>(base + 3 * kTileBytes, vb + st.chunk * D, st.tile * kTile, sk_len, d);
+    if (st.last && cc != nc - 1) cp_tile<D>(own, kb + cc * D, st.tile * kTile, sk_len, d);
+  };
+  load(0, 0);
+  cp_async_commit();
+
+  const int r0 = q0 + m0 + g, r1 = r0 + 8;
+  const float* lse_b = lse + static_cast<size_t>(bh) * s_len;
+  const float* delta_b = delta + static_cast<size_t>(bh) * s_len;
+  const float lse_r[2] = {r0 < s_len ? lse_b[r0] : 0.0f, r1 < s_len ? lse_b[r1] : 0.0f};
+  const float delta_r[2] = {r0 < s_len ? delta_b[r0] : 0.0f, r1 < s_len ? delta_b[r1] : 0.0f};
+  float acc[D / 8][4], s[8][4], ds[8][4];  // S; dO V^T, then dS
+  zero_frags(acc);
+  for (int i = 0; i < steps; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < steps) load(i + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const WideStep st(i, nc);
+    const uint32_t qs = smem0 + buf * 4 * kTileBytes, dos = qs + kTileBytes;
+    const uint32_t ks = dos + kTileBytes, vs = ks + kTileBytes;
+    if (st.chunk == 0) zero_frags(s), zero_frags(ds);
+    score_pair<D, true>(qs, ks, dos, vs, m0, lane, s, ds);
+    if (st.last) {
+      dq_scores<8>(s, ds, lse_r, delta_r, r0, r1, st.tile * kTile, t2, sk_len, causal != 0, scale);
+      const uint32_t k_cc = cc == nc - 1 ? ks : own;
+#pragma unroll
+      for (int kk = 0; kk < kTile; kk += 16) {
+        uint32_t a[1][4];
+        a_from_acc(ds, kk, a[0]);  // dS in k's type before dS K
+        acc_product<D, 1>(a, k_cc, kk, lane, acc);
+      }
+    }
+    __syncthreads();
+  }
+  store_rows<D>(reinterpret_cast<bf16*>(tc_smem), acc, m0, lane,
+                dq + static_cast<size_t>(bh) * s_len * d + cc * D, q0, s_len, d);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv, int s_len, int sk_len,
+                             int causal, float scale, int d) {
+  constexpr int kTileBytes = tc_tile_bytes<D>();
+  constexpr int kBufBytes = 4 * kTileBytes + 2 * kTile * 4;  // K, V, Q, dO chunks; LSE, delta
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  // two buffers; then the own slot, Q's and dO's chunk cc
+  const uint32_t smem0 = smem_addr(tc_smem), own = smem0 + 2 * kBufBytes;
+
+  const int bh = blockIdx.x, nc = d / D, cc = blockIdx.z;
+  const int kt = blockIdx.y;  // low key tiles see the most query tiles: first
+  const int k0 = kt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const bf16* qb = q + static_cast<size_t>(bh) * s_len * d;
+  const bf16* dob = dout + static_cast<size_t>(bh) * s_len * d;
+  const bf16* kb = k + static_cast<size_t>(bh) * sk_len * d;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk_len * d;
+  const float* lse_b = lse + static_cast<size_t>(bh) * s_len;
+  const float* delta_b = delta + static_cast<size_t>(bh) * s_len;
+
+  const int nq = (s_len + kTile - 1) / kTile;
+  // a query tile is live unless every (row, col) pair in it has col > row
+  const int qt_begin = causal ? kt : 0;
+  const int steps = (nq - qt_begin) * nc;
+  auto load = [&](int i, int buf) {
+    const WideStep st(i, nc);
+    const int q0 = (qt_begin + st.tile) * kTile;
+    const uint32_t base = smem0 + buf * kBufBytes;
+    cp_tile<D>(base, kb + st.chunk * D, k0, sk_len, d);
+    cp_tile<D>(base + kTileBytes, vb + st.chunk * D, k0, sk_len, d);
+    cp_tile<D>(base + 2 * kTileBytes, qb + st.chunk * D, q0, s_len, d);
+    cp_tile<D>(base + 3 * kTileBytes, dob + st.chunk * D, q0, s_len, d);
+    if (st.last && cc != nc - 1) {
+      cp_tile<D>(own, qb + cc * D, q0, s_len, d);
+      cp_tile<D>(own + kTileBytes, dob + cc * D, q0, s_len, d);
+    }
+    if (st.last) {  // one LSE or delta row a thread
+      const int r = threadIdx.x % kTile, which = threadIdx.x / kTile;  // 0: LSE, 1: delta
+      const bool valid = q0 + r < s_len;
+      cp_async4(base + 4 * kTileBytes + (which * kTile + r) * 4,
+                (which ? delta_b : lse_b) + (valid ? q0 + r : 0), valid);
+    }
+  };
+  load(0, 0);
+  cp_async_commit();
+
+  const int kr0 = k0 + m0 + g;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4], p[8][4], ds[8][4];  // S^T, P^T; V dO^T, dS^T
+  zero_frags(dk_acc);
+  zero_frags(dv_acc);
+  for (int i = 0; i < steps; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < steps) load(i + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const WideStep st(i, nc);
+    const uint32_t ks = smem0 + buf * kBufBytes, vs = ks + kTileBytes;
+    const uint32_t qs = vs + kTileBytes, dos = qs + kTileBytes;
+    if (st.chunk == 0) zero_frags(p), zero_frags(ds);
+    score_pair<D, true>(ks, qs, vs, dos, m0, lane, p, ds);
+    if (st.last) {
+      const float* lse_s = reinterpret_cast<const float*>(tc_smem + buf * kBufBytes +
+                                                          4 * kTileBytes);
+      dkv_scores<8>(p, ds, lse_s, lse_s + kTile, (qt_begin + st.tile) * kTile, kr0, t2, s_len,
+                    sk_len, causal != 0, scale);
+      const uint32_t q_cc = cc == nc - 1 ? qs : own;
+      const uint32_t do_cc = cc == nc - 1 ? dos : own + kTileBytes;
+      // float32 P and dS, each as bf16 hi + lo: two mmas a product
+#pragma unroll
+      for (int kk = 0; kk < kTile; kk += 16) {
+        uint32_t a[2][4];
+        split_from_acc(p, kk, a[0], a[1]);
+        acc_product<D, 2>(a, do_cc, kk, lane, dv_acc);
+        split_from_acc(ds, kk, a[0], a[1]);
+        acc_product<D, 2>(a, q_cc, kk, lane, dk_acc);
+      }
+    }
+    __syncthreads();
+  }
+  bf16* tiles = reinterpret_cast<bf16*>(tc_smem);
+  store_rows<D>(tiles, dk_acc, m0, lane, dk + static_cast<size_t>(bh) * sk_len * d + cc * D, k0,
+                sk_len, d);
+  store_rows<D>(tiles + kTile * tc_ld<D>(), dv_acc, m0, lane,
+                dv + static_cast<size_t>(bh) * sk_len * d + cc * D, k0, sk_len, d);
+}
+
+// The float32 forms: the split-TF32 kernels' 32-row loop tiles and
+// products at D = kWide.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_wide_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse, int s_len, int sk_len, int causal,
+                            float scale, int d) {
+  constexpr int kQkLd = f32_qk_ld<D>(), kVLd = f32_v_ld<D>();
+  constexpr int kBufFloats = kTile * kQkLd + kF32Keys * (kQkLd + kVLd);  // Q, K, V chunks
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  float* sh = reinterpret_cast<float*>(tc_smem);
+
+  const int bh = blockIdx.x, nc = d / D, cc = blockIdx.z;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const float* qb = q + static_cast<size_t>(bh) * s_len * d;
+  const float* kb = k + static_cast<size_t>(bh) * sk_len * d;
+  const float* vb = v + static_cast<size_t>(bh) * sk_len * d + cc * D;
+
+  const int nk = (sk_len + kF32Keys - 1) / kF32Keys;
+  // a key tile is live unless every (row, col) pair of the query tile has col > row
+  const int steps = (causal ? min(nk, (q0 + kTile - 1) / kF32Keys + 1) : nk) * nc;
+  auto load = [&](int i, int buf) {
+    const WideStep st(i, nc);
+    float* base = sh + buf * kBufFloats;
+    cp_tile_f32<D, kTile, kQkLd>(smem_addr(base), qb + st.chunk * D, q0, s_len, d);
+    cp_tile_f32<D, kF32Keys, kQkLd>(smem_addr(base + kTile * kQkLd), kb + st.chunk * D,
+                                    st.tile * kF32Keys, sk_len, d);
+    if (st.last)
+      cp_tile_f32<D, kF32Keys, kVLd>(smem_addr(base + (kTile + kF32Keys) * kQkLd), vb,
+                                     st.tile * kF32Keys, sk_len, d);
+  };
+  load(0, 0);
+  cp_async_commit();
+
+  const int r0 = q0 + m0 + g, r1 = r0 + 8;
+  float m_run[2] = {kMaskValue, kMaskValue}, l_run[2] = {0.0f, 0.0f};
+  float acc[D / 8][4], s[kF32Keys / 8][4];  // s: S over the chunks so far, then P
+  zero_frags(acc);
+  for (int i = 0; i < steps; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < steps) load(i + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const WideStep st(i, nc);
+    const float* q_sh = sh + buf * kBufFloats;
+    const float* k_sh = q_sh + kTile * kQkLd;
+    const int k0 = st.tile * kF32Keys;
+    // a warp whose 16 rows all lie above the tile's keys skips it (as K2 f32)
+    if (!causal || k0 <= q0 + m0 + 15) {
+      if (st.chunk == 0) zero_frags(s);
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 8) {
+        uint32_t ahi[4], alo[4], bhi[2], blo[2];
+        a_split<kQkLd>(q_sh, m0, kk, g, t, ahi, alo);
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {
+          b_split<kQkLd>(k_sh, 8 * j, kk, g, t, bhi, blo);
+          mma_split_rn(s[j], ahi, alo, bhi, blo);
+        }
+      }
+      if (st.last) {
+        const bool edge = k0 + kF32Keys > sk_len || (causal && k0 + kF32Keys - 1 > q0 + m0);
+        scale_scores<kF32Keys / 8>(s, edge, scale, r0, r1, k0, 2 * t, sk_len, causal != 0);
+        online_softmax<kF32Keys / 8, D / 8>(s, m_run, l_run, acc);
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {  // O += P V, P kept in float32 (as hi + lo)
+          uint32_t phi[4], plo[4];
+          a_split_acc(s[j], phi, plo);
+          acc_split_product<D, kVLd>(phi, plo, k_sh + kF32Keys * kQkLd, 8 * j, g, t, acc);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  finish_softmax<D / 8>(acc, m_run, l_run, lse + static_cast<size_t>(bh) * s_len, r0, r1, s_len,
+                        cc == 0, 2 * t);
+  store_rows_f32<D>(acc, o + static_cast<size_t>(bh) * s_len * d + cc * D, q0 + m0, s_len, g, t,
+                    d);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_wide_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               float* __restrict__ dq, int s_len, int sk_len, int causal,
+                               float scale, int d) {
+  constexpr int kLd = f32_qk_ld<D>();
+  constexpr int kBufFloats = (2 * kTile + 2 * kF32Keys) * kLd;  // Q, dO, K, V chunks
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  float* sh = reinterpret_cast<float*>(tc_smem);
+  float* own = sh + 2 * kBufFloats;  // K's chunk cc
+
+  const int bh = blockIdx.x, nc = d / D, cc = blockIdx.z;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const float* qb = q + static_cast<size_t>(bh) * s_len * d;
+  const float* dob = dout + static_cast<size_t>(bh) * s_len * d;
+  const float* kb = k + static_cast<size_t>(bh) * sk_len * d;
+  const float* vb = v + static_cast<size_t>(bh) * sk_len * d;
+
+  const int nk = (sk_len + kF32Keys - 1) / kF32Keys;
+  const int steps = (causal ? min(nk, (q0 + kTile - 1) / kF32Keys + 1) : nk) * nc;
+  auto load = [&](int i, int buf) {
+    const WideStep st(i, nc);
+    float* base = sh + buf * kBufFloats;
+    cp_tile_f32<D, kTile, kLd>(smem_addr(base), qb + st.chunk * D, q0, s_len, d);
+    cp_tile_f32<D, kTile, kLd>(smem_addr(base + kTile * kLd), dob + st.chunk * D, q0, s_len, d);
+    cp_tile_f32<D, kF32Keys, kLd>(smem_addr(base + 2 * kTile * kLd), kb + st.chunk * D,
+                                  st.tile * kF32Keys, sk_len, d);
+    cp_tile_f32<D, kF32Keys, kLd>(smem_addr(base + (2 * kTile + kF32Keys) * kLd),
+                                  vb + st.chunk * D, st.tile * kF32Keys, sk_len, d);
+    if (st.last && cc != nc - 1)
+      cp_tile_f32<D, kF32Keys, kLd>(smem_addr(own), kb + cc * D, st.tile * kF32Keys, sk_len, d);
+  };
+  load(0, 0);
+  cp_async_commit();
+
+  const int r0 = q0 + m0 + g, r1 = r0 + 8;
+  const float* lse_b = lse + static_cast<size_t>(bh) * s_len;
+  const float* delta_b = delta + static_cast<size_t>(bh) * s_len;
+  const float lse_r[2] = {r0 < s_len ? lse_b[r0] : 0.0f, r1 < s_len ? lse_b[r1] : 0.0f};
+  const float delta_r[2] = {r0 < s_len ? delta_b[r0] : 0.0f, r1 < s_len ? delta_b[r1] : 0.0f};
+  float acc[D / 8][4], s[kF32Keys / 8][4], ds[kF32Keys / 8][4];  // S; dO V^T, then dS
+  zero_frags(acc);
+  for (int i = 0; i < steps; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < steps) load(i + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const WideStep st(i, nc);
+    const float* q_sh = sh + buf * kBufFloats;
+    const float* do_sh = q_sh + kTile * kLd;
+    const float* k_sh = do_sh + kTile * kLd;
+    const int k0 = st.tile * kF32Keys;
+    if (!causal || k0 <= q0 + m0 + 15) {
+      if (st.chunk == 0) zero_frags(s), zero_frags(ds);
+      score_pair_f32<D, kLd, true>(q_sh, k_sh, do_sh, k_sh + kF32Keys * kLd, m0, g, t, s, ds);
+      if (st.last) {
+        dq_scores<kF32Keys / 8>(s, ds, lse_r, delta_r, r0, r1, k0, 2 * t, sk_len, causal != 0,
+                                scale);
+        const float* k_cc = cc == nc - 1 ? k_sh : own;
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {
+          uint32_t hi[4], lo[4];
+          a_split_acc(ds[j], hi, lo);
+          acc_split_product<D, kLd>(hi, lo, k_cc, 8 * j, g, t, acc);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  store_rows_f32<D>(acc, dq + static_cast<size_t>(bh) * s_len * d + cc * D, q0 + m0, s_len, g, t,
+                    d);
+}
+
+// K4 for float32 above D = 128. Its two outputs go to separate blocks
+// (grid z: dV's chunks, then dK's), so a block holds one [16 x D]
+// accumulator: both in one block spill (255 registers and 128 bytes of
+// local memory a thread: 1.846 ms against this form's 1.217 at [256, 256,
+// 256] causal, NVIDIA H100 80GB HBM3). A dV block needs only S = K Q^T for
+// P, and skips V; a dK block also dO V^T for dS. The bf16 K4 above keeps
+// both outputs in a block: its split form ran 0.474 ms against 0.375 (its
+// spill is small, and the split recomputes S once more a key tile).
+template <int D, bool kDk>
+__device__ __forceinline__ void dkv_wide_f32tc(const float* __restrict__ q,
+                                               const float* __restrict__ k,
+                                               const float* __restrict__ v,
+                                               const float* __restrict__ dout,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ delta,
+                                               float* __restrict__ out, int s_len, int sk_len,
+                                               int causal, float scale, int d, int cc) {
+  constexpr int kLd = f32_qk_ld<D>();
+  // K, V, Q, dO chunks; the LSE and delta rows
+  constexpr int kBufFloats = (2 * kTile + 2 * kF32Keys) * kLd + 2 * kF32Keys;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  float* sh = reinterpret_cast<float*>(tc_smem);
+  float* own = sh + 2 * kBufFloats;  // a dK block's Q chunk cc
+
+  const int bh = blockIdx.x, nc = d / D;
+  const int kt = blockIdx.y;  // low key tiles see the most query tiles: first
+  const int k0 = kt * kTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const float* qb = q + static_cast<size_t>(bh) * s_len * d;
+  const float* dob = dout + static_cast<size_t>(bh) * s_len * d;
+  const float* kb = k + static_cast<size_t>(bh) * sk_len * d;
+  const float* vb = v + static_cast<size_t>(bh) * sk_len * d;
+  const float* lse_b = lse + static_cast<size_t>(bh) * s_len;
+  const float* delta_b = delta + static_cast<size_t>(bh) * s_len;
+
+  const int nq = (s_len + kF32Keys - 1) / kF32Keys;
+  // a query tile is live unless every (row, col) pair in it has col > row
+  const int qt_begin = causal ? k0 / kF32Keys : 0;
+  const int steps = (nq - qt_begin) * nc;
+  auto load = [&](int i, int buf) {
+    const WideStep st(i, nc);
+    const int q0 = (qt_begin + st.tile) * kF32Keys;
+    float* base = sh + buf * kBufFloats;
+    cp_tile_f32<D, kTile, kLd>(smem_addr(base), kb + st.chunk * D, k0, sk_len, d);
+    if (kDk)
+      cp_tile_f32<D, kTile, kLd>(smem_addr(base + kTile * kLd), vb + st.chunk * D, k0, sk_len,
+                                 d);
+    cp_tile_f32<D, kF32Keys, kLd>(smem_addr(base + 2 * kTile * kLd), qb + st.chunk * D, q0,
+                                  s_len, d);
+    // a dK block's dO chunks feed dO V^T; a dV block's dO feeds only P^T dO: chunk cc
+    if (kDk || st.last)
+      cp_tile_f32<D, kF32Keys, kLd>(smem_addr(base + (2 * kTile + kF32Keys) * kLd),
+                                    dob + (kDk ? st.chunk : cc) * D, q0, s_len, d);
+    if (kDk && st.last && cc != nc - 1)
+      cp_tile_f32<D, kF32Keys, kLd>(smem_addr(own), qb + cc * D, q0, s_len, d);
+    if (st.last && threadIdx.x < 2 * kF32Keys) {  // one LSE or delta row a thread
+      const int r = threadIdx.x % kF32Keys, which = threadIdx.x / kF32Keys;  // 0: LSE, 1: delta
+      const bool valid = q0 + r < s_len;
+      cp_async4(smem_addr(base + (2 * kTile + 2 * kF32Keys) * kLd + which * kF32Keys + r),
+                (which ? delta_b : lse_b) + (valid ? q0 + r : 0), valid);
+    }
+  };
+  load(0, 0);
+  cp_async_commit();
+
+  const int kr0 = k0 + m0 + g;
+  float acc[D / 8][4];
+  float p[kF32Keys / 8][4], ds[kF32Keys / 8][4];  // S^T then P^T; V dO^T then dS^T
+  zero_frags(acc);
+  for (int i = 0; i < steps; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < steps) load(i + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const WideStep st(i, nc);
+    const float* k_sh = sh + buf * kBufFloats;
+    const float* v_sh = k_sh + kTile * kLd;
+    const float* q_sh = v_sh + kTile * kLd;
+    const float* do_sh = q_sh + kF32Keys * kLd;
+    const int q0 = (qt_begin + st.tile) * kF32Keys;
+    if (!causal || q0 + kF32Keys - 1 >= k0 + m0) {
+      if (st.chunk == 0) zero_frags(p), zero_frags(ds);
+      score_pair_f32<D, kLd, true, kDk>(k_sh, q_sh, v_sh, do_sh, m0, g, t, p, ds);
+      if (st.last) {
+        const float* lse_s = do_sh + kF32Keys * kLd;
+        dkv_scores<kF32Keys / 8>(p, ds, lse_s, lse_s + kF32Keys, q0, kr0, 2 * t, s_len, sk_len,
+                                 causal != 0, scale);
+        const float* b_cc = !kDk ? do_sh : cc == nc - 1 ? q_sh : own;  // dO's or Q's chunk cc
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {
+          uint32_t hi[4], lo[4];
+          a_split_acc(kDk ? ds[j] : p[j], hi, lo);
+          acc_split_product<D, kLd>(hi, lo, b_cc, 8 * j, g, t, acc);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  store_rows_f32<D>(acc, out + static_cast<size_t>(bh) * sk_len * d + cc * D, k0 + m0, sk_len,
+                    g, t, d);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_wide_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                float* __restrict__ dk, float* __restrict__ dv, int s_len,
+                                int sk_len, int causal, float scale, int d) {
+  const int nc = d / D;
+  if (static_cast<int>(blockIdx.z) < nc)
+    dkv_wide_f32tc<D, false>(q, k, v, dout, lse, delta, dv, s_len, sk_len, causal, scale, d,
+                             blockIdx.z);
+  else
+    dkv_wide_f32tc<D, true>(q, k, v, dout, lse, delta, dk, s_len, sk_len, causal, scale, d,
+                            blockIdx.z - nc);
+}
+
 // ------------------------------------------------------------------ launch
 
 struct Args {
@@ -1158,7 +1716,7 @@ struct Args {
   void* o;  // K2: O; K3: dQ; K4: dK
   void* dv;
   float* lse_out;
-  int bh, s_len, sk_len, causal;
+  int head_dim, bh, s_len, sk_len, causal;
   float scale;
   cudaStream_t stream;
 };
@@ -1301,6 +1859,117 @@ struct Backward<bf16, D> {
   }
 };
 
+// The chunked kernels of a head dim above kMaxHeadDim ...
+template <typename T>
+struct Wide;
+
+template <>
+struct Wide<float> {
+  static constexpr int kDkvBlocks = 2;  // dV's and dK's blocks a chunk
+  static constexpr size_t kFwdSmem =
+      2 * (kTile * f32_qk_ld<kWide>() + kF32Keys * (f32_qk_ld<kWide>() + f32_v_ld<kWide>())) *
+      sizeof(float);
+  // two buffers; then the own slot (K3: K's chunk cc; K4: Q's)
+  static constexpr size_t kDqSmem = (2 * (2 * kTile + 2 * kF32Keys) + kF32Keys) *
+                                    f32_qk_ld<kWide>() * sizeof(float);
+  static constexpr size_t kDkvSmem = kDqSmem + 4 * kF32Keys * sizeof(float);
+  static_assert(kDkvSmem <= 232448, "a block's shared memory");
+  static int fwd(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_fwd_wide_f32tc_kernel<kWide>, kFwdSmem);
+    if (err != 0) return err;
+    flash_fwd_wide_f32tc_kernel<kWide><<<grid, kTcThreads, kFwdSmem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse_out, a.s_len, a.sk_len,
+        a.causal, a.scale, a.head_dim);
+    return 0;
+  }
+  static int dq(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_bwd_dq_wide_f32tc_kernel<kWide>, kDqSmem);
+    if (err != 0) return err;
+    flash_bwd_dq_wide_f32tc_kernel<kWide><<<grid, kTcThreads, kDqSmem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse_in, a.delta,
+        static_cast<float*>(a.o), a.s_len, a.sk_len, a.causal, a.scale, a.head_dim);
+    return 0;
+  }
+  static int dkv(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_bwd_dkv_wide_f32tc_kernel<kWide>, kDkvSmem);
+    if (err != 0) return err;
+    flash_bwd_dkv_wide_f32tc_kernel<kWide><<<grid, kTcThreads, kDkvSmem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse_in, a.delta,
+        static_cast<float*>(a.o), static_cast<float*>(a.dv), a.s_len, a.sk_len, a.causal,
+        a.scale, a.head_dim);
+    return 0;
+  }
+  static int info(Which which, int* out) {
+    if (which == Which::kFwd)
+      return kernel_info(flash_fwd_wide_f32tc_kernel<kWide>, kTcThreads, kFwdSmem, out);
+    return which == Which::kDq
+               ? kernel_info(flash_bwd_dq_wide_f32tc_kernel<kWide>, kTcThreads, kDqSmem, out)
+               : kernel_info(flash_bwd_dkv_wide_f32tc_kernel<kWide>, kTcThreads, kDkvSmem, out);
+  }
+};
+
+template <>
+struct Wide<bf16> {
+  static constexpr int kDkvBlocks = 1;
+  static constexpr size_t kFwdSmem = 2 * 3 * tc_tile_bytes<kWide>();
+  // two buffers; then the own slot (K3: K's chunk cc; K4: Q's and dO's)
+  static constexpr size_t kDqSmem = (2 * 4 + 1) * tc_tile_bytes<kWide>();
+  static constexpr size_t kDkvSmem = (2 * 4 + 2) * tc_tile_bytes<kWide>() +
+                                     2 * 2 * kTile * sizeof(float);
+  static_assert(kDkvSmem <= 232448, "a block's shared memory");
+  static int fwd(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_fwd_wide_tc_kernel<kWide>, kFwdSmem);
+    if (err != 0) return err;
+    flash_fwd_wide_tc_kernel<kWide><<<grid, kTcThreads, kFwdSmem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse_out, a.s_len, a.sk_len,
+        a.causal, a.scale, a.head_dim);
+    return 0;
+  }
+  static int dq(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_bwd_dq_wide_tc_kernel<kWide>, kDqSmem);
+    if (err != 0) return err;
+    flash_bwd_dq_wide_tc_kernel<kWide><<<grid, kTcThreads, kDqSmem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse_in, a.delta,
+        static_cast<bf16*>(a.o), a.s_len, a.sk_len, a.causal, a.scale, a.head_dim);
+    return 0;
+  }
+  static int dkv(dim3 grid, const Args& a) {
+    const int err = opt_in(flash_bwd_dkv_wide_tc_kernel<kWide>, kDkvSmem);
+    if (err != 0) return err;
+    flash_bwd_dkv_wide_tc_kernel<kWide><<<grid, kTcThreads, kDkvSmem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse_in, a.delta,
+        static_cast<bf16*>(a.o), static_cast<bf16*>(a.dv), a.s_len, a.sk_len, a.causal,
+        a.scale, a.head_dim);
+    return 0;
+  }
+  static int info(Which which, int* out) {
+    if (which == Which::kFwd)
+      return kernel_info(flash_fwd_wide_tc_kernel<kWide>, kTcThreads, kFwdSmem, out);
+    return which == Which::kDq
+               ? kernel_info(flash_bwd_dq_wide_tc_kernel<kWide>, kTcThreads, kDqSmem, out)
+               : kernel_info(flash_bwd_dkv_wide_tc_kernel<kWide>, kTcThreads, kDkvSmem, out);
+  }
+};
+
+// ... launched over a third grid dimension, the output's head-dim chunks
+template <typename T>
+int launch_wide(Which which, const Args& a) {
+  const dim3 grid(a.bh, which == Which::kDkv ? (a.sk_len + kTile - 1) / kTile
+                                             : (a.s_len + kTile - 1) / kTile,
+                  a.head_dim / kWide * (which == Which::kDkv ? Wide<T>::kDkvBlocks : 1));
+  int err = which == Which::kFwd ? Wide<T>::fwd(grid, a)
+            : which == Which::kDq ? Wide<T>::dq(grid, a)
+                                  : Wide<T>::dkv(grid, a);
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch(Which which, const Args& a) {
   const dim3 grid(a.bh, which == Which::kDkv ? (a.sk_len + kTile - 1) / kTile
@@ -1322,8 +1991,9 @@ int info(Which which, int* out) {
   return Backward<T, D>::info(which, out);
 }
 
-// Calls Op<T, D>::run(args...) for the (dtype, head_dim) pair; -1 for a pair
-// with no kernel. dtype: 0 = float32, 1 = bfloat16.
+// Calls Op<T, D>::run(args...) for the (dtype, head_dim) pair, D = 0 for the
+// chunked kernels of a head dim above kMaxHeadDim; -1 for a pair with no
+// kernel. dtype: 0 = float32, 1 = bfloat16.
 template <template <typename, int> class Op, typename... A>
 int dispatch(int dtype, int head_dim, A... args) {
   if (dtype != 0 && dtype != 1) return -1;
@@ -1336,22 +2006,29 @@ int dispatch(int dtype, int head_dim, A... args) {
     FEDML_FLASH_HEAD_DIM(64)
     FEDML_FLASH_HEAD_DIM(96)
     FEDML_FLASH_HEAD_DIM(128)
-    default: return -1;
+    default: break;
   }
 #undef FEDML_FLASH_HEAD_DIM
+  if (head_dim > kMaxHeadDim && head_dim % kWide == 0)
+    return dtype == 0 ? Op<float, 0>::run(args...) : Op<bf16, 0>::run(args...);
+  return -1;
 }
 
 template <typename T, int D>
 struct Launch {
   static int run(Which which, const Args& a) {
     if (a.bh <= 0 || a.s_len <= 0 || a.sk_len <= 0) return 0;
-    return launch<T, D>(which, a);
+    if constexpr (D == 0) return launch_wide<T>(which, a);
+    else return launch<T, D>(which, a);
   }
 };
 
 template <typename T, int D>
 struct Info {
-  static int run(Which which, int* out) { return info<T, D>(which, out); }
+  static int run(Which which, int* out) {
+    if constexpr (D == 0) return Wide<T>::info(which, out);
+    else return info<T, D>(which, out);
+  }
 };
 
 }  // namespace
@@ -1359,15 +2036,17 @@ struct Info {
 extern "C" {
 
 int fedml_flash_max_head_dim() { return kMaxHeadDim; }
+int fedml_flash_wide_chunk() { return kWide; }
 int fedml_flash_tile() { return kTile; }
 
 // The caller guarantees: device pointers to contiguous [bh, s_len, head_dim]
 // q, o, dout, dq; [bh, sk_len, head_dim] k, v, dk, dv; [bh, s_len] float32
-// lse and delta; causal only with s_len == sk_len.
+// lse and delta; causal only with s_len == sk_len. head_dim is one of the
+// built dims up to kMaxHeadDim, or above it a multiple of kWide.
 int fedml_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
                     void* o, float* lse, int bh, int s_len, int sk_len, int causal,
                     float scale, void* stream) {
-  Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse,
+  Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse, head_dim,
          bh, s_len, sk_len, causal, scale, static_cast<cudaStream_t>(stream)};
   return dispatch<Launch>(dtype, head_dim, Which::kFwd, a);
 }
@@ -1375,7 +2054,7 @@ int fedml_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const
 int fedml_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta, void* dq,
                        int bh, int s_len, int sk_len, int causal, float scale, void* stream) {
-  Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr,
+  Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, head_dim,
          bh, s_len, sk_len, causal, scale, static_cast<cudaStream_t>(stream)};
   return dispatch<Launch>(dtype, head_dim, Which::kDq, a);
 }
@@ -1384,7 +2063,7 @@ int fedml_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k, c
                         const void* dout, const float* lse, const float* delta, void* dk,
                         void* dv, int bh, int s_len, int sk_len, int causal, float scale,
                         void* stream) {
-  Args a{q, k, v, dout, lse, delta, dk, dv, nullptr,
+  Args a{q, k, v, dout, lse, delta, dk, dv, nullptr, head_dim,
          bh, s_len, sk_len, causal, scale, static_cast<cudaStream_t>(stream)};
   return dispatch<Launch>(dtype, head_dim, Which::kDkv, a);
 }

@@ -25,12 +25,14 @@ Two versions of each kernel's function:
   same casts in PyTorch ops, at the caller's block sizes and any head dim;
   the wrappers use them for CPU tensors, and nothing else.
 
-The kernels are built for the head dims :data:`HEAD_DIMS`. On the card any
-other d up to the largest is zero-padded to the next built one
-(:func:`at_built_head_dim`): zero columns change neither Q·Kᵀ, dO·Vᵀ, LSE
-nor δ, the caller's scale stays 1/√d of the true d, and O, dQ, dK and dV
-are sliced back to d. A d above the largest has no kernel and the
-launcher refuses it (ROADMAP.md §3).
+The kernels are built for the head dims :data:`HEAD_DIMS`; above the
+largest, the chunked kernels take any multiple of :data:`WIDE_CHUNK`: a
+third grid dimension splits the output's head dim into chunks of that
+width, and each block forms its scores over the whole d through shared
+memory, chunk by chunk. On the card any other d is zero-padded to the next
+width the kernels take (:func:`built_head_dim`, :func:`at_built_head_dim`):
+zero columns change neither Q·Kᵀ, dO·Vᵀ, LSE nor δ, the caller's scale
+stays 1/√d of the true d, and O, dQ, dK and dV are sliced back to d.
 
 The casts that decide the bfloat16 numbers are the reference kernel's: P is
 rounded to v's type before P·V (K2), dO·Vᵀ is float32 and dS is rounded to
@@ -43,9 +45,10 @@ Function folds the client axis into BH: the whole cohort's attention is
 one K2, one K3 and one K4 launch a layer a step, on the card as on the
 CPU's plain versions.
 
-``LAUNCHES`` counts kernel launches by kernel and operand type (only the
-CUDA branches add to it; :func:`launch_totals` gives each kernel's sum),
-so a run can show that it went through the kernels. The v5e timings in the
+``LAUNCHES`` counts kernel launches by kernel and operand type, the
+chunked kernels (head dims above :data:`HEAD_DIMS`) under the type's
+``CHUNKED`` key (only the CUDA branches add to it; :func:`launch_totals`
+gives each kernel's sum), so a run can show which kernels it went through. The v5e timings in the
 reference module's docstring are the TPU's, not this port's."""
 
 from __future__ import annotations
@@ -63,19 +66,22 @@ from fedml_tpu_torch.ops._build import count_launch, load_kernel_library
 FWD, BWD_DQ, BWD_DKV = "flash_attention.fwd", "flash_attention.bwd_dq", "flash_attention.bwd_dkv"
 KERNEL_NAMES = (FWD, BWD_DQ, BWD_DKV)
 OPERAND_TYPES = ("float32", "bfloat16")
-# launches by (kernel, operand type); launch_totals() sums the types
+CHUNKED = {t: t + ".chunked" for t in OPERAND_TYPES}  # the chunked kernels' launch keys
+# launches by (kernel, operand type or CHUNKED[type]); launch_totals() sums them
 LAUNCHES: Dict[Tuple[str, str], int] = {(name, t): 0 for name in KERNEL_NAMES
-                                        for t in OPERAND_TYPES}
+                                        for t in (*OPERAND_TYPES, *CHUNKED.values())}
 
 KERNEL_TILE = 64  # rows of the kernels' query tiles and key tiles (csrc kTile; float32 K2: 32 keys)
 HEAD_DIMS = (16, 32, 64, 96, 128)  # the head dims the kernels are built for
+WIDE_CHUNK = 128  # above HEAD_DIMS: the chunked kernels' head-dim chunk (csrc kWide)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 
 
 def launch_totals() -> Dict[str, int]:
-    """Each kernel's launches, both operand types together."""
-    return {name: sum(LAUNCHES[(name, t)] for t in OPERAND_TYPES) for name in KERNEL_NAMES}
+    """Each kernel's launches, both operand types and the chunked kernels
+    together."""
+    return {name: sum(n for (kn, _), n in LAUNCHES.items() if kn == name) for name in KERNEL_NAMES}
 
 
 def reset_launches() -> None:
@@ -184,8 +190,10 @@ def flash_backward_dkv_plain(q, k, v, do, lse, delta, scale: float, causal: bool
 def _lib() -> ctypes.CDLL:
     """Build (at first use) and bind the three C entry points."""
     lib = load_kernel_library("flash_attention")
-    if lib.fedml_flash_max_head_dim() != max(HEAD_DIMS) or lib.fedml_flash_tile() != KERNEL_TILE:
-        raise RuntimeError("csrc/flash_attention.cu disagrees with HEAD_DIMS / KERNEL_TILE")
+    if (lib.fedml_flash_max_head_dim() != max(HEAD_DIMS) or lib.fedml_flash_tile() != KERNEL_TILE
+            or lib.fedml_flash_wide_chunk() != WIDE_CHUNK):
+        raise RuntimeError("csrc/flash_attention.cu disagrees with HEAD_DIMS / KERNEL_TILE / "
+                           "WIDE_CHUNK")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     shape = [I, I, I, I, F, P]  # bh, s_len, sk_len, causal, scale, stream
     lib.fedml_flash_fwd.argtypes = [I, I, P, P, P, P, P] + shape
@@ -199,7 +207,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def kernel_info(name: str, dtype: torch.dtype, head_dim: int) -> Dict[str, int]:
-    """How kernel ``name`` is launched for (dtype, head_dim) and what the
+    """How kernel ``name`` is launched for (dtype, head_dim) (a head dim
+    above :data:`HEAD_DIMS` names the chunked kernel) and what the
     compiler made of it: threads a block, registers and local-memory bytes
     a thread (spills land there), dynamic shared memory a block, and the
     blocks one SM holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
@@ -217,11 +226,7 @@ def _launch(name: str, fn, q, operands, Sk: int, causal: bool, scale: float) -> 
     ``operands`` are (tensor, kind) in the C argument order; kind "q" is
     [BH, S, d] and "k" [BH, Sk, d] in q's type, "row" [BH, S] float32."""
     BH, S, d = q.shape
-    if d > max(HEAD_DIMS):
-        raise ValueError(f"{name}: no kernel for head dim {d} on the card: the kernels are built "
-                         f"up to {max(HEAD_DIMS)} (a 64-row float32 K4 tile alone would take "
-                         f"~67 KB of shared memory at d = 256); see ROADMAP.md §3")
-    if d not in HEAD_DIMS or q.dtype not in _DTYPE_CODE or (causal and S != Sk):
+    if built_head_dim(d) != d or q.dtype not in _DTYPE_CODE or (causal and S != Sk):
         raise ValueError(f"{name}: no kernel for head dim {d}, {q.dtype}, "
                          f"causal={causal} with S={S}, Sk={Sk}")
     want = {"q": ((BH, S, d), q.dtype), "k": ((BH, Sk, d), q.dtype),
@@ -240,7 +245,8 @@ def _launch(name: str, fn, q, operands, Sk: int, causal: bool, scale: float) -> 
                  BH, S, Sk, int(causal), scale, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    count_launch(LAUNCHES, (name, str(q.dtype).removeprefix("torch.")))
+    t = str(q.dtype).removeprefix("torch.")
+    count_launch(LAUNCHES, (name, CHUNKED[t] if d > max(HEAD_DIMS) else t))
 
 
 def _device_kind(*ts) -> str:
@@ -253,9 +259,9 @@ def _device_kind(*ts) -> str:
 
 
 def built_head_dim(d: int) -> int:
-    """The smallest head dim of :data:`HEAD_DIMS` not below ``d``; ``d``
-    itself above the largest (which the launcher then refuses)."""
-    return next((h for h in HEAD_DIMS if h >= d), d)
+    """The smallest head dim the kernels take not below ``d``: one of
+    :data:`HEAD_DIMS`, or above them the next multiple of :data:`WIDE_CHUNK`."""
+    return next((h for h in HEAD_DIMS if h >= d), -(-d // WIDE_CHUNK) * WIDE_CHUNK)
 
 
 def at_built_head_dim(fn, *args):

@@ -2,17 +2,21 @@
 (fedml_tpu_torch/ops/flash_attention.py ``at_built_head_dim``).
 
 The reference's ``flash_attention`` takes any head dim; the port's kernels
-are built for HEAD_DIMS. On the CPU the port's plain versions take any d,
-and are held here to the reference (Pallas interpret mode). On the card a
-d up to 128 is zero-padded to the next built dim and launched with the
-caller's scale, 1/√d of the true d, and O, dQ, dK and dV are sliced back;
-the pad-and-slice helper is driven here by the plain versions, which is
-what it hands the kernels on the card. A d above 128 has no kernel, and
-the launcher refuses it with a pointer to ROADMAP.md §3.
+are built for HEAD_DIMS and, above them, as chunked kernels for any
+multiple of WIDE_CHUNK (128). On the CPU the port's plain versions take any
+d, and are held here to the reference (Pallas interpret mode), d = 160 and
+256 included. On the card any other d is zero-padded to the next width the
+kernels take and launched with the caller's scale, 1/√d of the true d, and
+O, dQ, dK and dV are sliced back; the pad-and-slice helper is driven here
+by the plain versions, which is what it hands the kernels on the card, and
+the launcher is driven up to the kernel call at d = 256.
 
 Tolerance: ``chip_smoke.py``'s FLASH_TOL["float32"], |err| ≤ 1e-5·|ref| +
 1e-5·max|ref|: the two packages (and the padded and unpadded routes) sum
 the same float32 terms in other orders."""
+
+import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -53,8 +57,10 @@ def _assert_close(got, want, what):
         f"{what}: max |err| {err.max().item()} (max|ref| {want.abs().max().item()})")
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [48, 80])
+# d = 160 (zero-padded to two chunks) causal and d = 256 (two chunks) not:
+# each above-128 case costs the reference ~2.5 s of Pallas interpret mode
+@pytest.mark.parametrize("d,causal", [(48, True), (48, False), (80, True), (80, False),
+                                      (160, True), (256, False)])
 def test_flash_attention_at_unbuilt_head_dims_matches_reference(d, causal):
     q, k, v, do = _inputs(d, seed=d + causal)
 
@@ -79,11 +85,12 @@ def test_flash_attention_at_unbuilt_head_dims_matches_reference(d, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [48, 80])
+@pytest.mark.parametrize("d", [48, 80, 160])
 def test_padded_route_equals_plain_versions_at_the_true_head_dim(d, causal):
-    """``at_built_head_dim`` pads to 64 (d = 48) or 96 (d = 80), keeps the
-    scale and the LSE and δ rows, and slices back: driven by the plain
-    versions, it gives what they give at the true d."""
+    """``at_built_head_dim`` pads to 64 (d = 48), 96 (d = 80) or 256 (d =
+    160, two chunks of the chunked kernels), keeps the scale and the LSE
+    and δ rows, and slices back: driven by the plain versions, it gives
+    what they give at the true d."""
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(d, seed=d + causal + 7))
     scale, blocks = d**-0.5, (BLOCK, BLOCK)
     o, lse = fa.flash_forward_plain(q, k, v, scale, causal, *blocks)
@@ -99,19 +106,51 @@ def test_padded_route_equals_plain_versions_at_the_true_head_dim(d, causal):
 
 
 def test_built_head_dim_is_the_next_kernel_width():
-    assert [fa.built_head_dim(d) for d in (1, 8, 16, 48, 80, 96, 100, 128, 129, 256)] == [
-        16, 16, 16, 64, 96, 96, 128, 128, 129, 256]
+    """A built head dim up to 128; above it the next multiple of the
+    chunked kernels' 128-wide chunk."""
+    ds = (1, 8, 16, 48, 80, 96, 100, 128, 129, 160, 256, 257, 384)
+    assert [fa.built_head_dim(d) for d in ds] == [
+        16, 16, 16, 64, 96, 96, 128, 128, 256, 256, 256, 384, 384]
+    assert fa.WIDE_CHUNK == 128 and max(fa.HEAD_DIMS) == fa.WIDE_CHUNK
 
 
-def test_head_dim_above_128_is_refused_on_the_card_path():
-    """A d above the largest built head dim is passed through unpadded and
-    the launcher refuses it, naming ROADMAP.md §3 (it raises before it
-    calls ``fn``, so a CPU tensor and no library do); no plain version
-    stands in."""
-    q = torch.zeros(2, 64, 256)
-    for name in fa.KERNEL_NAMES:
-        def launch(q, name=name):
-            fa._launch(name, None, q, [(q, "q")], q.shape[1], True, 256**-0.5)
+@pytest.mark.parametrize("d", [129, 160, 256, 384])
+def test_head_dim_above_128_reaches_the_chunked_kernels(d, monkeypatch):
+    """Above 128 the launcher no longer refuses: ``at_built_head_dim`` pads d
+    to its chunk multiple, ``_launch`` passes its checks and calls the C
+    entry point with that head dim and the caller's scale (the stream
+    lookup is stubbed: a CPU tensor has none), counts one launch, and the
+    outputs are sliced back to d. A head dim the kernels do not take is
+    still refused."""
+    calls = []
 
-        with pytest.raises(ValueError, match=r"no kernel for head dim 256.*ROADMAP\.md §3"):
-            fa.at_built_head_dim(launch, q)
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(fa.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(fa.torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(fa, "LAUNCHES", dict(fa.LAUNCHES))
+    fa.reset_launches()  # the copy's counts
+    width = fa.built_head_dim(d)
+    q, k, v = (torch.zeros(2, 64, d) for _ in range(3))
+
+    def forward(q, k, v):
+        out, lse = torch.empty_like(q), torch.empty(q.shape[:2])
+        fa._launch(fa.FWD, entry, q, [(q, "q"), (k, "k"), (v, "k"), (out, "q"), (lse, "row")],
+                   k.shape[1], True, d**-0.5)
+        return out, lse
+
+    before = fa.launch_totals()[fa.FWD]
+    o, lse = fa.at_built_head_dim(forward, q, k, v)
+    (args,) = calls
+    assert args[:2] == (0, width) and args[-6:-2] == (2, 64, 64, 1)
+    assert args[-2] == pytest.approx(d**-0.5)
+    assert fa.launch_totals()[fa.FWD] == before + 1
+    assert fa.LAUNCHES[(fa.FWD, fa.CHUNKED["float32"])] == 1  # the chunked kernel's count
+    assert sum(fa.LAUNCHES.values()) == 1
+    assert o.shape == (2, 64, d) and lse.shape == (2, 64)
+    bad = torch.zeros(2, 64, width + 1)
+    with pytest.raises(ValueError, match=f"no kernel for head dim {width + 1}"):
+        fa._launch(fa.FWD, entry, bad, [(bad, "q")], 64, True, 1.0)
