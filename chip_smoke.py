@@ -333,8 +333,11 @@ FLASH_S_GRID = (32, 128, 192, 512)
 # zero-padded to 256), two 128-wide chunks of the output's head dim
 FLASH_D_GRID = (16, 32, 48, 64, 80, 96, 128, 160, 256)
 # (S, Sk, d, causal), both types: three and four chunks; two chunks over
-# more keys than queries
-FLASH_WIDE_CASES = ((128, 128, 384, True), (128, 128, 512, True), (128, 192, 256, False))
+# more keys than queries; five and eight chunks, the float32 cluster
+# kernels' K3 and K4 at clusters of 5 and of the largest size; nine chunks,
+# above it (their K3 and K4 are the chunked kernels there)
+FLASH_WIDE_CASES = ((128, 128, 384, True), (128, 128, 512, True), (128, 192, 256, False),
+                    (64, 64, 640, True), (64, 64, 1024, True), (64, 64, 1152, True))
 FLASH_WIDE_TIMING = dict(B=32, H=8, S=256, d=256)  # the LM's [256, 256, ·] causal at d = 256
 FLASH_BH = 3
 # the flagship LM (bench.py _flagship_lm_row): attention at B=32, H=8
@@ -918,13 +921,14 @@ def phase_flash_parity(device="cuda", s_grid=FLASH_S_GRID, d_grid=FLASH_D_GRID, 
     cases.append((FLASH_BH, 128, 192, 64, torch.bfloat16, False))  # Sk != S
     cases += [(FLASH_BH, S, Sk, d, dt, causal) for S, Sk, d, causal in FLASH_WIDE_CASES
               for dt in (torch.float32, torch.bfloat16)]
-    if flagship:  # the LM path's shape, in both its legs' types
-        cases += [(LM["batch"] * LM["heads"], LM["seq"], LM["seq"], LM["width"] // LM["heads"],
-                   dt, True) for dt in (torch.bfloat16, torch.float32)]
+    if flagship:  # the LM path's shapes (phase 9, and phase_lm_wide's), in both legs' types
+        cases += [(LM["batch"] * heads, LM["seq"], LM["seq"], LM["width"] // heads, dt, True)
+                  for heads in (LM["heads"], LM_WIDE["heads"])
+                  for dt in (torch.bfloat16, torch.float32)]
     owner = {"O": fa.FWD, "LSE": fa.FWD, "dQ": fa.BWD_DQ, "dK": fa.BWD_DKV, "dV": fa.BWD_DKV}
     errs = {name: 0.0 for name in fa.KERNEL_NAMES}
     by_output = {what: 0.0 for what in owner}
-    share = {}  # the largest share of the bound, by type and by the LM's own case
+    share = {}  # the largest share of the bound, by type and by the LM's own cases
     share_by_output = {}  # ... by type and head dim, then by output
     broken = []
     with fp32_math():
@@ -940,7 +944,8 @@ def phase_flash_parity(device="cuda", s_grid=FLASH_S_GRID, d_grid=FLASH_D_GRID, 
                 by_output[what] = max(by_output[what], e)
                 outs = share_by_output.setdefault(f"{dt_name}_d{d}", {})
                 outs[what] = max(outs.get(what, 0.0), sh)
-                for key in (dt_name, f"lm_{dt_name}" if BH == LM["batch"] * LM["heads"] else None,
+                lm = {LM["batch"] * LM["heads"]: "lm", LM["batch"] * LM_WIDE["heads"]: "lm_wide"}
+                for key in (dt_name, f"{lm[BH]}_{dt_name}" if BH in lm else None,
                             f"wide_{dt_name}_d{d}" if d > max(fa.HEAD_DIMS) else None):
                     if key:
                         share[key] = max(share.get(key, 0.0), sh)
@@ -1054,14 +1059,24 @@ def _sdpa_backend(q, k, v) -> str:
         return f"not read ({type(e).__name__}: {e})"
 
 
+def _kernel_facts(fa, kname, dt, d) -> dict:
+    """The CUDA function kernel ``kname`` launches for (dt, d), its launch
+    configuration and what the compiler made of it (``fa.kernel_info``),
+    and the warps one SM holds at once."""
+    info = fa.kernel_info(kname, dt, d)
+    return {**info, "warps_per_sm": info["threads"] // 32 * info["blocks_per_sm"]}
+
+
 def _flash_timing_wide(name: str, smi: str) -> dict:
     """K2/K3/K4 at a head dim above 128 (FLASH_WIDE_TIMING: [256, 256, 256]
-    causal, the chunked kernels, two 128-wide chunks of the output's head
-    dim), bfloat16 and float32 (TF32 off), each beside its plain version,
-    its bound (bf16: bytes or FLOPs at the bf16 peak; float32: bytes or
-    three TF32 products a product, by the LM shape's rules), SDPA (the
-    backend it used) and the kernel's registers, local memory, shared
-    memory and blocks an SM."""
+    causal: the chunked kernels, two 128-wide chunks of the output's head
+    dim, and for float32 K3/K4 the cluster kernels), bfloat16 and float32
+    (TF32 off). Each is held to its plain version on the timed inputs
+    (FLASH_TOL; its largest share logged) and timed beside it, its bound
+    (bf16: bytes or FLOPs at the bf16 peak; float32: bytes or three TF32
+    products a product, by the LM shape's rules), SDPA (the backend it
+    used) and the kernel's CUDA function, registers, local memory, shared
+    memory, and blocks and warps an SM."""
     import torch
     import torch.nn.functional as F
 
@@ -1097,6 +1112,21 @@ def _flash_timing_wide(name: str, smi: str) -> dict:
                 fa.BWD_DQ: device_ms(lambda: fa.flash_backward_dq_plain(*bwd), iters=5),
                 fa.BWD_DKV: device_ms(lambda: fa.flash_backward_dkv_plain(*bwd), iters=5),
             }
+            # the timed kernels against their plain versions on these inputs
+            held = {fa.FWD: zip(("O", "LSE"), (o, lse),
+                                fa.flash_forward_plain(q, k, v, scale, True, blk, blk)),
+                    fa.BWD_DQ: [("dQ", fa.flash_backward_dq(*bwd),
+                                 fa.flash_backward_dq_plain(*bwd))],
+                    fa.BWD_DKV: zip(("dK", "dV"), fa.flash_backward_dkv(*bwd),
+                                    fa.flash_backward_dkv_plain(*bwd))}
+            share = {}
+            for kname, outs in held.items():
+                for what, got, want in outs:
+                    _, sh, bad = _flash_check(got, want, dt_name,
+                                              f"{what} {dt_name} at FLASH_WIDE_TIMING")
+                    if bad:
+                        raise AssertionError(bad)
+                    share[kname] = max(share.get(kname, 0.0), sh)
             qs, ks, vs = (x.view(B, H, S, d).detach().clone().requires_grad_(True)
                           for x in (q, k, v))
             dos = do.view(B, H, S, d)
@@ -1116,8 +1146,9 @@ def _flash_timing_wide(name: str, smi: str) -> dict:
             rows[kname] = {"kernel": t[kname], "plain": plain[kname], "bound": max(tb, tf),
                            "bound_by": "bytes" if tb >= tf else "operations", "bytes": nbytes,
                            "flops": flops, "bound_share": max(tb, tf) / t[kname],
+                           "max_share_of_tol": share[kname],
                            "library": sdpa_fwd if kname == fa.FWD else sdpa_bwd,
-                           **fa.kernel_info(kname, dt, d)}
+                           **_kernel_facts(fa, kname, dt, d)}
         rows["sdpa_fwd_ms"], rows["sdpa_bwd_ms"], rows["sdpa_backend"] = sdpa_fwd, sdpa_bwd, backend
         rows["k3_plus_k4_over_sdpa_bwd"] = (t[fa.BWD_DQ] + t[fa.BWD_DKV]) / sdpa_bwd
         out[dt_name] = rows
@@ -1210,17 +1241,18 @@ def _cuobjdump():
 
 def sass_counts(sass: str) -> dict:
     """{kernel<type, D>: {opcode: count}} of the flash kernels in a
-    ``cuobjdump -sass`` listing: HMMA (tensor-core products), FFMA (float32
-    FMA), LDSM (ldmatrix), LDL/STL (local memory: spills)."""
+    ``cuobjdump -sass`` listing: HMMA (mma.sync tensor-core products), HGMMA
+    (wgmma warpgroup products), FFMA (float32 FMA), LDSM (ldmatrix), LDL/STL
+    (local memory: spills)."""
     counts, label = {}, None
     for line in sass.splitlines():
-        head = re.search(r"Function : \S*?(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_wide)?(?:_tc|_f32tc)?"
-                         r"_kernel)"
+        head = re.search(r"Function : \S*?(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_wide|_cluster)?"
+                         r"(?:_tc|_f32tc)?_kernel)"
                          r"I(\w*?)Li(\d+)E", line)
         if head:
             kern, typ, d = head.groups()
             label = f"{kern}<{'float' if typ == 'f' or '_f32tc' in kern else 'bf16'}, {d}>"
-            counts[label] = {op: 0 for op in ("HMMA", "FFMA", "LDSM", "LDL", "STL")}
+            counts[label] = {op: 0 for op in ("HMMA", "HGMMA", "FFMA", "LDSM", "LDL", "STL")}
             continue
         if "Function : " in line:
             label = None
@@ -1233,8 +1265,11 @@ def sass_counts(sass: str) -> dict:
 def phase_sass():
     """Disassemble the built flash library; raise unless every K2/K3/K4
     instantiation, bfloat16 and float32 (split TF32), the chunked ones for
-    head dims above 128 included, holds HMMA instructions, and no float32
-    CUDA-core (SIMT) flash kernel is left."""
+    head dims above 128 included, holds tensor-core instructions (HMMA or
+    HGMMA), the float32 cluster kernels (K3, K4 up to d = 1024) both their
+    wgmma score products (HGMMA) and their mma.sync output products
+    (HMMA), none spills to local memory, and no float32 CUDA-core (SIMT)
+    flash kernel is left."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
     tool = _cuobjdump()
@@ -1248,11 +1283,18 @@ def phase_sass():
     log(json.dumps({"sass": counts, "tool": tool}))
     # every built head dim, and the chunked kernel of each of K2, K3, K4
     want = 3 * len(fa.HEAD_DIMS) + 3
-    if len(tc) != want or any(v["HMMA"] == 0 for v in tc.values()):
-        raise AssertionError(f"bf16 K2/K3/K4 instantiations without HMMA: {tc}")
+    if len(tc) != want or any(v["HMMA"] + v["HGMMA"] == 0 for v in tc.values()):
+        raise AssertionError(f"bf16 K2/K3/K4 instantiations without tensor cores: {tc}")
     f32 = {k: v for k, v in counts.items() if "_f32tc_kernel<float" in k}
-    if len(f32) != want or any(v["HMMA"] == 0 for v in f32.values()):
-        raise AssertionError(f"float32 K2/K3/K4 instantiations without HMMA: {f32}")
+    cluster = {k: v for k, v in f32.items() if "_cluster_" in k}
+    if (len(f32) != want + 2 or any(v["HMMA"] + v["HGMMA"] == 0 for v in f32.values())
+            or len(cluster) != 2 or any(v["HGMMA"] == 0 or v["HMMA"] == 0
+                                        for v in cluster.values())):
+        raise AssertionError(f"float32 K2/K3/K4 instantiations without tensor cores, or "
+                             f"cluster kernels without HGMMA and HMMA: {f32}")
+    spills = {k: v for k, v in cluster.items() if v["LDL"] or v["STL"]}
+    if spills:
+        raise AssertionError(f"float32 cluster kernels spill to local memory: {spills}")
     simt = [k for k in counts if "_tc_kernel<" not in k and "_f32tc_kernel<" not in k]
     if simt:
         raise AssertionError(f"float32 CUDA-core flash kernels left: {simt}")
@@ -4560,9 +4602,11 @@ def main() -> int:
                     "bound_by": f32[kn]["bound_by"],
                     "library_ms": f32[kn]["sdpa_fwd" if kn == fa.FWD else "sdpa_bwd"]},
         # the chunked kernels at [256, 256, 256] causal (head dims above
-        # 128), and their launches on the LM path at head dim 256
+        # 128; the float32 K3 and K4 there are the cluster kernels, named by
+        # "function"), and their launches on the LM path at head dim 256
         # (phase_lm_wide), counted under their own keys
-        "d256": {dt: {"ms": wide[dt][kn]["kernel"], "plain_ms": wide[dt][kn]["plain"],
+        "d256": {dt: {"function": wide[dt][kn]["function"],
+                      "ms": wide[dt][kn]["kernel"], "plain_ms": wide[dt][kn]["plain"],
                       "bound_ms": wide[dt][kn]["bound"], "bound_by": wide[dt][kn]["bound_by"],
                       "library_ms": wide[dt][kn]["library"],
                       "launches": wide_launches[dt][kn]}

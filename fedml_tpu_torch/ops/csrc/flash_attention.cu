@@ -82,10 +82,12 @@
 // above 128, the chunked kernels (`flash_*_wide_*`, see their section) take
 // any multiple of 128, the output's head dim split over blocks (whole-d
 // tiles would not fit: a 64-row float32 K4 tile of D = 256 alone takes
-// ~67 KB). The wrappers (ops/flash_attention.py `at_built_head_dim`)
-// zero-pad any other d to the next of these and pass the true 1/sqrt(d) as
-// `scale`: zero columns add nothing to Q K^T or dO V^T, so P, LSE and delta
-// are the unpadded ones, and O, dQ, dK, dV are sliced back to d.
+// ~67 KB); the float32 K3 and K4 up to d = 1024 are cluster kernels
+// instead (`flash_bwd_*_cluster_f32tc_kernel`, see their section). The
+// wrappers (ops/flash_attention.py `at_built_head_dim`) zero-pad any other
+// d to the next of these and pass the true 1/sqrt(d) as `scale`: zero
+// columns add nothing to Q K^T or dO V^T, so P, LSE and delta are the
+// unpadded ones, and O, dQ, dK, dV are sliced back to d.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1584,8 +1586,9 @@ flash_bwd_dq_wide_f32tc_kernel(const float* __restrict__ q, const float* __restr
                     d);
 }
 
-// K4 for float32 above D = 128. Its two outputs go to separate blocks
-// (grid z: dV's chunks, then dK's), so a block holds one [16 x D]
+// K4 for float32 above D = 128 (the float32 chunked K3 and K4 serve only
+// above the cluster kernels' d = 1024). Its two outputs go to separate
+// blocks (grid z: dV's chunks, then dK's), so a block holds one [16 x D]
 // accumulator: both in one block spill (255 registers and 128 bytes of
 // local memory a thread: 1.846 ms against this form's 1.217 at [256, 256,
 // 256] causal, NVIDIA H100 80GB HBM3). A dV block needs only S = K Q^T for
@@ -1704,6 +1707,403 @@ flash_bwd_dkv_wide_f32tc_kernel(const float* __restrict__ q, const float* __rest
                             blockIdx.z - nc);
 }
 
+// ------------------------------------------------------------------ K3, K4 (float32) above D = 128: clusters
+//
+// The float32 K3 and K4 for d = nc·kWide up to kMaxCluster chunks (d ≤ 1024;
+// above it the chunked kernels above). The nc blocks of one 64-row tile
+// (K3: queries, K4: keys) form a thread-block cluster, and block c, the
+// cluster rank, owns the output's head-dim chunk c. Each score is formed
+// once: block c sums its chunk's share of S and of dO·Vᵀ (K4: their
+// transposes) over its 128 columns, the blocks read each other's shares
+// through distributed shared memory, and each adds the nc shares in rank
+// order, so every block holds the same S and dS bit for bit. The chunked
+// kernels above formed every score in every chunk's block (K4: in 2·nc
+// blocks): 2 and 6 products over the whole d a (key tile, query tile) pair
+// where this design takes 2.
+//
+// A block is two warpgroups (8 warps, one block an SM). Its shared memory:
+// - the resident 64-row tiles of its chunk (K3: Q and dO; K4: K and V),
+//   copied once and split once into TF32 hi and lo: 128 KB;
+// - the streamed 32-row tiles (K3: K and V; K4: Q and dO, with their LSE
+//   and δ rows), split once when they land: 64 KB, single-buffered; the
+//   next pair's rows are loaded into registers while the block computes on
+//   this one (their loads issued after the scores' wgmma, whose fence
+//   would wait for them), and split into place after it;
+// - the shares of S and dP, double-buffered by step: 32 KB.
+// Split tiles are kept in wgmma's 128-byte-swizzled K-major layout (`sw`):
+// warpgroup 0 forms S (K4: Sᵀ = K Qᵀ) and warpgroup 1 dP = dO Vᵀ (K4: V dOᵀ)
+// with wgmma m64n32k8 TF32 products straight from them, three a k8 step
+// (hi·lo, lo·hi, hi·hi). The tensor core sums kClGroup such steps from
+// zero, and each group is added to the float32 share rounded to nearest:
+// summed 128 to 512 deep inside the tensor core, the chunked kernels' dQ
+// drifted to 0.93-1.23 of FLASH_TOL (see mma_split_rn).
+// The output products run over keys (K4: queries), and TF32 wgmma takes B
+// only K-major: the streamed tile would need a transposed copy, 32 KB more
+// than the 227 KB a block may hold. They stay on mma.sync m16n8k8, their
+// A operand split from the score accumulators in registers and their B
+// fragments read already split from the swizzled tiles, conflict free.
+// K3: warpgroup w holds dQ's columns 64w.. of the chunk; K4: warpgroup 0
+// holds dV's chunk, warpgroup 1 dK's. The pair is bound by its bytes on
+// this card and runs at 5-6 times that bound at [256, 256, 256] causal: a
+// step is serial (scores, the cluster barrier and the shares' reads, the
+// output products, the next tiles' landing), with one streamed buffer and
+// no room for a second (PERF.md §6).
+constexpr int kClThreads = 256;   // two warpgroups
+constexpr int kClStream = 32;     // rows of a streamed tile: K3's keys, K4's queries
+constexpr int kMaxCluster = 8;    // the portable cluster size: d up to 1024
+constexpr int kClGroup = 4;       // k8 steps the tensor core sums a nearest add
+static_assert(kWide / 8 % kClGroup == 0, "the groups split a chunk's k8 steps");
+constexpr int kResFloats = kTile * kWide;        // a resident split half (hi or lo)
+constexpr int kStrFloats = kClStream * kWide;    // a streamed split half
+constexpr int kXchFloats = kTile * kClStream;    // a warpgroup's share of one step
+constexpr size_t kClusterSmem =
+    (4 * kResFloats + 4 * kStrFloats + 4 * kXchFloats + 2 * kClStream) * sizeof(float) + 1024;
+static_assert(kClusterSmem <= 232448, "a block's shared memory");
+
+// Float offset of element (r, c) of an R x 128 split tile: wgmma's K-major
+// layout with the 128-byte swizzle, in 32-column atoms of R rows, each row
+// 128 bytes whose 16-byte chunks are XOR-ed with r % 8 (8-row groups 1024
+// bytes apart, the tile 1024-byte aligned).
+template <int R>
+__device__ __forceinline__ int sw(int r, int c) {
+  return (c >> 5) * (R * 32) + (r >> 3) * 256 + (r & 7) * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) +
+         (c & 3);
+}
+
+// wgmma's shared-memory descriptor of k8 step s of an R-row split tile:
+// start address, stride 1024 bytes between 8-row groups, 128-byte swizzle.
+template <int R>
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t tile, int s) {
+  const uint32_t addr = tile + ((s >> 2) * R * 32 + (s & 3) * 8) * 4;
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps reads of x after the wgmma.wait before them
+__device__ __forceinline__ void fence_frags(float (&x)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(x[j][e])::"memory");
+}
+
+// x[64 x 32] = (scale_d ? x : 0) + A[64 x 8] B[32 x 8]^T in TF32, float32
+// sums, A and B from shared memory. Warp w of the warpgroup gets rows
+// 16w.. in mma.sync's accumulator layout (x[j]: columns 8j..).
+__device__ __forceinline__ void wgmma_tf32_m64n32(float (&x)[4][4], uint64_t a, uint64_t b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, "
+      "1;\n}\n"
+      : "+f"(x[0][0]), "+f"(x[0][1]), "+f"(x[0][2]), "+f"(x[0][3]), "+f"(x[1][0]),
+        "+f"(x[1][1]), "+f"(x[1][2]), "+f"(x[1][3]), "+f"(x[2][0]), "+f"(x[2][1]),
+        "+f"(x[2][2]), "+f"(x[2][3]), "+f"(x[3][0]), "+f"(x[3][1]), "+f"(x[3][2]), "+f"(x[3][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The warpgroup's [64 x 32] share of the scores over one 128-column chunk,
+// A (64 rows) and B (32 rows) both split: each group of kClGroup k8 steps
+// summed by the tensor core from zero into one of two buffers (the next
+// group runs while the last is added), and added to c rounded to nearest.
+__device__ __forceinline__ void chunk_scores(uint32_t ahi, uint32_t alo, uint32_t bhi,
+                                             uint32_t blo, float (&c)[4][4]) {
+  constexpr int kGroups = kWide / 8 / kClGroup;
+  float u[2][4][4];
+  zero_frags(c), zero_frags(u[0]), zero_frags(u[1]);
+#pragma unroll
+  for (int gi = 0; gi <= kGroups; ++gi) {
+    if (gi < kGroups) {
+      fence_frags(u[gi & 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int s = gi * kClGroup; s < (gi + 1) * kClGroup; ++s) {
+        wgmma_tf32_m64n32(u[gi & 1], wgmma_desc<kTile>(ahi, s), wgmma_desc<kClStream>(blo, s),
+                          s != gi * kClGroup);
+        wgmma_tf32_m64n32(u[gi & 1], wgmma_desc<kTile>(alo, s), wgmma_desc<kClStream>(bhi, s), 1);
+        wgmma_tf32_m64n32(u[gi & 1], wgmma_desc<kTile>(ahi, s), wgmma_desc<kClStream>(bhi, s), 1);
+      }
+      wgmma_commit();
+    }
+    if (gi == 0) continue;
+    if (gi < kGroups) wgmma_wait<1>();
+    else wgmma_wait<0>();
+    float (&v)[4][4] = u[(gi - 1) & 1];
+    fence_frags(v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] += v[j][e];
+  }
+}
+
+// R rows from row0 of a [len][d] float32 tensor's 128-column chunk (src at
+// the chunk's first column) into registers, 16 bytes a thread, zeros past
+// `len` ...
+template <int R>
+__device__ __forceinline__ void load_chunk_rows(float4 (&x)[R / 8], const float* __restrict__ src,
+                                                int row0, int len, int d) {
+#pragma unroll
+  for (int it = 0; it < R / 8; ++it) {
+    const int i = threadIdx.x + it * kClThreads, r = i >> 5, c4 = i & 31;
+    x[it] = row0 + r < len
+                ? __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(row0 + r) * d) + c4)
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+// ... and split into hi and lo at their places in a split tile: a quarter
+// warp stores one row's 128 swizzled bytes, conflict free.
+template <int R>
+__device__ __forceinline__ void store_split(const float4 (&x)[R / 8], float* hi, float* lo) {
+#pragma unroll
+  for (int it = 0; it < R / 8; ++it) {
+    const int i = threadIdx.x + it * kClThreads, r = i >> 5, c4 = i & 31;
+    const int off = sw<R>(r, 4 * c4);
+    uint32_t h[4], l[4];
+    split_tf32(x[it].x, h[0], l[0]);
+    split_tf32(x[it].y, h[1], l[1]);
+    split_tf32(x[it].z, h[2], l[2]);
+    split_tf32(x[it].w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// acc[16 x 8N] += A B for the split A fragment of k8 step j (keys, K4:
+// queries 8j + 2t, + 1 in its slots t, t + 4) and B the streamed tile's
+// rows there, columns col0 + 8n + g, read split.
+template <int N>
+__device__ __forceinline__ void acc_split_streamed(const uint32_t ahi[4], const uint32_t alo[4],
+                                                   const float* hi, const float* lo, int j,
+                                                   int col0, int g, int t, float (&acc)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int o0 = sw<kClStream>(8 * j + 2 * t, col0 + 8 * n + g);
+    const int o1 = sw<kClStream>(8 * j + 2 * t + 1, col0 + 8 * n + g);
+    const uint32_t bhi[2] = {__float_as_uint(hi[o0]), __float_as_uint(hi[o1])};
+    const uint32_t blo[2] = {__float_as_uint(lo[o0]), __float_as_uint(lo[o1])};
+    mma_split(acc[n], ahi, alo, bhi, blo);
+  }
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+// after cluster_wait, every block of the cluster has passed cluster_arrive:
+// its shared-memory writes before that are visible to the cluster's reads
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address of this block's shared `addr` in cluster block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// this thread's shared-memory writes are visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// K3 (kDkv false: out0 = dQ) or K4 (out0 = dK, out1 = dV); see above.
+template <bool kDkv>
+__device__ __forceinline__ void bwd_cluster_f32tc(const float* __restrict__ q,
+                                                  const float* __restrict__ k,
+                                                  const float* __restrict__ v,
+                                                  const float* __restrict__ dout,
+                                                  const float* __restrict__ lse,
+                                                  const float* __restrict__ delta,
+                                                  float* __restrict__ out0,
+                                                  float* __restrict__ out1, int s_len,
+                                                  int sk_len, int causal, float scale, int d) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t raw = smem_addr(tc_smem), base = (raw + 1023) & ~1023u;
+  float* res = reinterpret_cast<float*>(tc_smem + (base - raw));  // A1 hi, lo, A2 hi, lo
+  float* str = res + 4 * kResFloats;                              // B1 hi, lo, B2 hi, lo
+  float* xch = str + 4 * kStrFloats;                              // [step & 1][S, dP] shares
+  float* rows = xch + 4 * kXchFloats;                             // K4: the tile's LSE, delta
+
+  const int c = cluster_rank(), nc = d / kWide, bh = blockIdx.x;
+  const int wg = threadIdx.x >> 7, t128 = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31, m0 = (t128 >> 5) * 16, g = lane >> 2, t = lane & 3;
+  // K3: resident queries (Q, dO), streamed keys (K, V); K4 the other way
+  const int res_len = kDkv ? sk_len : s_len, str_len = kDkv ? s_len : sk_len;
+  const int tile = kDkv ? blockIdx.y : gridDim.y - 1 - blockIdx.y;  // heaviest first
+  const int r0 = tile * kTile;
+  const size_t res_off = static_cast<size_t>(bh) * res_len * d + c * kWide;
+  const size_t str_off = static_cast<size_t>(bh) * str_len * d + c * kWide;
+  const float* a1 = (kDkv ? k : q) + res_off;
+  const float* a2 = (kDkv ? v : dout) + res_off;
+  const float* b1 = (kDkv ? q : k) + str_off;
+  const float* b2 = (kDkv ? dout : v) + str_off;
+  const float* lse_b = lse + static_cast<size_t>(bh) * s_len;
+  const float* delta_b = delta + static_cast<size_t>(bh) * s_len;
+
+  {
+    float4 x[kTile / 8];
+    load_chunk_rows<kTile>(x, a1, r0, res_len, d);
+    store_split<kTile>(x, res, res + kResFloats);
+    load_chunk_rows<kTile>(x, a2, r0, res_len, d);
+    store_split<kTile>(x, res + 2 * kResFloats, res + 3 * kResFloats);
+  }
+  const int n_str = (str_len + kClStream - 1) / kClStream;
+  // a streamed tile is live unless every (row, col) pair with the resident one has col > row
+  const int it0 = kDkv && causal ? r0 / kClStream : 0;
+  const int it_end = !kDkv && causal ? min(n_str, (r0 + kTile - 1) / kClStream + 1) : n_str;
+  float4 pre1[kClStream / 8], pre2[kClStream / 8];  // the next streamed pair, in flight
+  float pre_row = 0.0f;                             // K4: its LSE or delta row
+  auto prefetch = [&](int it) {
+    load_chunk_rows<kClStream>(pre1, b1, it * kClStream, str_len, d);
+    load_chunk_rows<kClStream>(pre2, b2, it * kClStream, str_len, d);
+    if (kDkv && threadIdx.x < 2 * kClStream) {
+      const int r = it * kClStream + (threadIdx.x & (kClStream - 1));
+      pre_row = r < s_len ? (threadIdx.x < kClStream ? lse_b : delta_b)[r] : 0.0f;
+    }
+  };
+  auto land = [&]() {
+    store_split<kClStream>(pre1, str, str + kStrFloats);
+    store_split<kClStream>(pre2, str + 2 * kStrFloats, str + 3 * kStrFloats);
+    if (kDkv && threadIdx.x < 2 * kClStream) rows[threadIdx.x] = pre_row;
+    fence_async_smem();
+  };
+  prefetch(it0);
+  land();
+  __syncthreads();
+
+  // K3: this lane's query rows ra (accumulators 0, 1) and ra + 8 (2, 3);
+  // K4: its keys
+  const int ra = r0 + m0 + g, rb = ra + 8;
+  float lse_r[2] = {0.0f, 0.0f}, delta_r[2] = {0.0f, 0.0f};
+  if (!kDkv) {
+    lse_r[0] = ra < s_len ? lse_b[ra] : 0.0f;
+    lse_r[1] = rb < s_len ? lse_b[rb] : 0.0f;
+    delta_r[0] = ra < s_len ? delta_b[ra] : 0.0f;
+    delta_r[1] = rb < s_len ? delta_b[rb] : 0.0f;
+  }
+  constexpr int kN = kDkv ? kWide / 8 : kWide / 16;  // the warpgroup's output columns / 8
+  float acc[kN][4];
+  zero_frags(acc);
+  const uint32_t res_a = smem_addr(res + 2 * wg * kResFloats);
+  const uint32_t str_a = smem_addr(str + 2 * wg * kStrFloats);
+  for (int it = it0; it < it_end; ++it) {
+    const int step = it - it0;
+    // warpgroup 0: this chunk's share of S (K4: S^T); warpgroup 1: of dP (dP^T)
+    float part[4][4];
+    chunk_scores(res_a, res_a + 4 * kResFloats, str_a, str_a + 4 * kStrFloats, part);
+    float* mine = xch + ((step & 1) * 2 + wg) * kXchFloats;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(mine + (j * 128 + t128) * 4) =
+          make_float4(part[j][0], part[j][1], part[j][2], part[j][3]);
+    cluster_arrive();
+    // the next streamed pair's loads fly while the shares are traded and the
+    // outputs summed
+    if (it + 1 < it_end) prefetch(it + 1);
+    cluster_wait();
+    // the nc shares added in rank order: every block gets the same S and dP
+    float s[4][4], dp[4][4];
+    const uint32_t shares = smem_addr(xch + (step & 1) * 2 * kXchFloats) + t128 * 16;
+    for (int r = 0; r < nc; ++r) {
+      const uint32_t at = cluster_addr(shares, r);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 a = ld_cluster(at + j * 128 * 16);
+        const float4 b = ld_cluster(at + kXchFloats * 4 + j * 128 * 16);
+        if (r == 0) {
+          s[j][0] = a.x, s[j][1] = a.y, s[j][2] = a.z, s[j][3] = a.w;
+          dp[j][0] = b.x, dp[j][1] = b.y, dp[j][2] = b.z, dp[j][3] = b.w;
+        } else {
+          s[j][0] += a.x, s[j][1] += a.y, s[j][2] += a.z, s[j][3] += a.w;
+          dp[j][0] += b.x, dp[j][1] += b.y, dp[j][2] += b.z, dp[j][3] += b.w;
+        }
+      }
+    }
+    const int j0 = it * kClStream;  // the streamed tile's first key (K4: query)
+    const float* bhi = str + (kDkv && wg == 0 ? 2 : 0) * kStrFloats;  // K3: K; K4: dO or Q
+    if constexpr (!kDkv) {
+      dq_scores<4>(s, dp, lse_r, delta_r, ra, rb, j0, 2 * t, sk_len, causal != 0, scale);
+      if (!causal || j0 <= r0 + m0 + 15) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t hi[4], lo[4];
+          a_split_acc(dp[j], hi, lo);
+          acc_split_streamed<kN>(hi, lo, bhi, bhi + kStrFloats, j, wg * (kWide / 2), g, t, acc);
+        }
+      }
+    } else {
+      dkv_scores<4>(s, dp, rows, rows + kClStream, j0, ra, 2 * t, s_len, sk_len, causal != 0,
+                    scale);
+      if (!causal || j0 + kClStream - 1 >= r0 + m0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // dV += P^T dO, dK += dS^T Q
+          uint32_t hi[4], lo[4];
+          float x[4];  // chosen a value at a time: a pointer to either would put both in memory
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[e] = wg == 0 ? s[j][e] : dp[j][e];
+          a_split_acc(x, hi, lo);
+          acc_split_streamed<kN>(hi, lo, bhi, bhi + kStrFloats, j, 0, g, t, acc);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the streamed tiles
+    if (it + 1 < it_end) land();
+    __syncthreads();
+  }
+  cluster_arrive();  // no block leaves while another may read its shares
+  cluster_wait();
+  const size_t out_off = static_cast<size_t>(bh) * res_len * d + c * kWide;
+  if constexpr (!kDkv)
+    store_rows_f32<kWide / 2>(acc, out0 + out_off + wg * (kWide / 2), r0 + m0, s_len, g, t, d);
+  else
+    store_rows_f32<kWide>(acc, (wg == 0 ? out1 : out0) + out_off, r0 + m0, sk_len, g, t, d);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kClThreads, 1)
+flash_bwd_dq_cluster_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ dout,
+                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                  float* __restrict__ dq, int s_len, int sk_len, int causal,
+                                  float scale, int d) {
+  static_assert(D == kWide, "the cluster kernels' chunk");
+  bwd_cluster_f32tc<false>(q, k, v, dout, lse, delta, dq, nullptr, s_len, sk_len, causal, scale,
+                           d);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kClThreads, 1)
+flash_bwd_dkv_cluster_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                   const float* __restrict__ v, const float* __restrict__ dout,
+                                   const float* __restrict__ lse, const float* __restrict__ delta,
+                                   float* __restrict__ dk, float* __restrict__ dv, int s_len,
+                                   int sk_len, int causal, float scale, int d) {
+  static_assert(D == kWide, "the cluster kernels' chunk");
+  bwd_cluster_f32tc<true>(q, k, v, dout, lse, delta, dk, dv, s_len, sk_len, causal, scale, d);
+}
+
 // ------------------------------------------------------------------ launch
 
 struct Args {
@@ -1729,10 +2129,15 @@ int opt_in(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
+// The kernel families, as kernel_info reports them: built for the head dim,
+// chunked (above kMaxHeadDim), or the float32 K3/K4 cluster kernels
+enum Family { kPerDim = 0, kChunked = 1, kCluster = 2 };
+
 // out: threads a block, registers a thread, local memory bytes a thread,
-// dynamic shared memory bytes a block, blocks resident on one SM
+// dynamic shared memory bytes a block, blocks resident on one SM, and the
+// kernel's Family
 template <typename Kernel>
-int kernel_info(Kernel kernel, int threads, size_t smem, int* out) {
+int kernel_info(Kernel kernel, int threads, size_t smem, int* out, Family family = kPerDim) {
   int err = opt_in(kernel, smem);
   cudaFuncAttributes attr;
   if (err == 0) err = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
@@ -1746,6 +2151,7 @@ int kernel_info(Kernel kernel, int threads, size_t smem, int* out) {
   out[2] = static_cast<int>(attr.localSizeBytes);
   out[3] = static_cast<int>(smem);
   out[4] = blocks;
+  out[5] = family;
   return 0;
 }
 
@@ -1863,9 +2269,30 @@ struct Backward<bf16, D> {
 template <typename T>
 struct Wide;
 
+// a cluster of `cluster` blocks along grid z (cudaLaunchKernelEx)
+template <typename... P, typename... A>
+int launch_cluster(void (*kernel)(P...), dim3 grid, int cluster, size_t smem,
+                   cudaStream_t stream, A... args) {
+  const int err = opt_in(kernel, smem);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kClThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, static_cast<P>(args)...));
+}
+
 template <>
 struct Wide<float> {
-  static constexpr int kDkvBlocks = 2;  // dV's and dK's blocks a chunk
+  static constexpr int kDkvBlocks = 2;  // the chunked K4: dV's and dK's blocks a chunk
   static constexpr size_t kFwdSmem =
       2 * (kTile * f32_qk_ld<kWide>() + kF32Keys * (f32_qk_ld<kWide>() + f32_v_ld<kWide>())) *
       sizeof(float);
@@ -1883,7 +2310,14 @@ struct Wide<float> {
         a.causal, a.scale, a.head_dim);
     return 0;
   }
+  // K3 and K4 up to kMaxCluster chunks: one cluster a tile, a block a chunk
+  static bool clustered(int head_dim) { return head_dim / kWide <= kMaxCluster; }
   static int dq(dim3 grid, const Args& a) {
+    const int nc = a.head_dim / kWide;
+    if (clustered(a.head_dim))
+      return launch_cluster(flash_bwd_dq_cluster_f32tc_kernel<kWide>, dim3(grid.x, grid.y, nc),
+                            nc, kClusterSmem, a.stream, a.q, a.k, a.v, a.dout, a.lse_in,
+                            a.delta, a.o, a.s_len, a.sk_len, a.causal, a.scale, a.head_dim);
     const int err = opt_in(flash_bwd_dq_wide_f32tc_kernel<kWide>, kDqSmem);
     if (err != 0) return err;
     flash_bwd_dq_wide_f32tc_kernel<kWide><<<grid, kTcThreads, kDqSmem, a.stream>>>(
@@ -1893,27 +2327,42 @@ struct Wide<float> {
     return 0;
   }
   static int dkv(dim3 grid, const Args& a) {
+    const int nc = a.head_dim / kWide;
+    if (clustered(a.head_dim))
+      return launch_cluster(flash_bwd_dkv_cluster_f32tc_kernel<kWide>, dim3(grid.x, grid.y, nc),
+                            nc, kClusterSmem, a.stream, a.q, a.k, a.v, a.dout, a.lse_in,
+                            a.delta, a.o, a.dv, a.s_len, a.sk_len, a.causal, a.scale,
+                            a.head_dim);
     const int err = opt_in(flash_bwd_dkv_wide_f32tc_kernel<kWide>, kDkvSmem);
     if (err != 0) return err;
-    flash_bwd_dkv_wide_f32tc_kernel<kWide><<<grid, kTcThreads, kDkvSmem, a.stream>>>(
+    flash_bwd_dkv_wide_f32tc_kernel<kWide><<<dim3(grid.x, grid.y, kDkvBlocks * nc), kTcThreads,
+                                             kDkvSmem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse_in, a.delta,
         static_cast<float*>(a.o), static_cast<float*>(a.dv), a.s_len, a.sk_len, a.causal,
         a.scale, a.head_dim);
     return 0;
   }
-  static int info(Which which, int* out) {
+  static int info(Which which, int head_dim, int* out) {
     if (which == Which::kFwd)
-      return kernel_info(flash_fwd_wide_f32tc_kernel<kWide>, kTcThreads, kFwdSmem, out);
+      return kernel_info(flash_fwd_wide_f32tc_kernel<kWide>, kTcThreads, kFwdSmem, out,
+                         kChunked);
+    if (clustered(head_dim))
+      return which == Which::kDq
+                 ? kernel_info(flash_bwd_dq_cluster_f32tc_kernel<kWide>, kClThreads,
+                               kClusterSmem, out, kCluster)
+                 : kernel_info(flash_bwd_dkv_cluster_f32tc_kernel<kWide>, kClThreads,
+                               kClusterSmem, out, kCluster);
     return which == Which::kDq
-               ? kernel_info(flash_bwd_dq_wide_f32tc_kernel<kWide>, kTcThreads, kDqSmem, out)
-               : kernel_info(flash_bwd_dkv_wide_f32tc_kernel<kWide>, kTcThreads, kDkvSmem, out);
+               ? kernel_info(flash_bwd_dq_wide_f32tc_kernel<kWide>, kTcThreads, kDqSmem, out,
+                             kChunked)
+               : kernel_info(flash_bwd_dkv_wide_f32tc_kernel<kWide>, kTcThreads, kDkvSmem, out,
+                             kChunked);
   }
 };
 
 template <>
 struct Wide<bf16> {
-  static constexpr int kDkvBlocks = 1;
   static constexpr size_t kFwdSmem = 2 * 3 * tc_tile_bytes<kWide>();
   // two buffers; then the own slot (K3: K's chunk cc; K4: Q's and dO's)
   static constexpr size_t kDqSmem = (2 * 4 + 1) * tc_tile_bytes<kWide>();
@@ -1948,12 +2397,14 @@ struct Wide<bf16> {
         a.scale, a.head_dim);
     return 0;
   }
-  static int info(Which which, int* out) {
+  static int info(Which which, int, int* out) {
     if (which == Which::kFwd)
-      return kernel_info(flash_fwd_wide_tc_kernel<kWide>, kTcThreads, kFwdSmem, out);
+      return kernel_info(flash_fwd_wide_tc_kernel<kWide>, kTcThreads, kFwdSmem, out, kChunked);
     return which == Which::kDq
-               ? kernel_info(flash_bwd_dq_wide_tc_kernel<kWide>, kTcThreads, kDqSmem, out)
-               : kernel_info(flash_bwd_dkv_wide_tc_kernel<kWide>, kTcThreads, kDkvSmem, out);
+               ? kernel_info(flash_bwd_dq_wide_tc_kernel<kWide>, kTcThreads, kDqSmem, out,
+                             kChunked)
+               : kernel_info(flash_bwd_dkv_wide_tc_kernel<kWide>, kTcThreads, kDkvSmem, out,
+                             kChunked);
   }
 };
 
@@ -1962,7 +2413,7 @@ template <typename T>
 int launch_wide(Which which, const Args& a) {
   const dim3 grid(a.bh, which == Which::kDkv ? (a.sk_len + kTile - 1) / kTile
                                              : (a.s_len + kTile - 1) / kTile,
-                  a.head_dim / kWide * (which == Which::kDkv ? Wide<T>::kDkvBlocks : 1));
+                  a.head_dim / kWide);
   int err = which == Which::kFwd ? Wide<T>::fwd(grid, a)
             : which == Which::kDq ? Wide<T>::dq(grid, a)
                                   : Wide<T>::dkv(grid, a);
@@ -2025,8 +2476,8 @@ struct Launch {
 
 template <typename T, int D>
 struct Info {
-  static int run(Which which, int* out) {
-    if constexpr (D == 0) return Wide<T>::info(which, out);
+  static int run(Which which, int head_dim, int* out) {
+    if constexpr (D == 0) return Wide<T>::info(which, head_dim, out);
     else return info<T, D>(which, out);
   }
 };
@@ -2069,11 +2520,11 @@ int fedml_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k, c
 }
 
 // The launch configuration of one kernel and what the compiler made of it:
-// which 0 = K2, 1 = K3, 2 = K4; out[5] as kernel_info fills it. Returns a
+// which 0 = K2, 1 = K3, 2 = K4; out[6] as kernel_info fills it. Returns a
 // cudaError_t, or -1 for a (dtype, head_dim, which) with no kernel.
 int fedml_flash_kernel_info(int dtype, int head_dim, int which, int* out) {
   if (which < 0 || which > 2) return -1;
-  return dispatch<Info>(dtype, head_dim, static_cast<Which>(which), out);
+  return dispatch<Info>(dtype, head_dim, static_cast<Which>(which), head_dim, out);
 }
 
 }  // extern "C"

@@ -14,7 +14,8 @@ Two versions of each kernel's function:
   :func:`flash_backward_dkv` for CUDA tensors. They pick their own tiles
   (:data:`KERNEL_TILE` rows), so on the card ``block_q``/``block_k`` only
   bound what the caller may pass. All of them run on the tensor cores
-  (``mma.sync`` with float32 sums). For bfloat16: K2 sums l over the
+  (``mma.sync`` with float32 sums; the float32 cluster kernels form their
+  scores with ``wgmma``). For bfloat16: K2 sums l over the
   float32 P before it rounds P for P·V; K4 multiplies its float32 P and dS
   as bf16 hi + lo pairs, so it rounds neither. For float32, every operand
   of every product (Q, K, V, dO, and P and dS from the accumulators) is
@@ -29,7 +30,11 @@ The kernels are built for the head dims :data:`HEAD_DIMS`; above the
 largest, the chunked kernels take any multiple of :data:`WIDE_CHUNK`: a
 third grid dimension splits the output's head dim into chunks of that
 width, and each block forms its scores over the whole d through shared
-memory, chunk by chunk. On the card any other d is zero-padded to the next
+memory, chunk by chunk. The float32 K3 and K4 up to 8 chunks (d ≤ 1024)
+are cluster kernels instead: the chunks' blocks of a tile form a
+thread-block cluster, each sums its chunk's share of the scores on
+``wgmma`` and reads the others' shares from their shared memory, so each
+score is formed once. On the card any other d is zero-padded to the next
 width the kernels take (:func:`built_head_dim`, :func:`at_built_head_dim`):
 zero columns change neither Q·Kᵀ, dO·Vᵀ, LSE nor δ, the caller's scale
 stays 1/√d of the true d, and O, dQ, dK and dV are sliced back to d.
@@ -206,19 +211,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def kernel_info(name: str, dtype: torch.dtype, head_dim: int) -> Dict[str, int]:
-    """How kernel ``name`` is launched for (dtype, head_dim) (a head dim
-    above :data:`HEAD_DIMS` names the chunked kernel) and what the
-    compiler made of it: threads a block, registers and local-memory bytes
-    a thread (spills land there), dynamic shared memory a block, and the
+def kernel_info(name: str, dtype: torch.dtype, head_dim: int) -> Dict[str, int | str]:
+    """The kernel that ``name`` launches for (dtype, head_dim), as the
+    launch picks it at :func:`built_head_dim` (head_dim): its CUDA
+    ``function`` (built for the head dim, chunked, or the float32 K3/K4
+    cluster kernel), threads a block, registers and local-memory bytes a
+    thread (spills land there), dynamic shared memory a block, and the
     blocks one SM holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    out = (ctypes.c_int * 5)()
-    err = _lib().fedml_flash_kernel_info(_DTYPE_CODE[dtype], head_dim,
+    out = (ctypes.c_int * 6)()
+    err = _lib().fedml_flash_kernel_info(_DTYPE_CODE[dtype], built_head_dim(head_dim),
                                          KERNEL_NAMES.index(name), out)
     if err != 0:
         raise RuntimeError(f"{name}: no kernel info for {dtype}, head dim {head_dim}: error {err}")
+    stem = {FWD: "flash_fwd", BWD_DQ: "flash_bwd_dq", BWD_DKV: "flash_bwd_dkv"}[name]
+    family = ("", "_wide", "_cluster")[out[5]]  # csrc Family
     keys = ("threads", "registers", "local_bytes", "smem_bytes", "blocks_per_sm")
-    return dict(zip(keys, out))
+    return {"function": stem + family + ("_f32tc_kernel" if dtype == torch.float32
+                                         else "_tc_kernel"), **dict(zip(keys, out))}
 
 
 def _launch(name: str, fn, q, operands, Sk: int, causal: bool, scale: float) -> None:

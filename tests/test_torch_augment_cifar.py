@@ -28,6 +28,16 @@ from fedml_tpu_torch.train.augment import (  # noqa: E402
     apply_augment, draw_offsets, make_augment, resolve_augment,
 )
 
+from torch_parity import torch_threads  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # ResNet-56 rounds on the CPU: under 6 test workers 8 threads a process
+    # spin against each other
+    with torch_threads(1):
+        yield
+
 
 def _reference_offsets(rng, n, H, W, pad, flip, cutout):
     """The offsets the reference's make_augment draws from ``rng``."""

@@ -55,7 +55,7 @@ from fedml_tpu_torch.bridge import to_flax  # noqa: E402
 
 from torch_parity import (  # noqa: E402
     flat_params, jax_ditto_personal_perm_fn, jax_noise_fn, jax_round_perm_fn,
-    private_reference_programs, time_limit,
+    private_reference_programs, time_limit, torch_threads,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -87,7 +87,9 @@ ALGOS = {
 
 @pytest.fixture(scope="module", autouse=True)
 def _private_programs(tmp_path_factory):
-    with private_reference_programs(tmp_path_factory.mktemp("exec_cache")):
+    # the port on one thread: under 6 test workers 8 threads a process spin
+    # against each other
+    with torch_threads(1), private_reference_programs(tmp_path_factory.mktemp("exec_cache")):
         yield
 
 

@@ -35,7 +35,7 @@ from fedml_tpu_torch.train.client import make_task_loss  # noqa: E402
 
 from torch_parity import (  # noqa: E402
     flat_params, jax_round_perm_fn, population_config, private_reference_programs,
-    reference_record,
+    reference_record, torch_threads,
 )
 
 VARIANTS = {
@@ -49,7 +49,9 @@ SEQ = 5
 
 @pytest.fixture(scope="module", autouse=True)
 def _private_programs(tmp_path_factory):
-    with private_reference_programs(tmp_path_factory.mktemp("exec_cache")):
+    # the port on one thread: under 6 test workers 8 threads a process spin
+    # against each other
+    with torch_threads(1), private_reference_programs(tmp_path_factory.mktemp("exec_cache")):
         yield
 
 

@@ -37,8 +37,18 @@ from fedml_tpu_torch.bridge import from_flax, to_flax_variables  # noqa: E402
 from fedml_tpu_torch.models import STATS, ModelDef, create_model, split_stats  # noqa: E402
 from fedml_tpu_torch.train.losses import masked_softmax_ce  # noqa: E402
 
+from torch_parity import torch_threads  # noqa: E402
+
 LOGIT_TOL, TRAIN_LOGIT_TOL, GRAD_TOL = 1e-5, 1e-4, 1e-3
 FIXTURE = "fedml_tpu/models/pretrained_weights/resnet56_cifar10_synth.npz"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # full-width models on the CPU: under 6 test workers 8 threads a process
+    # spin against each other
+    with torch_threads(1):
+        yield
 
 
 def _pair(case):
